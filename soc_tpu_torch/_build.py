@@ -1,0 +1,73 @@
+"""Build and load the package's CUDA kernels.
+
+Each kernel source under ``csrc/`` is compiled by ``nvcc`` into a shared
+library with a plain C interface and loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). Libraries go to ``_build/`` next to
+this file (listed in .gitignore), named by the hash of the source and the
+flags: a changed source builds anew, an unchanged one loads at once.
+Nothing is built when the module is imported, only at a kernel's first
+launch.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_loaded = {}
+build_log = {}      # source name -> (seconds, nvcc output) of this process
+
+
+def _nvcc():
+    cand = [os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"]
+    for root in cand:
+        path = os.path.join(root, "bin", "nvcc") if root else ""
+        if path and os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def library(name):
+    """ctypes handle of csrc/<name>.cu, compiled on first use."""
+    with _lock:
+        if name in _loaded:
+            return _loaded[name]
+        src = os.path.join(CSRC, name + ".cu")
+        with open(src, "rb") as fp:
+            digest = hashlib.sha256(fp.read() + " ".join(NVCC_FLAGS)
+                                    .encode()).hexdigest()[:16]
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        out = os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest))
+        if not os.path.exists(out):
+            t0 = time.time()
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError("nvcc failed on %s:\n%s%s"
+                                       % (src, proc.stdout, proc.stderr))
+                os.replace(tmp, out)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+            build_log[name] = (time.time() - t0, proc.stdout + proc.stderr)
+        lib = ctypes.CDLL(out)
+        _loaded[name] = lib
+        return lib
