@@ -5,8 +5,9 @@ library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to ``_build/`` next to
 this file (listed in .gitignore), named by the hash of the source and the
 flags: a changed source builds anew, an unchanged one loads at once.
-Nothing is built when the module is imported, only at a kernel's first
-launch.
+Nothing is built when the module is imported: a kernel's first launch
+builds its own source only. Several threads may build different sources
+at once.
 """
 
 import ctypes
@@ -21,6 +22,8 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
+# no --use_fast_math: the probes' gathers are held to their plain versions
+# bit for bit, and the A2E solve divides and clamps near float32's limits
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,31 +46,32 @@ def _nvcc():
 
 
 def library(name):
-    """ctypes handle of csrc/<name>.cu, compiled on first use."""
+    """ctypes handle of csrc/<name>.cu, compiled on first use (only this
+    source is built)."""
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        src = os.path.join(CSRC, name + ".cu")
-        with open(src, "rb") as fp:
-            digest = hashlib.sha256(fp.read() + " ".join(NVCC_FLAGS)
-                                    .encode()).hexdigest()[:16]
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as fp:
+        digest = hashlib.sha256(fp.read() + " ".join(NVCC_FLAGS)
+                                .encode()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest))
+    if not os.path.exists(out):
+        nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        out = os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest))
-        if not os.path.exists(out):
-            t0 = time.time()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                      capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError("nvcc failed on %s:\n%s%s"
-                                       % (src, proc.stdout, proc.stderr))
-                os.replace(tmp, out)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            build_log[name] = (time.time() - t0, proc.stdout + proc.stderr)
-        lib = ctypes.CDLL(out)
-        _loaded[name] = lib
-        return lib
+        t0 = time.time()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                                  capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed on %s:\n%s" % (src, log))
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        build_log[name] = (time.time() - t0, log)
+    with _lock:
+        return _loaded.setdefault(name, ctypes.CDLL(out))

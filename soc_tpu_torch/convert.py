@@ -10,9 +10,11 @@ given device, so that both packages can compute on identical inputs:
   grid_from_numpy(nx, ny, nz, dens, lcells, off, par, device)   -> Grid
   medium_from_numpy(abs_gl, sca_gl, csc, dsc, tw, device)       -> Medium
   temperature_table_from_numpy(ttt, emin, ke, ne, device)       -> TemperatureTable
-  stacks_from_numpy(w_flat, w_fold, tdown, ea, device)          -> A2EStacks
+  stacks_from_numpy(w_flat, w_fold, tdown, ea, device, w_unf=None)
+                                                                -> A2EStacks
       (soc_tpu's prepare_size_arrays / prepare_size_arrays_fused outputs
-      stacked on a size axis; w_flat may be None for kernel-only stacks)
+      stacked on a size axis; w_flat may be None for kernel-only stacks,
+      w_fold None for clamp-kernel stacks, which carry w_unf instead)
 """
 
 import numpy as np

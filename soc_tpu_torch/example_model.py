@@ -125,6 +125,25 @@ def synthetic_absorbed(rng, solver, freq, cells):
     return (base[None, :] * scale[:, None] * np.exp(-tau)).astype(np.float32)
 
 
+def negate_one_weight(solver, isize=0):
+    """Flip the sign of one heating weight of size ``isize`` (the middle
+    entry of its sparse stream), the kind of input that needs the A2E
+    clamp path. Call before any A2E preparation: the per-size arrays are
+    cached on the solver."""
+    iw = solver.sizes[isize].iw
+    k = len(iw) // 2
+    iw[k] = -abs(iw[k]) if iw[k] != 0 else -1.0
+    return solver
+
+
+def with_negative_entries(rng, absorbed, share=0.2):
+    """A copy of ``absorbed`` with a share of its entries times -0.3, as a
+    reference-subtracted (delta) field has them."""
+    out = np.array(absorbed, np.float32)
+    out[rng.random(out.shape) < share] *= -0.3
+    return out
+
+
 def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
                 bgpac=None, map_dx=1.0, gl_pc=0.01, extra=""):
     """Write a model into directory d and return the ini path.

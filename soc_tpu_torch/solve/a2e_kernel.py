@@ -1,15 +1,18 @@
-"""The A2E stochastic-heating solve: the hand-written CUDA kernel
-(``csrc/a2e.cu``, replacing soc_tpu's Pallas kernel in
-``solve/pallas_a2e.py``) and its plain PyTorch twin.
+"""The A2E stochastic-heating solve: the hand-written CUDA kernels
+(``csrc/a2e.cu``) and their plain PyTorch twin.
 
-``solve_all_sizes`` is the wrapper the pipeline calls. For CUDA tensors it
-launches the kernel, or raises; only for CPU tensors does it run the plain
-twin. The plain twin ``solve_batch`` is soc_tpu's exact XLA path written in
-torch: the heating matrix with each entry clamped at zero, the fold, the
-forward substitution with the overflow rescale, and the emission, in
-float32 matrix products (no TF32). The kernel takes the pre-folded weights
-instead and cannot apply that clamp, so the two agree only when all
-weights and all absorbed values are non-negative (the caller checks).
+``solve_all_sizes`` launches ``a2e_all_sizes``, which replaces soc_tpu's
+Pallas kernel in ``solve/pallas_a2e.py``. It takes the pre-folded weights
+and so cannot apply the exact path's per-entry clamp: it equals the exact
+path only when all weights and all absorbed values are non-negative (the
+caller checks). ``solve_all_sizes_clamp`` launches ``a2e_clamp``, the exact
+path for any signs, from the unfolded weights.
+
+Both wrappers launch their kernel for CUDA tensors, or raise; only for CPU
+tensors do they run the plain twin. The plain twin ``solve_batch`` is
+soc_tpu's exact XLA path written in torch: the heating matrix with each
+entry clamped at zero, the fold, the forward substitution with the
+overflow rescale, and the emission, in float32 matrix products (no TF32).
 """
 
 import ctypes
@@ -19,7 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-launches = 0        # kernel launches made by solve_all_sizes
+launches = 0        # a2e_all_sizes launches made by solve_all_sizes
+clamp_launches = 0  # a2e_clamp launches made by solve_all_sizes_clamp
 
 
 @dataclass(frozen=True)
@@ -27,18 +31,23 @@ class A2EStacks:
     """Per-size A2E arrays of the stochastic sizes, stacked on axis 0.
 
     w_flat : [S, NE*NE, NFREQ] dense heating weights (AF folded in), for
-             the plain twin; None in stacks built for the kernel alone
+             the plain twin; None in stacks built for the kernels alone
     w_fold : [S, NFREQ, NE*NE] the same weights with the u-cumsum fold
-             pre-applied in float64, transposed, for the kernel
+             pre-applied in float64, transposed, for a2e_all_sizes; None
+             in stacks built for the clamp kernel
     tdown  : [S, NE] cooling rates
     ea     : [S, NFREQ, NE] emission arrays (Ibeg-masked)
+    w_unf  : [S, NFREQ, NE*NE] the unfolded weights, column-major:
+             w_unf[s, f, l*NE + u] = w_flat[s, u*NE + l, f], for
+             a2e_clamp; None unless the clamp path was asked for
     """
 
     w_flat: Optional[torch.Tensor]
-    w_fold: torch.Tensor
+    w_fold: Optional[torch.Tensor]
     tdown: torch.Tensor
     ea: torch.Tensor
     ne: int
+    w_unf: Optional[torch.Tensor] = None
 
     @property
     def nsize(self):
@@ -104,8 +113,9 @@ def _lib():
     lib = _build.library("a2e")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.a2e_all_sizes.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.a2e_all_sizes.restype = ctypes.c_int
+        for fn in (lib.a2e_all_sizes, lib.a2e_clamp):
+            fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+            fn.restype = ctypes.c_int
         lib.a2e_smem_bytes.argtypes = [i, i, i]
         lib.a2e_smem_bytes.restype = ctypes.c_size_t
         lib.a2e_max_smem.argtypes = [i]
@@ -142,15 +152,9 @@ def _check_cuda(name, t, device, shape):
         raise ValueError("%s must be contiguous" % name)
 
 
-def solve_all_sizes(stacks, absorbed, align=None):
-    """EMIT summed over all stochastic sizes for [cells, NFREQ] absorbed
-    photons, and the align-weighted sum when align [S, cells] is given.
-    Returns (tot, ptot or None).
-
-    CUDA tensors: the hand kernel. CPU tensors: the plain twin."""
-    global launches
-    if absorbed.device.type == "cpu":
-        return solve_all_sizes_plain(stacks, absorbed, align)
+def _launch(kernel, weights_name, stacks, absorbed, align):
+    """Checks the inputs and launches csrc/a2e.cu's ``kernel`` on CUDA
+    tensors; returns (tot, ptot or None)."""
     if absorbed.device.type != "cuda":
         raise ValueError("A2E solve: unsupported device %s" % absorbed.device)
     device = absorbed.device
@@ -159,8 +163,12 @@ def solve_all_sizes(stacks, absorbed, align=None):
     if ne < 2 or cells == 0:
         raise ValueError("A2E kernel: needs NE >= 2 and cells > 0 "
                          "(NE=%d, cells=%d)" % (ne, cells))
+    weights = getattr(stacks, weights_name)
+    if weights is None:
+        raise ValueError("A2E kernel %s: these stacks carry no %s"
+                         % (kernel, weights_name))
     _check_cuda("absorbed", absorbed, device, (cells, nfreq))
-    _check_cuda("w_fold", stacks.w_fold, device, (nsize, nfreq, ne * ne))
+    _check_cuda(weights_name, weights, device, (nsize, nfreq, ne * ne))
     _check_cuda("tdown", stacks.tdown, device, (nsize, ne))
     _check_cuda("ea", stacks.ea, device, (nsize, nfreq, ne))
     if align is not None:
@@ -171,24 +179,51 @@ def solve_all_sizes(stacks, absorbed, align=None):
     ptot = torch.empty_like(tot) if align is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = lib.a2e_all_sizes(
-            stacks.w_fold.data_ptr(), stacks.tdown.data_ptr(),
+        err = getattr(lib, kernel)(
+            weights.data_ptr(), stacks.tdown.data_ptr(),
             stacks.ea.data_ptr(), absorbed.data_ptr(),
             align.data_ptr() if align is not None else None,
             tot.data_ptr(), ptot.data_ptr() if ptot is not None else None,
             nsize, nfreq, ne, cells, tile, stream)
     if err != 0:
-        raise RuntimeError("A2E kernel launch failed: %s"
-                           % lib.a2e_error_string(err).decode())
-    launches += 1
+        raise RuntimeError("A2E kernel %s launch failed: %s"
+                           % (kernel, lib.a2e_error_string(err).decode()))
     return tot, ptot
 
 
-def stacks_from_numpy(w_flat, w_fold, tdown, ea, device):
-    """A2EStacks from host arrays (see convert.py); w_flat may be None."""
+def solve_all_sizes(stacks, absorbed, align=None):
+    """EMIT summed over all stochastic sizes for [cells, NFREQ] absorbed
+    photons, and the align-weighted sum when align [S, cells] is given.
+    Returns (tot, ptot or None).
+
+    CUDA tensors: the pre-folded kernel a2e_all_sizes (exact only for
+    non-negative weights and absorbed values). CPU tensors: the plain
+    twin."""
+    global launches
+    if absorbed.device.type == "cpu":
+        return solve_all_sizes_plain(stacks, absorbed, align)
+    out = _launch("a2e_all_sizes", "w_fold", stacks, absorbed, align)
+    launches += 1
+    return out
+
+
+def solve_all_sizes_clamp(stacks, absorbed, align=None):
+    """As solve_all_sizes, for weights and absorbed values of any sign:
+    CUDA tensors launch a2e_clamp (stacks built with clamp=True), CPU
+    tensors run the plain twin."""
+    global clamp_launches
+    if absorbed.device.type == "cpu":
+        return solve_all_sizes_plain(stacks, absorbed, align)
+    out = _launch("a2e_clamp", "w_unf", stacks, absorbed, align)
+    clamp_launches += 1
+    return out
+
+
+def stacks_from_numpy(w_flat, w_fold, tdown, ea, device, w_unf=None):
+    """A2EStacks from host arrays (see convert.py); w_flat, w_fold and
+    w_unf may each be None."""
     def t(a):
-        return torch.tensor(np.ascontiguousarray(a, np.float32),
-                            device=device)
-    return A2EStacks(w_flat=None if w_flat is None else t(w_flat),
-                     w_fold=t(w_fold), tdown=t(tdown), ea=t(ea),
-                     ne=int(np.shape(tdown)[-1]))
+        return None if a is None else torch.tensor(
+            np.ascontiguousarray(a, np.float32), device=device)
+    return A2EStacks(w_flat=t(w_flat), w_fold=t(w_fold), tdown=t(tdown),
+                     ea=t(ea), ne=int(np.shape(tdown)[-1]), w_unf=t(w_unf))

@@ -8,6 +8,10 @@ substitution for the steady-state energy-bin populations
 with soc_tpu's file formats; the solve over all stochastic sizes is the
 hand CUDA kernel on the card (``a2e_kernel``) and its plain twin on the
 CPU. Sizes at or above ``nstoch`` are solved at equilibrium on the host.
+
+On the card the solve routes as soc_tpu does (stochastic.py:262-272 there):
+the pre-folded kernel when every weight and absorbed value is >= 0, the
+clamp kernel (the exact path) otherwise.
 """
 
 import numpy as np
@@ -76,6 +80,21 @@ def prepare_size_arrays_fused(solver, isize):
     return out
 
 
+def prepare_size_arrays_unfolded(solver, isize):
+    """Per-size weights for the clamp kernel: the dense weights of
+    prepare_size_arrays, unfolded, column-major and frequency-first,
+    w_unf [NFREQ, NE*NE] with w_unf[f, l*NE + u] = W[u, l, f]."""
+    cache = _cache(solver)
+    key = ("unfolded", isize)
+    if key not in cache:
+        w_flat = prepare_size_arrays(solver, isize)[0]
+        ne = solver.ne
+        cache[key] = np.ascontiguousarray(
+            w_flat.reshape(ne, ne, -1).transpose(2, 1, 0)
+            .reshape(-1, ne * ne))
+    return cache[key]
+
+
 def solve_equilibrium_size(solver, isize, absorbed, nip=5000):
     """Large grains above the stochastic cutoff: equilibrium treatment
     (kernel_A2E.c:110-154). absorbed [cells, NFREQ] host array; returns
@@ -120,25 +139,34 @@ def alignment_weights(solver, isize, aalg):
     return w
 
 
-def get_fused_stacks(solver, device, nstoch=999, plain=None):
+def get_fused_stacks(solver, device, nstoch=999, plain=None, clamp=False):
     """Device-resident A2EStacks of the first min(nstoch, NSIZE) sizes,
-    built and cached on the solver per device. The dense w_flat, which only
-    the plain twin reads, is carried when ``plain`` is true; by default
-    only for the CPU, where the twin is the solve."""
+    built and cached on the solver per device. They carry the pre-folded
+    w_fold, or with ``clamp`` the unfolded w_unf of the clamp kernel
+    instead. The dense w_flat, which only the plain twin reads, is carried
+    when ``plain`` is true; by default only for the CPU, where the twin is
+    the solve."""
     device = torch.device(device)
     if plain is None:
         plain = device.type == "cpu"
     n_stoch = min(nstoch, solver.nsize)
     cache = _cache(solver)
-    key = ("stacks", n_stoch, str(device), plain)
+    key = ("stacks", n_stoch, str(device), plain, clamp)
     if key not in cache:
-        flat = [prepare_size_arrays(solver, i) for i in range(n_stoch)]
-        fused = [prepare_size_arrays_fused(solver, i) for i in range(n_stoch)]
+        sizes = range(n_stoch)
+        flat = [prepare_size_arrays(solver, i) for i in sizes]
+        if clamp:
+            w_fold = None
+            w_unf = np.stack([prepare_size_arrays_unfolded(solver, i)
+                              for i in sizes])
+        else:
+            w_fold = np.stack([prepare_size_arrays_fused(solver, i)[0]
+                               for i in sizes])
+            w_unf = None
         cache[key] = a2e_kernel.stacks_from_numpy(
-            np.stack([p[0] for p in flat]) if plain else None,
-            np.stack([p[0] for p in fused]),
+            np.stack([p[0] for p in flat]) if plain else None, w_fold,
             np.stack([p[1] for p in flat]), np.stack([p[2] for p in flat]),
-            device)
+            device, w_unf=w_unf)
     return cache[key]
 
 
@@ -162,9 +190,10 @@ def solve_emission(solver, absorbed, device, nstoch=999, clip_last=True,
     nstoch   : sizes >= nstoch are treated at equilibrium
     aalg     : optional [CELLS] minimum aligned grain size; then the
                polarised emission PEMITTED is returned too
-    On a CUDA device the stochastic sizes go through the hand kernel. It
-    needs non-negative weights and absorbed values; anything else (the
-    WITH_REFERENCE delta fields of a later slice) raises.
+    On a CUDA device the stochastic sizes go through a hand kernel: the
+    pre-folded one when all weights and absorbed values are >= 0, else the
+    clamp kernel (negative entries come from the WITH_REFERENCE delta
+    fields of a later slice).
     Returns EMITTED [CELLS, NFREQ] float32 (, PEMITTED if aalg given).
     """
     device = torch.device(device)
@@ -179,21 +208,18 @@ def solve_emission(solver, absorbed, device, nstoch=999, clip_last=True,
         else None
     n_stoch = min(nstoch, solver.nsize)
     if n_stoch > 0:
-        if device.type == "cuda" and not (
-                fused_weights_nonneg(solver, n_stoch)
-                and absorbed.min() >= 0.0):
-            raise NotImplementedError(
-                "A2E clamp path on the GPU: negative heating weights or "
-                "absorbed values need the per-entry clamp, which the "
-                "pre-folded CUDA kernel cannot apply")
-        stacks = get_fused_stacks(solver, device, n_stoch)
+        clamp = not (fused_weights_nonneg(solver, n_stoch)
+                     and absorbed.min() >= 0.0)
+        stacks = get_fused_stacks(solver, device, n_stoch, clamp=clamp)
+        solve = a2e_kernel.solve_all_sizes_clamp if clamp \
+            else a2e_kernel.solve_all_sizes
         align = None
         if aalg is not None:
             align = torch.as_tensor(np.stack(
                 [alignment_weights(solver, i, np.asarray(aalg))
                  for i in range(n_stoch)]), device=device)
-        tot, ptot = a2e_kernel.solve_all_sizes(
-            stacks, torch.as_tensor(absorbed, device=device), align)
+        tot, ptot = solve(stacks, torch.as_tensor(absorbed, device=device),
+                          align)
         emitted += tot.cpu().numpy()
         if pemitted is not None:
             pemitted += ptot.cpu().numpy()

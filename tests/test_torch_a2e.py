@@ -20,6 +20,7 @@ from soc_tpu.solve import stochastic as jsto
 from soc_tpu.solve.pallas_a2e import solve_batch_fused
 
 from soc_tpu_torch import convert
+from soc_tpu_torch.example_model import negate_one_weight
 from soc_tpu_torch.solve import a2e_kernel
 from soc_tpu_torch.solve import stochastic as tsto
 
@@ -133,6 +134,54 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         a2e_kernel.solve_all_sizes(stacks, torch.zeros((4, 8),
                                                        device="meta"))
+
+
+def test_unfolded_stacks_are_soc_tpu_weights_transposed():
+    """The clamp kernel's w_unf [S, NFREQ, NE*NE] (column-major,
+    w_unf[s, f, l*NE + u] = W[u, l, f]) is soc_tpu's prepare_size_arrays
+    w_flat [NE*NE, NFREQ], transposed; clamp stacks carry no w_fold."""
+    ne, nfreq = 16, 8
+    solver = random_solver(ne=ne, nfreq=nfreq, nsize=3, seed=5)
+    stacks = tsto.get_fused_stacks(solver, CPU, clamp=True)
+    assert stacks.w_fold is None
+    assert tuple(stacks.w_unf.shape) == (3, nfreq, ne * ne)
+    for s in range(3):
+        w = np.asarray(jsto.prepare_size_arrays(solver, s)[0])
+        ref = w.reshape(ne, ne, nfreq).transpose(2, 1, 0).reshape(nfreq, -1)
+        np.testing.assert_array_equal(stacks.w_unf[s].numpy(), ref)
+    assert tsto.get_fused_stacks(solver, CPU).w_unf is None
+
+
+def test_weight_sign_flag_sees_one_negative_weight():
+    solver = random_solver(ne=16, nfreq=8, nsize=3, seed=5)
+    assert tsto.fused_weights_nonneg(solver)
+    neg = negate_one_weight(random_solver(ne=16, nfreq=8, nsize=3, seed=5))
+    assert not tsto.fused_weights_nonneg(neg)
+    assert not jsto.fused_weights_nonneg(neg)
+    # only size 0 holds the flip
+    assert all(np.asarray(jsto.prepare_size_arrays(neg, s)[0]).min() >= 0
+               for s in (1, 2))
+
+
+@pytest.mark.parametrize("neg_weight,neg_absorbed", [(True, False),
+                                                     (False, True),
+                                                     (True, True)])
+def test_solve_emission_clamp_route_matches_soc_tpu(monkeypatch, neg_weight,
+                                                     neg_absorbed):
+    """Negative weights or absorbed values take the clamp route; on the
+    CPU that is the plain twin, held to soc_tpu's exact path."""
+    monkeypatch.setenv("SOC_TPU_A2E", "xla")
+    solver = random_solver(ne=16, nfreq=8, nsize=3, seed=9)
+    if neg_weight:
+        negate_one_weight(solver)
+    absorbed = _absorbed(8, 300, 10, neg_absorbed) * 1e-3
+    ref = jsto.solve_emission(solver, absorbed, batch=128)
+    n0 = (a2e_kernel.launches, a2e_kernel.clamp_launches)
+    got = tsto.solve_emission(solver, absorbed, CPU)
+    assert (a2e_kernel.launches, a2e_kernel.clamp_launches) == n0
+    assert ("stacks", 3, "cpu", True, True) in getattr(solver, tsto._CACHE)
+    np.testing.assert_allclose(got, ref, rtol=2e-5,
+                               atol=1e-6 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("nstoch,aalg", [(999, False), (2, False),

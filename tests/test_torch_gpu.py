@@ -1,8 +1,9 @@
-"""soc_tpu_torch on a CUDA device: the A2E kernel against its plain twin,
-the wrapper's checks, and the slice on the card against the slice on the
-CPU. Every test here carries the ``gpu`` marker and skips where there is no
-CUDA device. This file imports no jax, so it runs on a machine without it;
-tests/conftest.py does import jax, hence on the card:
+"""soc_tpu_torch on a CUDA device: the A2E kernels (pre-folded and clamp)
+against their plain twin, the wrapper's checks, the probes' four kernels
+against their plain versions, and the slice on the card against the slice
+on the CPU. Every test here carries the ``gpu`` marker and skips where
+there is no CUDA device. This file imports no jax, so it runs on a
+machine without it; tests/conftest.py does import jax, hence on the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
@@ -10,7 +11,11 @@ Tolerances: the kernel and the plain twin do the same float32 arithmetic
 in another order (the kernel forms each substitution row from the
 pre-folded weights, the twin folds the heating matrix after a cuBLAS
 product, TF32 off), so they agree to 1e-4 relative over the cells whose
-emission is above 1e-6 of the maximum, as chip_smoke.py demands.
+emission is above 1e-6 of the maximum, as chip_smoke.py demands. The clamp
+kernel sums the same products in yet another order (see csrc/a2e.cu): the
+same tolerance; its inputs are ones where the clamp changes the result by
+more than ten times that. The probe kernels are held to their plain versions with
+the limits of ``probes.common`` (gathers bit for bit).
 """
 
 import os
@@ -19,9 +24,12 @@ import numpy as np
 import pytest
 import torch
 
-from soc_tpu_torch.example_model import (gset_solver, synthetic_absorbed,
-                                         write_model)
+from soc_tpu_torch.example_model import (gset_solver, negate_one_weight,
+                                         synthetic_absorbed,
+                                         with_negative_entries, write_model)
 from soc_tpu_torch.pipeline import full
+from soc_tpu_torch.probes import common, gather_probe, kernels
+from soc_tpu_torch.probes import probe_gather, probe_gather2
 from soc_tpu_torch.solve import a2e_kernel, stochastic
 
 pytestmark = pytest.mark.gpu
@@ -86,16 +94,109 @@ def test_wrapper_checks_inputs(cuda, tmp_path):
         a2e_kernel.solve_all_sizes(cpu_stacks, ab)
 
 
-def test_solve_emission_raises_for_negative_absorbed(cuda, tmp_path):
-    """The pre-folded kernel cannot apply the exact path's per-entry clamp:
-    on the card negative inputs raise instead of running the plain twin."""
+@pytest.mark.parametrize("ne", [16, 48, 128, 256])
+def test_clamp_kernel_matches_plain_twin(cuda, tmp_path, ne):
+    """A negative weight and negative absorbed values: the clamp kernel
+    against the plain twin, with the align-weighted sum. The clamp takes
+    effect on these inputs: some heating entries are negative, and the
+    pre-folded kernel, which folds before it could clamp, differs from the
+    twin by more than ten times the tolerance."""
+    sol, freq = gset_solver(str(tmp_path), nfreq=44, nsize=4, ne=ne)
+    negate_one_weight(sol)
+    assert not stochastic.fused_weights_nonneg(sol)
+    rng = np.random.default_rng(ne)
+    stacks = stochastic.get_fused_stacks(sol, cuda, plain=True, clamp=True)
+    ab = torch.as_tensor(with_negative_entries(
+        rng, synthetic_absorbed(rng, sol, freq, 1000)), device=cuda)
+    align = torch.as_tensor(rng.uniform(0, 1, (sol.nsize, 1000))
+                            .astype(np.float32), device=cuda)
+    n0 = a2e_kernel.clamp_launches
+    tot, ptot = a2e_kernel.solve_all_sizes_clamp(stacks, ab, align)
+    assert a2e_kernel.clamp_launches == n0 + 1
+    tot_p, ptot_p = a2e_kernel.solve_all_sizes_plain(stacks, ab, align)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(tot).all()) and bool(torch.isfinite(ptot).all())
+    assert _max_rel(tot, tot_p) < REL_TOL
+    assert _max_rel(ptot, ptot_p) < REL_TOL
+    with pytest.raises(ValueError, match="w_fold"):
+        a2e_kernel.solve_all_sizes(stacks, ab)
+    assert sum(int((ab @ stacks.w_flat[s].T < 0).sum())
+               for s in range(stacks.nsize)) > 0
+    unclamped, _ = a2e_kernel.solve_all_sizes(
+        stochastic.get_fused_stacks(sol, cuda), ab)
+    assert _max_rel(torch.nan_to_num(unclamped, nan=float("inf")),
+                    tot_p) > 10 * REL_TOL
+
+
+@pytest.mark.parametrize("neg_weight", [False, True])
+def test_solve_emission_runs_clamp_kernel_for_negative_inputs(cuda, tmp_path,
+                                                              neg_weight):
+    """Negative absorbed values (and a negative weight) on the card run the
+    clamp kernel, never the pre-folded one or the plain twin, and match
+    the same solve on the CPU (the plain twin)."""
     sol, freq = gset_solver(str(tmp_path), nfreq=12, nsize=2, ne=16)
+    if neg_weight:
+        negate_one_weight(sol)
     ab = synthetic_absorbed(np.random.default_rng(2), sol, freq, 32)
     ab[3, 4] = -1.0
-    n0 = a2e_kernel.launches
-    with pytest.raises(NotImplementedError, match="clamp"):
-        stochastic.solve_emission(sol, ab, cuda)
-    assert a2e_kernel.launches == n0
+    n0 = (a2e_kernel.launches, a2e_kernel.clamp_launches)
+    got = stochastic.solve_emission(sol, ab, cuda)
+    assert (a2e_kernel.launches, a2e_kernel.clamp_launches) == \
+        (n0[0], n0[1] + 1)
+    ref = stochastic.solve_emission(sol, ab, torch.device("cpu"))
+    assert _max_rel(torch.as_tensor(got), torch.as_tensor(ref)) < REL_TOL
+
+
+PROBE_CASES = {     # reduced reps; the scripts' shapes
+    "probe_gather": lambda t, i, v: (
+        probe_gather.cases(t, i, v, reps=4) + probe_gather2.cases(t, i, v,
+                                                                  reps=4)
+        + gather_probe.cases(t, i[:gather_probe.LANES], ["take"],
+                             iters=16)),
+    "probe_row_gather": lambda t, i, v: probe_gather2.cases(t, i, v, reps=4),
+    "probe_scatter": lambda t, i, v: (probe_gather.cases(t, i, v, reps=4)
+                                      + probe_gather2.cases(t, i, v,
+                                                            reps=4)),
+    "probe_onehot": lambda t, i, v: probe_gather2.cases(t, i, v, reps=2),
+}
+
+
+@pytest.mark.parametrize("kernel", list(PROBE_CASES))
+def test_probe_kernel_matches_plain(cuda, kernel):
+    """Every probe row of one kernel, at the scripts' shapes with a few
+    reps, through the kernel and its plain version."""
+    tbl, idx, vals = probe_gather.inputs(3, cuda)
+    rows = [c for c in PROBE_CASES[kernel](tbl, idx, vals)
+            if c.kernel == kernel]
+    assert rows
+    for case in rows:
+        n0 = kernels.launches[kernel]
+        got = case.fn(*case.args, ops=kernels.KERNELS)
+        assert kernels.launches[kernel] == n0 + 1
+        ref = case.fn(*case.args, ops=kernels.PLAIN)
+        torch.cuda.synchronize()
+        err = common.error(got, ref, case.tol)
+        assert err <= common.LIMITS[case.tol], (case.name, err)
+    if kernel == "probe_onehot":
+        ix = idx.reshape(256, 512)
+        got = probe_gather2.mx_check(ix, vals.reshape(256, 512))
+        exact = probe_gather2.exact_deposit(idx, vals)
+        rel = float(torch.abs(got.reshape(-1) - exact).max() / exact.max())
+        assert rel <= probe_gather2.MX_CHECK_LIMIT
+
+
+def test_probe_wrappers_check_inputs(cuda):
+    t = torch.rand(2048, 128, device=cuda)
+    ix = torch.randint(0, 2048, (1024, 128), device=cuda,
+                       dtype=torch.int32)
+    with pytest.raises(TypeError):
+        kernels.gather(t, ix.long(), kernels.ADD, kernels.FLAT, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.gather(t.T, ix, kernels.ADD, kernels.FLAT, 2)
+    with pytest.raises(ValueError, match="ROW"):
+        kernels.gather(t, ix, kernels.LCG_BEFORE, kernels.ROW, 2)
+    with pytest.raises(ValueError, match="onehot"):
+        kernels.onehot(ix, t[:1024], 3, 1, True)
 
 
 def test_pipeline_on_card_matches_cpu(cuda, tmp_path):
