@@ -31,14 +31,36 @@ Phases (any failure exits non-zero before the final line):
      timed through its CUDA kernel and its plain version and held to it
      (gathers bit for bit, RG at 1e-6 relative, scatters and one-hot
      deposits at 1e-5 of the maximum, the MX correctness deposit also at
-     1e-5 of an exact float32 scatter's maximum)
-The last line is a JSON object naming the device.
+     1e-5 of an exact float32 scatter's maximum), and the scatters and
+     one-hot deposits also through one index_add_ call, their library
+     yardstick
+  8. the sharded A2E solve: `stochastic.solve_emission` at the pipeline's
+     shape (262,144 cells x 24 sizes x NE 128 x NFREQ 44, with the
+     polarised sum) over all visible cards, then over cuda:0 two and three
+     times, on both routes (pre-folded; clamp, with a negative weight and
+     negative absorbed values): equal bit for bit to the one-launch solve,
+     one launch per shard; then solve_all_sizes_sharded over phase 9's six
+     shards timed against the plain twin
+  9. the `devices N` path: the `pipeline` verb (full.run_pipeline with a
+     device list) at full width over cuda:0 six times, a (dp 3 x freq 2)
+     mesh: energy balance per channel, absorbed.data, emitted.data and the
+     map against phase 4's one-device run, one A2E launch per shard; then
+     the `rt` verb's path (driver.run) over the same mesh with one packet
+     batch per surface element
+The kernels line gives each kernel's launches on its path (phase 4 for the
+A2E kernel, 6 for the clamp kernel, 7 for the probes, 9 for the sharded
+A2E, whose other numbers phase 8 takes over the same six shards), its
+time, its plain version's, its library call's where one exists, and its
+bound: the larger of the bytes it must move over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s (an H100 SXM's published peaks). The
+last line is a JSON object naming the device.
 """
 
 import argparse
 import copy
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -51,6 +73,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REL_TOL = 1e-4          # kernel vs plain twin, relative, see phase 3
 CLAMP_EFFECT = 10 * REL_TOL   # least change the clamp must make, phase 6
 BALANCE_TOL = 5e-3      # (absorbed + escaped) / injected - 1, per frequency
+# phase 9 against phase 4: the same packets on the same streams, the
+# card's atomic adds in another order: every entry within 1e-4 relative or
+# 1e-6 of the field's maximum
+PRODUCT_RTOL, PRODUCT_ATOL = 1e-4, 1e-6
+PRODUCT_SHARDS = 6      # phase 9: dp 3 x freq 2 at NFREQ 44
 FULL_BGPACKETS = 999999
 N = 64                  # root grid size: 64^3 cells, soc_example's
 SOURCES = ("a2e", "probe_gather", "probe_scatter", "probe_onehot")
@@ -67,6 +94,37 @@ PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
     "probe_onehot": ("soc_tpu_torch/csrc/probe_onehot.cu",
                      "scripts/probe_gather2.py:292,:332"),
 }
+
+
+def a2e_work(cells, nsize, ne, nf, clamp, align):
+    """(float32 operations, bytes) of one A2E solve over all sizes, counted
+    from csrc/a2e.cu's loops (an FMA counts 2, an add 1; the divides and
+    the rescale, O(NE) a cell and size, are left out). Pre-folded kernel,
+    per cell and size: the bottom row NF*NE FMAs; substitution rows j = 1
+    .. NE-2, (NF + 1) FMAs and 1 subtraction for each l < j; the last row
+    NE-1 FMAs; the emission NF*NE FMAs and NE adds. Clamp kernel: (NF + 1)
+    FMAs for each heating entry below the diagonal, NE(NE-1)/2 of them, and
+    (NE-2)(NE-1)/2 adds of suffix sums, then the same emission. Bytes: each
+    input read once and each output written once."""
+    tri = (ne - 2) * (ne - 1) // 2
+    if clamp:
+        fma = (nf + 1) * ne * (ne - 1) // 2 + nf * ne
+    else:
+        fma = nf * ne + (nf + 1) * tri + (ne - 1) + nf * ne
+    flops = cells * nsize * (2 * fma + tri + ne)
+    words = (cells * nf + nsize * nf * ne * ne + nsize * ne + nsize * nf * ne
+             + cells * nf)
+    if align:
+        words += nsize * cells + cells * nf
+    return flops, 4 * words
+
+
+def bound(flops, nbytes):
+    """(least ms on the card, "bytes" or "operations"), at the H100's
+    published peaks (probes.common.bound_seconds)."""
+    from soc_tpu_torch.probes.common import bound_seconds
+    seconds, by = bound_seconds(nbytes, flops)
+    return 1e3 * seconds, by
 
 
 def fail(msg):
@@ -176,12 +234,15 @@ def kernel_phase(dev, work, rng, report):
     if rel > REL_TOL:
         fail("pipeline shape: kernel differs from the plain twin (%.3e)"
              % rel)
+    b_ms, b_by = bound(*a2e_work(cells, full_sol.nsize, 128, 44, False,
+                                 False))
     report["a2e_all_sizes"] = dict(ms=ms_k, plain_ms=ms_p,
-                                   max_abs_err=abs_err)
+                                   max_abs_err=abs_err, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None)
     print("phase 3: pipeline shape %d cells x %d sizes x NE 128 x NFREQ 44:"
-          " kernel %.2f ms, plain %.2f ms, max rel err %.3e, max abs err "
-          "%.3e (max %.3e) [%s]"
-          % (cells, full_sol.nsize, ms_k, ms_p, rel, abs_err,
+          " kernel %.2f ms, plain %.2f ms, bound %.2f ms (%s), max rel err "
+          "%.3e, max abs err %.3e (max %.3e) [%s]"
+          % (cells, full_sol.nsize, ms_k, ms_p, b_ms, b_by, rel, abs_err,
              float(tot_p.max()), report["card"]), flush=True)
     return fresh
 
@@ -245,6 +306,8 @@ def pipeline_phase(dev, work, args, report):
     report["stages"] = dict(absorption_s=t_rt, a2e_s=t_a2e,
                             maps_s=res_map.timings["maps"], total_s=wall,
                             packets=res_rt.packets)
+    return {"absorbed.data": absorbed, "emitted.data": emitted_f,
+            "map_dir_00.bin": maps}
 
 
 def rt_phase(dev, work):
@@ -371,13 +434,195 @@ def clamp_phase(dev, solvers, rng, report):
     if rel > REL_TOL:
         fail("phase 6: pipeline shape: clamp kernel differs from the plain "
              "twin (%.3e)" % rel)
+    b_ms, b_by = bound(*a2e_work(cells, full_sol.nsize, 128, 44, True,
+                                 False))
     report["a2e_clamp"] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=abs_err,
-                               launches=launches)
+                               launches=launches, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None)
     print("phase 6: pipeline shape %d cells x %d sizes x NE 128 x NFREQ 44:"
-          " clamp kernel %.2f ms, plain %.2f ms, max rel err %.3e, max abs "
-          "err %.3e (max %.3e) [%s]"
-          % (cells, full_sol.nsize, ms_k, ms_p, rel, abs_err,
+          " clamp kernel %.2f ms, plain %.2f ms, bound %.2f ms (%s), max rel "
+          "err %.3e, max abs err %.3e (max %.3e) [%s]"
+          % (cells, full_sol.nsize, ms_k, ms_p, b_ms, b_by, rel, abs_err,
              float(tot_p.max()), report["card"]), flush=True)
+
+
+def sharded_a2e_phase(dev, fold_sol, clamp_sol, freq, rng, report):
+    """Phase 8: solve_emission split over shards against the one-launch
+    solve, bit for bit, on both routes; fold_sol has non-negative weights,
+    clamp_sol a negated one (phase 6's)."""
+    import torch
+    from soc_tpu_torch.example_model import (synthetic_absorbed,
+                                             with_negative_entries)
+    from soc_tpu_torch.solve import a2e_kernel, stochastic
+    cells = N ** 3
+    card = report["card"]
+    visible = [torch.device("cuda", i)
+               for i in range(torch.cuda.device_count())]
+    shard_sets = [visible, [dev] * 2, [dev] * 3]
+    ab_fold = synthetic_absorbed(rng, fold_sol, freq, cells)
+    ab_clamp = with_negative_entries(
+        rng, synthetic_absorbed(rng, clamp_sol, freq, cells))
+    a = fold_sol.size_a
+    aalg = rng.uniform(a.min(), a.max(), cells).astype(np.float32)
+    for route, sol, ab in (("pre-folded", fold_sol, ab_fold),
+                           ("clamp", clamp_sol, ab_clamp)):
+        count = "clamp_launches" if route == "clamp" else "launches"
+        t0 = time.time()
+        one = stochastic.solve_emission(sol, ab, dev, aalg=aalg,
+                                        devices=[dev])
+        torch.cuda.synchronize()
+        print("phase 8: %s route, one launch: solve_emission %.2f s [%s]"
+              % (route, time.time() - t0, card), flush=True)
+        for shards in shard_sets:
+            a2e_kernel.launches = a2e_kernel.clamp_launches = 0
+            t0 = time.time()
+            got = stochastic.solve_emission(sol, ab, dev, aalg=aalg,
+                                            devices=shards)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            n_sh = len(shards)
+            # (this route's launches, the other route's)
+            launched = (getattr(a2e_kernel, count),
+                        a2e_kernel.launches + a2e_kernel.clamp_launches
+                        - getattr(a2e_kernel, count))
+            print("phase 8: %s route over %s: solve_emission %.2f s, %d "
+                  "launches (%d shards), bit-equal to one launch: %s [%s]"
+                  % (route, ",".join(str(d) for d in shards), wall,
+                     launched[0], n_sh,
+                     all(np.array_equal(x, y) for x, y in zip(got, one)),
+                     card), flush=True)
+            if launched != (n_sh, 0):
+                fail("phase 8: %s route over %d shards launched %s"
+                     % (route, n_sh, launched))
+            if not all(np.array_equal(x, y) for x, y in zip(got, one)):
+                fail("phase 8: %s route over %d shards differs from one "
+                     "launch" % (route, n_sh))
+            if not np.isfinite(got[0]).all():
+                fail("phase 8: %s route: output not finite" % route)
+
+    # the sharded kernel wrapper itself over phase 9's six shards, timed
+    # beside the plain twin on the same inputs
+    shards = [dev] * PRODUCT_SHARDS
+    stacks = stochastic.get_fused_stacks(fold_sol, dev, plain=True)
+    ab = torch.as_tensor(ab_fold, device=dev)
+    align = torch.as_tensor(np.stack(
+        [stochastic.alignment_weights(fold_sol, i, aalg)
+         for i in range(fold_sol.nsize)]), device=dev)
+    ms_k, (tot_k, ptot_k) = timed(
+        lambda: a2e_kernel.solve_all_sizes_sharded(
+            {dev: stacks}, ab, align, shards, False), 3)
+    ms_p, (tot_p, ptot_p) = timed(
+        lambda: a2e_kernel.solve_all_sizes_plain(stacks, ab, align), 1)
+    rel = max(max_rel(tot_k, tot_p), max_rel(ptot_k, ptot_p))
+    abs_err = float(max(torch.abs(tot_k - tot_p).max(),
+                        torch.abs(ptot_k - ptot_p).max()))
+    if rel > REL_TOL:
+        fail("phase 8: the sharded solve differs from the plain twin (%.3e)"
+             % rel)
+    b_ms, b_by = bound(*a2e_work(cells, fold_sol.nsize, 128, 44, False,
+                                 True))
+    report["a2e_sharded"] = dict(ms=ms_k, plain_ms=ms_p, max_abs_err=abs_err,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None, shards=len(shards))
+    print("phase 8: solve_all_sizes_sharded over cuda:0 x%d, %d cells x %d "
+          "sizes x NE 128 x NFREQ 44 with the polarised sum: %.2f ms, plain "
+          "%.2f ms, bound %.2f ms (%s), max rel err %.3e, max abs err %.3e "
+          "[%s]" % (len(shards), cells, fold_sol.nsize, ms_k, ms_p, b_ms,
+                    b_by, rel, abs_err, card), flush=True)
+
+
+def product_phase(dev, work, args, report, ref):
+    """Phase 9: the `devices N` path over cuda:0 six times (dp 3 x freq
+    2), held to phase 4's one-device outputs ``ref``."""
+    import torch
+    from soc_tpu_torch.example_model import write_model
+    from soc_tpu_torch.pipeline import driver, full
+    from soc_tpu_torch.io.cloud import read_hierarchy
+    from soc_tpu_torch.solve import a2e_kernel
+    card = report["card"]
+    sub = os.path.join(work, "devices")
+    ini = write_model(sub, N, kind="gset", nfreq=44, nsize=24, npix=64,
+                      bgpac=args.bgpackets, map_dx=N / 64.0)
+    # phase 4's A2E_pre output for the same dust, frequencies and NE: the
+    # pipeline reuses a matching .solver file, as it would in phase 4's
+    # directory
+    shutil.copy(os.path.join(work, "gs_TST.solver"), sub)
+    devices = [dev] * PRODUCT_SHARDS
+    names = "%s x%d" % (dev, PRODUCT_SHARDS)
+    a2e_kernel.launches = a2e_kernel.clamp_launches = 0
+    t0 = time.time()
+    res_rt, _, res_map = full.run_pipeline(ini, dev, devices=devices)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = (a2e_kernel.launches, a2e_kernel.clamp_launches)
+    print("phase 9: pipeline over %s: absorption %.2f s (%d packets, %.0f "
+          "packets/s), A2E solve %.2f s, maps %.2f s, total %.2f s; A2E "
+          "launches: %d a2e_all_sizes, %d a2e_clamp [%s]"
+          % (names, res_rt.timings["constant_sources"], res_rt.packets,
+             res_rt.packets / res_rt.timings["constant_sources"],
+             res_map.timings["a2e"], res_map.timings["maps"], wall,
+             launches[0], launches[1], card), flush=True)
+    from soc_tpu_torch.parallel.product import ProductMesh
+    pm = ProductMesh(PRODUCT_SHARDS, 44, [dev] * PRODUCT_SHARDS)
+    print("phase 9: mesh dp %d x freq %d; the 64-row map is %s"
+          % (pm.n_dp, pm.n_freq, "split over the mesh" if 64 % pm.n_dp == 0
+             else "rendered on one device (soc_tpu's rule splits rows only "
+             "when dp divides them)"), flush=True)
+    if launches != (PRODUCT_SHARDS, 0):
+        fail("phase 9: expected one A2E launch per shard, got %s"
+             % (launches,))
+    report["a2e_sharded"]["launches"] = launches[0]
+    report["stages_devices"] = dict(
+        absorption_s=res_rt.timings["constant_sources"],
+        a2e_s=res_map.timings["a2e"], maps_s=res_map.timings["maps"],
+        total_s=wall)
+    bal = (res_rt.absorbed_photons + res_rt.escaped) / res_rt.injected - 1
+    print("phase 9: energy balance per frequency: max |.| = %.3e "
+          "(tolerance %.1e)" % (np.abs(bal).max(), BALANCE_TOL), flush=True)
+    if np.abs(bal).max() > BALANCE_TOL:
+        fail("phase 9: energy balance off")
+    readers = {"absorbed.data": read_cell_frequency_array,
+               "emitted.data": read_cell_frequency_array,
+               "map_dir_00.bin": read_map_file}
+    for name, read in readers.items():
+        got, want = read(os.path.join(sub, name)), ref[name]
+        ok = got.shape == want.shape and np.isfinite(got).all() and \
+            np.allclose(got, want, rtol=PRODUCT_RTOL,
+                        atol=PRODUCT_ATOL * np.abs(want).max())
+        err = float(np.abs(got - want).max() / np.abs(want).max()) \
+            if got.shape == want.shape else float("inf")
+        print("phase 9: %s against phase 4: max |diff| / max = %.3e, "
+              "allclose(rtol %.0e, atol %.0e of the max): %s"
+              % (name, err, PRODUCT_RTOL, PRODUCT_ATOL, ok), flush=True)
+        if not ok:
+            fail("phase 9: %s differs from the one-device run" % name)
+
+    # the rt verb's path over the same mesh, one packet batch per surface
+    # element
+    with open(ini) as fp:
+        text = fp.read()
+    batch = 8 * 6 * N * N
+    text = re.sub(r"(?m)^bgpackets\s+\d+", "bgpackets %d" % batch,
+                  text.replace("gs_TST.dust", "TST_simple.dust"))
+    rt_ini = os.path.join(sub, "rt.ini")
+    with open(rt_ini, "w") as fp:
+        fp.write(text)
+    print("phase 9: rt: bgpackets cut from %d to %d (one batch per "
+          "surface element)" % (args.bgpackets, batch), flush=True)
+    t0 = time.time()
+    res = driver.run(rt_ini, device=dev, devices=devices)
+    torch.cuda.synchronize()
+    _, _, _, _, vals = read_hierarchy(os.path.join(sub, "tmp.T"))
+    t = np.concatenate(vals)
+    bal = (res.absorbed_photons + res.escaped) / res.injected - 1
+    if not (np.isfinite(t).all() and (t > 0).all()) \
+            or np.abs(bal).max() > BALANCE_TOL:
+        fail("phase 9: rt over the mesh: T not finite and positive, or "
+             "energy balance off")
+    print("phase 9: rt over %s: %.2f s, %d packets, T %.2f-%.2f K, "
+          "energy balance %.3e [%s]"
+          % (names, time.time() - t0, res.packets, t.min(), t.max(),
+             np.abs(bal).max(), card), flush=True)
 
 
 def probes_phase(dev, report):
@@ -407,13 +652,24 @@ def probes_phase(dev, report):
                            else r.device_seconds for r in rows)
         plain_ms = 1e3 * sum(r.plain_seconds if r.plain_device_seconds is
                              None else r.plain_device_seconds for r in rows)
-        report[name] = dict(launches=launches[name],
-                            max_abs_err=max(r.abs_err for r in rows),
-                            ms=dev_ms, plain_ms=plain_ms)
+        bound_ms = 1e3 * sum(r.bound_seconds for r in rows)
+        by_bytes = sum(r.bound_seconds for r in rows if r.bound_by == "bytes")
+        lib = [r.library_seconds if r.library_device_seconds is None
+               else r.library_device_seconds for r in rows]
+        report[name] = dict(
+            launches=launches[name], max_abs_err=max(r.abs_err for r in rows),
+            ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by="bytes" if 2 * by_bytes >= bound_ms / 1e3
+            else "operations",
+            library_ms=None if None in lib else 1e3 * sum(lib))
         print("phase 7: %s: %d rows, %d launches; summed over its rows, "
-              "device time per call: kernel %.4f ms, plain %.4f ms; call "
-              "time (best of 3): kernel %.4f ms, plain %.4f ms%s"
+              "device time per call: kernel %.4f ms, plain %.4f ms, "
+              "library call %s, bound %.4f ms (%s); call time (best of 3): "
+              "kernel %.4f ms, plain %.4f ms%s"
               % (name, len(rows), launches[name], dev_ms, plain_ms,
+                 "none" if report[name]["library_ms"] is None
+                 else "%.4f ms" % report[name]["library_ms"], bound_ms,
+                 report[name]["bound_by"],
                  1e3 * sum(r.seconds for r in rows),
                  1e3 * sum(r.plain_seconds for r in rows),
                  "" if all(r.device_seconds is not None
@@ -465,23 +721,31 @@ def main():
     rng = np.random.default_rng(args.seed)
     try:
         solvers = kernel_phase(dev, work, rng, report)
-        pipeline_phase(dev, work, args, report)
+        fold_sol, freq = copy.deepcopy(solvers[128])
+        ref = pipeline_phase(dev, work, args, report)
         rt_phase(dev, work)
         clamp_phase(dev, solvers, rng, report)
         probes_phase(dev, report)
+        sharded_a2e_phase(dev, fold_sol, solvers[128][0], freq, rng, report)
+        product_phase(dev, work, args, report, ref)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     sources = dict(PROBE_KERNELS, a2e_all_sizes=(
         "soc_tpu_torch/csrc/a2e.cu", "soc_tpu/solve/pallas_a2e.py:111"),
         a2e_clamp=("soc_tpu_torch/csrc/a2e.cu",
-                   "soc_tpu/solve/stochastic.py:100 (exact path, XLA)"))
-    order = ["a2e_all_sizes", "a2e_clamp", *PROBE_KERNELS]
+                   "soc_tpu/solve/stochastic.py:100 (exact path, XLA)"),
+        a2e_sharded=("soc_tpu_torch/csrc/a2e.cu",
+                     "soc_tpu/solve/pallas_a2e.py:193"))
+    order = ["a2e_all_sizes", "a2e_clamp", *PROBE_KERNELS, "a2e_sharded"]
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=sources[name][0],
-        replaces=sources[name][1], launches=report[name]["launches"],
-        max_abs_err=report[name]["max_abs_err"], ms=report[name]["ms"],
-        plain_ms=report[name]["plain_ms"]) for name in order]}))
+        replaces=sources[name][1],
+        **{k: report[name][k] for k in keys + ("shards",)
+           if k in report[name]})
+        for name in order]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

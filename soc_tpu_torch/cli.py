@@ -6,8 +6,10 @@
                                         ~  ASOC_driver.py soc.ini
 
 --device is a torch device name (default 'cuda'); pass '--device cpu' to
-run on the CPU. soc_tpu's other verbs (sca, a2e_pre, a2e, eqsolve,
-a2e_lib, mabu, dust, bench, sampleini) are not ported yet: see ROADMAP.md.
+run on the CPU. The ini keyword `devices N` runs the product path over N
+devices (cuda:0 .. cuda:N-1, or the CPU N times with '--device cpu').
+soc_tpu's other verbs (sca, a2e_pre, a2e, eqsolve, a2e_lib, mabu, dust,
+bench, sampleini) are not ported yet: see ROADMAP.md.
 """
 
 import argparse

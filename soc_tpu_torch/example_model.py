@@ -1,9 +1,9 @@
 """Synthetic input models for examples, tests and the GPU smoke run.
 
 Writes a complete model directory from a few parameters: a uniform
-density cloud, a dust built from DustEM-format files through soc_tpu's
-NumPy dust compiler, its scattering function, an isotropic background and
-an ini file. Two dust kinds:
+density cloud, a dust built from DustEM-format files through the NumPy
+dust compiler (solve/dust_compiler.py), its scattering function, an
+isotropic background and an ini file. Two dust kinds:
 
 * ``"gset"``: a stochastically heated dust (GSET container), run through
   the ``pipeline`` verb (absorption run -> A2E -> map);
@@ -18,11 +18,11 @@ import os
 
 import numpy as np
 
-from soc_tpu.constants import FACTOR, PLANCK, planck_intensity, um2f
-from soc_tpu.io.dust import write_simple_dust
-from soc_tpu.solve import dust_compiler as dc
-from soc_tpu.solve import solver_prep
-from soc_tpu.solve.grain_model import write_gset_dust
+from .constants import FACTOR, PLANCK, planck_intensity, um2f
+from .io.dust import write_simple_dust
+from .solve import dust_compiler as dc
+from .solve import solver_prep
+from .solve.grain_model import write_gset_dust
 
 from .io.cloud import write_hierarchy
 

@@ -16,7 +16,7 @@ float32 arithmetic so boundary decisions match soc_tpu.
 
 import torch
 
-from soc_tpu.constants import PEPS
+from ..constants import PEPS
 
 from ..grid import decode_link
 

@@ -6,6 +6,11 @@ Phases:
      packet pool -> TABS (+ per-frequency absorptions)
   2. the equilibrium temperature solve and the thermal emission
   3. orthographic maps -> map_dir_XX.bin
+With `devices N` (or an explicit device list) every phase runs over a
+(dp x freq) mesh of devices (parallel/product.py): phase 1 with the
+channels blocked over freq and each channel's budget split over dp;
+phase 2 with the cells split; phase 3 with the map's rows and channels
+split.
 Outputs keep the reference's binary formats. A keyword or input the port
 does not support yet raises NotImplementedError naming it; nothing is
 silently ignored.
@@ -18,19 +23,19 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from soc_tpu.config import RunConfig
-from soc_tpu.constants import FACTOR, PARSEC, PLANCK
-from soc_tpu.io.dust import read_scattering_function, read_simple_dust
-from soc_tpu.io.fields import (read_background_intensity,
-                               read_cell_frequency_array,
-                               write_cell_frequency_array, write_map_file)
+from ..config import RunConfig
+from ..constants import FACTOR, PARSEC, PLANCK
+from ..io.dust import read_scattering_function, read_simple_dust
+from ..io.fields import (read_background_intensity,
+                         read_cell_frequency_array,
+                         write_cell_frequency_array, write_map_file)
 
 from ..grid import Grid
 from ..io.cloud import read_cloud, write_cell_field
 from ..render import mapping as render_mapping
 from ..solve import equilibrium
 from ..transport.medium import medium_from_optics
-from ..transport.propagate import transport_run
+from ..transport.propagate import pool_lanes, transport_run
 from ..transport.sources import stream_hi_base
 
 # lanes of the packet pool: eager sweeps cost the same number of launches
@@ -53,13 +58,8 @@ class RunResult:
     injected: np.ndarray = None         # [NFREQ] photons injected
     absorbed_photons: np.ndarray = None  # [NFREQ] photons absorbed (raw)
     packets: int = 0                   # packets traced in phase 1
+    devices: list = None                # the product mesh's devices, or None
     timings: dict = field(default_factory=dict)
-
-
-def _pool_lanes(nlanes, per_freq):
-    """Lane-pool size: at most the packet budget, a power of two, >= 1024."""
-    n = min(nlanes, max(1024, per_freq))
-    return 1 << (n - 1).bit_length() if n & (n - 1) else n
 
 
 def unsupported_features(cfg):
@@ -89,7 +89,6 @@ def unsupported_features(cfg):
     need(cfg.mirror, "mirror")
     need(cfg.do_split, "split")
     need(cfg.n_domains, "domains")
-    need(cfg.n_devices, "devices")
     need(cfg.mmap_absorbed, "mmapabs")
     need(cfg.optishalf, "optishalf")
     need(cfg.polmap or cfg.polstat or cfg.b_files, "polmap / polstat")
@@ -118,6 +117,10 @@ def unsupported_features(cfg):
 
 
 def check_supported(cfg):
+    if int(cfg.n_domains) > 1 and int(cfg.n_devices) not in (0, 1):
+        raise ValueError("`devices` and `domains` are mutually exclusive: "
+                         "pick packet/frequency sharding or Z-slab "
+                         "decomposition")
     missing = unsupported_features(cfg)
     if missing:
         raise NotImplementedError(
@@ -125,9 +128,11 @@ def check_supported(cfg):
 
 
 def run(ini_path=None, cfg=None, device=None, lanes=DEFAULT_LANES,
-        write_files=True, workdir=None):
+        write_files=True, workdir=None, devices=None):
     """Full run of one ini on ``device``; returns RunResult. workdir
-    defaults to the ini's directory."""
+    defaults to the ini's directory. ``devices``, a list of devices (which
+    may repeat one), runs the product path over them in place of the
+    ini's `devices N`; the outputs are gathered on ``device``."""
     if device is None:
         raise ValueError("run: pass the device explicitly ('cuda' or 'cpu')")
     device = torch.device(device)
@@ -140,7 +145,8 @@ def run(ini_path=None, cfg=None, device=None, lanes=DEFAULT_LANES,
     orig = os.getcwd()
     os.chdir(workdir)
     try:
-        return _run_inner(cfg, device, lanes, write_files, t_start)
+        return _run_inner(cfg, device, lanes, write_files, t_start,
+                          devices)
     finally:
         os.chdir(orig)
 
@@ -191,28 +197,54 @@ def _write_emitted_file(cfg, freq, emitted):
 
 
 def simulate_background(grid, medium, cfg, ibg, tabs, intf, seed,
-                        lanes=DEFAULT_LANES, per_freq_tally=False):
+                        lanes=DEFAULT_LANES, per_freq_tally=False,
+                        pmesh=None):
     """Phase-1 isotropic background over all frequencies, in one mixed
-    pool. The reference sends 8*AREA*BATCH packets per frequency; the same
-    normalisation keeps the tallies comparable. Returns
+    pool; with ``pmesh`` (`devices N`) over the mesh, one pool per shard
+    (product.run_freqs), intf then the mesh's slabs. The reference
+    sends 8*AREA*BATCH packets per frequency; the same normalisation keeps
+    the tallies comparable. Returns
     (tabs, intf, escaped[NF], injected[NF], packets)."""
-    from ..transport.sources import stream_hi_base
     area = int(grid.area)
     batch = max(1, int(round(cfg.bgpac / (8.0 * area))))
     per_freq = 8 * area * batch                 # packets per frequency
     wbg = np.pi / (PLANCK * 8.0 * batch)
     bg_photons = (np.asarray(ibg, np.float64) * wbg
                   / np.asarray(cfg.freq, np.float64)).astype(np.float32)
+    total = per_freq * medium.nfreq
+    injected = np.float64(per_freq) * np.asarray(bg_photons, np.float64)
+    if pmesh is not None:
+        from ..parallel import product
+        tabs, intf, escaped = product.run_freqs(
+            pmesh, grid, medium, "bg", bg_photons, per_freq, tabs, intf,
+            seed, lanes, per_freq_tally)
+        return tabs, intf, escaped, injected, total
     physics = dict(kabs=medium.abs_gl, ksca=medium.sca_gl, csc=medium.csc,
                    tw=medium.tw)
-    total = per_freq * medium.nfreq
     params = dict(photons=torch.as_tensor(bg_photons, device=grid.device),
                   per_freq=per_freq, hi_base=stream_hi_base("bg"))
     tabs, intf, escaped, _ = transport_run(
         grid, physics, params, total, tabs, intf, seed, source_kind="bg",
-        nlanes=_pool_lanes(lanes, total), per_freq_tally=per_freq_tally)
-    injected = np.float64(per_freq) * np.asarray(bg_photons, np.float64)
+        nlanes=pool_lanes(lanes, total), per_freq_tally=per_freq_tally)
     return tabs, intf, escaped.cpu().numpy(), injected, total
+
+
+def _product_setup(cfg, nfreq, device, devices=None):
+    """The (dp x freq) mesh of the product path, or None for a one-device
+    run: over ``devices`` when given, else over the ini's `devices N`
+    (cuda:0 .. cuda:N-1 on a card, the CPU N times on the CPU; N < 0 means
+    every visible card)."""
+    from ..parallel.product import ProductMesh
+    if devices is not None:
+        return ProductMesh(len(devices), nfreq, devices) \
+            if len(devices) > 1 else None
+    n = int(cfg.n_devices)
+    if n < 0:
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n <= 1:
+        return None
+    return ProductMesh(n, nfreq, [device] * n if device.type == "cpu"
+                       else None)
 
 
 def _sync(device):
@@ -220,7 +252,7 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _run_inner(cfg, device, lanes, write_files, t_start):
+def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     cfg.validate()
     check_supported(cfg)
     res = RunResult()
@@ -241,7 +273,9 @@ def _run_inner(cfg, device, lanes, write_files, t_start):
     bins = cfg.dsc_bins if cfg.dsc_bins > 0 else 2500
     dsc, csc = read_scattering_function(cfg.file_scafunc[0], nfreq, bins)
     medium = medium_from_optics(optics, dsc, csc, device, freq)
+    pmesh = _product_setup(cfg, nfreq, device, devices)
     res.grid, res.freq = grid, freq
+    res.devices = None if pmesh is None else pmesh.devices
     seed = int(np.uint32(max(0.0, cfg.seed) * 2**31) + np.uint32(12345))
     timings["input"] = time.time() - t0
 
@@ -267,7 +301,7 @@ def _run_inner(cfg, device, lanes, write_files, t_start):
         res.escaped = np.zeros(nfreq)
         res.injected = np.zeros(nfreq)
         _render_phase(cfg, grid, medium, res, freq, res.emitted,
-                      write_files, timings)
+                      write_files, timings, pmesh)
         timings["total"] = time.time() - t_start
         return res
 
@@ -275,18 +309,25 @@ def _run_inner(cfg, device, lanes, write_files, t_start):
     t0 = time.time()
     per_freq_tally = not cfg.noabsorbed
     tabs = torch.zeros(grid.cells, dtype=torch.float32, device=device)
-    intf = torch.zeros((grid.cells, nfreq) if per_freq_tally else (1, 1),
-                       dtype=torch.float32, device=device)
+    if pmesh is not None and per_freq_tally:
+        # dp-partial per-frequency slabs, one per shard on its device
+        intf = pmesh.zeros_intf(grid.cells)
+    else:
+        intf = torch.zeros((grid.cells, nfreq) if per_freq_tally else (1, 1),
+                           dtype=torch.float32, device=device)
     escaped = np.zeros(nfreq)
     injected = np.zeros(nfreq)
     if cfg.bgpac > 0 and cfg.file_background:
         ibg = read_background_intensity(cfg.file_background, nfreq)
         ibg = ibg * cfg.scale_background
         tabs, intf, esc, inj, npk = simulate_background(
-            grid, medium, cfg, ibg, tabs, intf, seed, lanes, per_freq_tally)
+            grid, medium, cfg, ibg, tabs, intf, seed, lanes, per_freq_tally,
+            pmesh)
         escaped += esc
         injected += inj
         res.packets = npk
+    if pmesh is not None and per_freq_tally:
+        intf = pmesh.reduce_intf(intf, device)
     _sync(device)
     res.ctabs = tabs.cpu().numpy()
     res.escaped = escaped
@@ -302,9 +343,17 @@ def _run_inner(cfg, device, lanes, write_files, t_start):
     if not cfg.nosolve and cfg.iterations >= 1:
         table = equilibrium.build_temperature_table(
             freq, optics[0].abs_gl, cfg.gl, device)
-        temperature = equilibrium.solve_temperature(grid, table, tabs, gl_cm)
-        emitted = equilibrium.emission(freq, optics[0].abs_gl, temperature,
-                                       gl_cm)
+        if pmesh is not None:
+            from ..parallel import product
+            temperature = product.solve_temperature(pmesh, grid, table, tabs,
+                                                    gl_cm)
+            emitted = product.emission(pmesh, freq, optics[0].abs_gl,
+                                       temperature, gl_cm)
+        else:
+            temperature = equilibrium.solve_temperature(grid, table, tabs,
+                                                        gl_cm)
+            emitted = equilibrium.emission(freq, optics[0].abs_gl,
+                                           temperature, gl_cm)
         mask = remit_mask_of(cfg, freq)
         if not mask.all():
             emitted = emitted * torch.as_tensor(
@@ -326,16 +375,21 @@ def _run_inner(cfg, device, lanes, write_files, t_start):
         _write_emitted_file(cfg, freq, res.emitted)
     timings["outputs"] = time.time() - t0
     _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
-                  timings)
+                  timings, pmesh)
     timings["total"] = time.time() - t_start
     return res
 
 
 def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
-                  timings):
+                  timings, pmesh=None):
     """Phase 3: orthographic frequency-fused maps, map_dir_XX.bin.
 
-    emitted: [CELLS, NFREQ] host array or device tensor (or None)."""
+    emitted: [CELLS, NFREQ] host array or device tensor (or None).
+    With ``pmesh`` the map's rows and channels are split over the mesh
+    when NY divides by dp and the selected channels by freq (soc_tpu's
+    conditions, driver.py:2063-2068 there, less those on keywords the
+    port does not take yet); otherwise it renders on the first shard's
+    device, as soc_tpu falls back."""
     t0 = time.time()
     device = grid.device
     if cfg.nomap or emitted is None:
@@ -350,6 +404,11 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
         centre = (0.5 * grid.nx, 0.5 * grid.ny, 0.5 * grid.nz)
     kk = render_mapping.map_scale_kk(cfg.gl)
     freq_s = np.asarray(freq)[fsel]
+    shard_maps = (pmesh is not None and cfg.npix[1] % pmesh.n_dp == 0
+                  and int(fsel.sum()) % pmesh.n_freq == 0)
+    if pmesh is not None and not shard_maps:
+        device = pmesh.devices[0]
+        grid = pmesh.replica(grid, device)
     emitted = torch.as_tensor(emitted, device=device)
     scale = torch.as_tensor((kk * freq_s).astype(np.float32), device=device)
     sel_idx = torch.as_tensor(np.nonzero(fsel)[0], device=device)
@@ -360,9 +419,15 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
     for idir in range(len(cfg.obs_theta)):
         odir, ra, de = render_mapping.observer_basis(cfg.obs_theta[idir],
                                                      cfg.obs_phi[idir])
-        phot, _, _ = render_mapping.render_ortho(
-            grid, emit_map, ext_gl, odir, ra, de, centre, cfg.map_dx,
-            tuple(cfg.npix))
+        if shard_maps:
+            from ..parallel.mesh import sharded_render_ortho
+            phot, _, _ = sharded_render_ortho(
+                grid, emit_map, ext_gl, odir, ra, de, centre, cfg.map_dx,
+                tuple(cfg.npix), pmesh)
+        else:
+            phot, _, _ = render_mapping.render_ortho(
+                grid, emit_map, ext_gl, odir, ra, de, centre, cfg.map_dx,
+                tuple(cfg.npix))
         res.maps[idir] = phot.cpu().numpy()
         if write_files:
             write_map_file("map_dir_%02d.bin" % idir, res.maps[idir])

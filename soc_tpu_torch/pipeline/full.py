@@ -4,6 +4,7 @@ soc_tpu.pipeline.full for the plain chain, mode=None).
 Chains: solver-file generation (A2E_pre) for stochastic dusts ->
 absorption run (nosolve, per-frequency tallies) -> multi-dust emission
 (A2E_MABU, the A2E solve on the card) -> map run from the emitted file.
+Under `devices N` the three stages share the absorption run's devices.
 The reference's intermediate files are still written, so any stage can be
 re-run or inspected.
 """
@@ -14,13 +15,13 @@ import time
 
 import numpy as np
 
-from soc_tpu.config import RunConfig
-from soc_tpu.constants import PARSEC
-from soc_tpu.io.dust import read_simple_dust, write_simple_dust
-from soc_tpu.io.fields import write_cell_frequency_array
-from soc_tpu.solve import solver_prep
-from soc_tpu.solve.grain_model import gset_effective_optics, read_gset_dust
-from soc_tpu.solve.solver_file import read_solver, write_solver
+from ..config import RunConfig
+from ..constants import PARSEC
+from ..io.dust import read_simple_dust, write_simple_dust
+from ..io.fields import write_cell_frequency_array
+from ..solve import solver_prep
+from ..solve.grain_model import gset_effective_optics, read_gset_dust
+from ..solve.solver_file import read_solver, write_solver
 
 from . import driver, mabu
 
@@ -123,11 +124,12 @@ def _simple_dust_substitutes(cfg):
 
 
 def run_pipeline(ini_path, device, lanes=driver.DEFAULT_LANES, ne=128,
-                 mode=None):
+                 mode=None, devices=None):
     """ASOC_driver equivalent: absorptions -> emission -> maps. Returns
     (RunResult of the absorption run, EMITTED [CELLS, NFREQ], RunResult of
     the map run); the emission stage's seconds are in the map run's
-    timings under 'a2e'."""
+    timings under 'a2e'. With `devices N` in the ini, or a ``devices``
+    list, all three stages run over the same devices (see driver.run)."""
     if mode is not None:
         raise NotImplementedError(
             "not supported by soc_tpu_torch yet: pipeline mode %r "
@@ -136,12 +138,12 @@ def run_pipeline(ini_path, device, lanes=driver.DEFAULT_LANES, ne=128,
     orig = os.getcwd()
     os.chdir(workdir)
     try:
-        return _run_pipeline_inner(ini_path, device, lanes, ne)
+        return _run_pipeline_inner(ini_path, device, lanes, ne, devices)
     finally:
         os.chdir(orig)
 
 
-def _run_pipeline_inner(ini_path, device, lanes, ne):
+def _run_pipeline_inner(ini_path, device, lanes, ne, devices):
     cfg = RunConfig(ini_path).validate()
     driver.check_supported(cfg)
     ne = cfg.ne_number or ne
@@ -153,7 +155,8 @@ def _run_pipeline_inner(ini_path, device, lanes, ne):
     cfg_rt.nomap = True
     rt_optical = _simple_dust_substitutes(cfg)
     cfg_rt.file_optical = rt_optical
-    res_rt = driver.run(cfg=cfg_rt, device=device, lanes=lanes, workdir=".")
+    res_rt = driver.run(cfg=cfg_rt, device=device, lanes=lanes, workdir=".",
+                        devices=devices)
     absorbed = res_rt.absorbed
     freq = res_rt.freq
     cfg.freq = freq
@@ -166,7 +169,8 @@ def _run_pipeline_inner(ini_path, device, lanes, ne):
     valid = absorbed[:, 0] > -1e19
     abs_clean = np.where(valid[:, None], absorbed, 0.0).astype(np.float32)
     t0 = time.time()
-    emitted = mabu.solve_emission_multi(comps, abs_clean, device)
+    emitted = mabu.solve_emission_multi(comps, abs_clean, device,
+                                        devices=res_rt.devices)
     t_a2e = time.time() - t0
     emitted[~valid] = 0.0
     write_cell_frequency_array(cfg.file_emitted, emitted)
@@ -177,7 +181,7 @@ def _run_pipeline_inner(ini_path, device, lanes, ne):
     cfg_map.iterations = 0
     cfg_map.nosolve = True
     res_map = driver.run(cfg=cfg_map, device=device, lanes=lanes,
-                         workdir=".")
+                         workdir=".", devices=res_rt.devices)
     res_map.timings["a2e_prep"] = t_prep
     res_map.timings["a2e"] = t_a2e
     return res_rt, emitted, res_map

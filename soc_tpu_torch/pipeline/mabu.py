@@ -14,9 +14,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from soc_tpu.constants import EMIT_COEFF, FACTOR, H_K, PLANCK, \
+from ..constants import EMIT_COEFF, FACTOR, H_K, PLANCK, \
     planck_intensity
-from soc_tpu.solve.solver_file import SolverData
+from ..solve.solver_file import SolverData
 
 from ..solve import stochastic
 
@@ -65,12 +65,15 @@ def solve_equilibrium_eqdust(kabs, freq, absorbed, ne=30000):
     return emit.astype(np.float32), t.astype(np.float32)
 
 
-def solve_emission_multi(components, absorbed, device, abu=None):
+def solve_emission_multi(components, absorbed, device, abu=None,
+                         devices=None):
     """Full multi-dust solve.
 
     components : list[DustComponent]
     absorbed   : [CELLS, NFREQ] total absorptions (host array)
     abu        : [CELLS, NDUST] abundances (default: all ones)
+    devices    : devices the stochastic solve splits its cells over
+                 (stochastic.a2e_devices)
     Returns EMITTED [CELLS, NFREQ] float32.
     """
     cells, nfreq = absorbed.shape
@@ -89,7 +92,8 @@ def solve_emission_multi(components, absorbed, device, abu=None):
         absd = split_absorbed(absorbed, rabs, abu, d, den=split_den)
         if comp.kind == "gset":
             emit_d = stochastic.solve_emission(comp.solver, absd, device,
-                                               nstoch=comp.nstoch)
+                                               nstoch=comp.nstoch,
+                                               devices=devices)
         elif comp.kind == "eqdust":
             emit_d, _ = solve_equilibrium_eqdust(comp.kabs, comp.freq, absd)
         else:

@@ -1,7 +1,9 @@
 """What the three gather/scatter probes share: the index steps exactly as
 JAX computes them, best-of-3 timing with CUDA events, the report line, and
-the runner that times every case's kernel beside its plain version and
-holds the one against the other.
+the runner that times every case's kernel beside its plain version (and,
+where one PyTorch call computes the same function, beside that call) and
+holds the one against the other, with the least time the card could take
+for the case.
 
 The LCG. The probes reshuffle indices with
 ``(j * 1103515245 + 12345 + i) % M`` on int32 values: the product and the
@@ -24,6 +26,18 @@ EXACT = "exact"          # the same sequence of float32 adds: bit for bit
 REL = "rel"              # max |k - p| / |p| elementwise, p != 0
 REL_OF_MAX = "rel_of_max"  # max |k - p| / max |p|: scatters and atomics
 LIMITS = {EXACT: 0.0, REL: 1e-6, REL_OF_MAX: 1e-5}
+
+# the published peaks of one H100 SXM (NVIDIA's data sheet, dense): the
+# least time of a case is the larger of its bytes over HBM_BYTES_PER_S and
+# its float32 operations over FP32_FLOPS (an FMA counts 2, an add 1)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+
+def bound_seconds(nbytes, flops):
+    """(least seconds, "bytes" or "operations"): the larger of the two."""
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def wrap32(x):
@@ -139,13 +153,22 @@ class Case:
     (``ops=kernels.KERNELS``) or their plain versions (``ops=kernels.PLAIN``);
     ``kernel`` names the CUDA kernel it launches (a key of
     ``kernels.launches``). A baseline (``kernel=None``, the scripts' XLA
-    lines) is plain torch alone, ``fn(*args)``."""
+    lines) is plain torch alone, ``fn(*args)``.
+
+    elems: the adds the row does (its float32 operations for the bound);
+    nbytes: the bytes it must move, by default every tensor argument read
+    once and the output written once; library: where one PyTorch call
+    computes the same function, library(*args) builds what that call takes
+    from the arguments (untimed) and returns the call, a callable of no
+    arguments."""
     name: str
     fn: Callable
     args: tuple
     elems: int
     tol: str = EXACT
     kernel: Optional[str] = None
+    nbytes: Optional[int] = None
+    library: Optional[Callable] = None
 
 
 @dataclass
@@ -161,6 +184,10 @@ class Result:
     plain_device_seconds: Optional[float] = None  # device_seconds()
     out: object = None              # the kernel's output (or the plain's)
     checks: list = field(default_factory=list)  # (label, err, limit)
+    bound_seconds: Optional[float] = None   # least time on the card
+    bound_by: Optional[str] = None          # "bytes" or "operations"
+    library_seconds: Optional[float] = None          # the library call's
+    library_device_seconds: Optional[float] = None   # call and device time
 
     @property
     def ok(self):
@@ -168,11 +195,34 @@ class Result:
                 and all(e <= lim for _, e, lim in self.checks))
 
 
+def _nbytes(case, out):
+    if case.nbytes is not None:
+        return case.nbytes
+    return sum(a.numel() * a.element_size() for a in case.args
+               if torch.is_tensor(a)) \
+        + sum(o.numel() * o.element_size() for o in _leaves(out))
+
+
+def _library(case, ref):
+    """Times the case's library call (call time, device time) and holds its
+    output to the plain version's with the case's tolerance; returns the
+    (seconds, device seconds, check)."""
+    call = case.library(*case.args)
+    ls, lout = timeit(call)
+    ld = device_seconds(call)
+    err = error(lout, ref, REL_OF_MAX if case.tol == EXACT else case.tol)
+    print(f"  {case.name}: library call {ls * 1e3:.4f} ms, device time "
+          f"{_ms(ld)}; against plain {err:.3e}", flush=True)
+    return ls, ld, ("library call against plain", err,
+                    LIMITS[REL_OF_MAX if case.tol == EXACT else case.tol])
+
+
 def run_cases(cases, kernels, plain):
     """Times each case's kernel and plain version (best of 3 calls each,
-    then their device time per call), prints the report lines, and
-    returns the Results with the kernel-vs-plain errors. A build or launch
-    error propagates."""
+    then their device time per call), and its library call where it has
+    one, prints the report lines, and returns the Results with the
+    kernel-vs-plain errors and the case's least time on the card. A build
+    or launch error propagates."""
     results = []
     for case in cases:
         if case.kernel is None:
@@ -188,10 +238,18 @@ def run_cases(cases, kernels, plain):
         pd = device_seconds(lambda: case.fn(*case.args, ops=plain))
         report("cuda " + case.name, ks, case.elems)
         report("plain " + case.name, ps, case.elems)
+        bound, by = bound_seconds(_nbytes(case, kout), case.elems)
         print(f"  {case.name}: device time per call, kernel {_ms(kd)}, "
-              f"plain {_ms(pd)}; kernel against plain, {case.tol} error "
-              f"{err:.3e} (limit {LIMITS[case.tol]:.0e})", flush=True)
-        results.append(Result(case.name, case.kernel, ks, ps, err,
-                              abs_error(kout, pout), case.tol, out=kout,
-                              device_seconds=kd, plain_device_seconds=pd))
+              f"plain {_ms(pd)}, bound {bound * 1e3:.4f} ms ({by}); kernel "
+              f"against plain, {case.tol} error {err:.3e} (limit "
+              f"{LIMITS[case.tol]:.0e})", flush=True)
+        res = Result(case.name, case.kernel, ks, ps, err,
+                     abs_error(kout, pout), case.tol, out=kout,
+                     device_seconds=kd, plain_device_seconds=pd,
+                     bound_seconds=bound, bound_by=by)
+        if case.library is not None:
+            res.library_seconds, res.library_device_seconds, check = \
+                _library(case, pout)
+            res.checks.append(check)
+        results.append(res)
     return results

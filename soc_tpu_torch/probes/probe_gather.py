@@ -100,6 +100,14 @@ def s1(ix, v, ops=KERNELS):
     return ops.scatter(ix, v, ADD, FLAT, CELLS, 4)
 
 
+def s1_library(ix, v, reps=4):
+    """S1 as one PyTorch call: index_add_ of all four steps' indices."""
+    k = torch.cat([torch.remainder(ix.to(torch.int64) + i, CELLS)
+                   for i in range(reps)])
+    vv = v.repeat(reps)
+    return lambda: vv.new_zeros(CELLS).index_add_(0, k, vv)
+
+
 def cases(tbl, idx, vals, reps=REPS):
     """Every line of the script, with its arguments built as the script
     builds them."""
@@ -125,7 +133,7 @@ def cases(tbl, idx, vals, reps=REPS):
         Case("A5 take_along_axis sublanes", partial(a5, reps=reps),
              (tbl2, idx2), N * reps, EXACT, "probe_gather"),
         Case("S1 vector scatter-add", s1, (idx, vals), N * 4, REL_OF_MAX,
-             "probe_scatter"),
+             "probe_scatter", library=s1_library),
     ]
 
 

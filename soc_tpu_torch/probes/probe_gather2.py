@@ -20,7 +20,8 @@ import torch
 
 from . import common
 from .common import EXACT, REL, REL_OF_MAX, Case
-from .kernels import KERNELS, LCG_BEFORE, PLAIN, ROW
+from .kernels import KERNELS, LCG_BEFORE, ONEHOT_SIDE, PLAIN, ROW, \
+    _bf16_parts
 from .probe_gather import CELLS, N, inputs
 
 REPS = 32
@@ -106,6 +107,37 @@ def exact_deposit(idx, vals):
         .index_add_(0, idx.to(torch.int64), vals)
 
 
+def _lcg_chain(j, reps, mod):
+    """The indices j_1 .. j_reps of an LCG chain, concatenated (int64)."""
+    out = []
+    for i in range(reps):
+        j = common.lcg(j, i, mod)
+        out.append(j.reshape(-1).to(torch.int64))
+    return torch.cat(out)
+
+
+def s2_library(c, v, reps=4):
+    """S2 as one PyTorch call: index_add_ of all steps' row-offset
+    indices into the flat [rows * 128] tally."""
+    base = (torch.arange(c.shape[0], device=c.device)[:, None] * 128
+            ).expand(c.shape).reshape(-1).repeat(reps)
+    k = base + _lcg_chain(c, reps, 128)
+    vv = v.reshape(-1).repeat(reps)
+    return lambda: vv.new_zeros(c.numel()).index_add_(0, k, vv) \
+        .view(c.shape)
+
+
+def mx_library(ix, v, split, reps=REPS, use_lcg=True):
+    """MX as one PyTorch call: index_add_ of every step's cell and the
+    same bf16-rounded values into the flat 512^2 cells."""
+    side2 = ONEHOT_SIDE ** 2
+    k = _lcg_chain(ix, reps, side2) if use_lcg \
+        else ix.reshape(-1).to(torch.int64)
+    d = _bf16_parts(v.reshape(-1), split).repeat(reps if use_lcg else 1)
+    return lambda: d.new_zeros(side2).index_add_(0, k, d) \
+        .view(ONEHOT_SIDE, ONEHOT_SIDE)
+
+
 def cases(tbl, idx, vals, reps=REPS):
     """Every line of the script, with its arguments built as the script
     builds them."""
@@ -133,17 +165,23 @@ def cases(tbl, idx, vals, reps=REPS):
         Case("RG row gather t[r] 128 rows", partial(rg, reps=reps),
              (tbl.reshape(2048, 128),
               torch.remainder(idx, 2048).reshape(8, N // 8)),
-             RG_ROWS * reps, REL, "probe_row_gather"),
+             RG_ROWS * reps, REL, "probe_row_gather",
+             # the table the 128 chains walk, their 128 start indices and
+             # the output: the rest of r is never read
+             nbytes=tbl.numel() * 4 + RG_ROWS * 4 * 2),
         Case("S2 lane-local scatter-add", s2,
              (torch.remainder(idx, 128).reshape(1024, 128),
               vals.reshape(1024, 128)), N * 4, REL_OF_MAX,
-             "probe_scatter"),
+             "probe_scatter", library=s2_library),
         Case("MX one-hot deposit bf16x1", partial(mx, split=1, reps=reps),
-             (ixb, vb), N * reps, REL_OF_MAX, "probe_onehot"),
+             (ixb, vb), N * reps, REL_OF_MAX, "probe_onehot",
+             library=partial(mx_library, split=1, reps=reps)),
         Case("MX one-hot deposit bf16x2", partial(mx, split=2, reps=reps),
-             (ixb, vb), N * reps, REL_OF_MAX, "probe_onehot"),
+             (ixb, vb), N * reps, REL_OF_MAX, "probe_onehot",
+             library=partial(mx_library, split=2, reps=reps)),
         Case("MX correctness deposit bf16x2", mx_check, (ixb, vb), N,
-             REL_OF_MAX, "probe_onehot"),
+             REL_OF_MAX, "probe_onehot",
+             library=partial(mx_library, split=2, reps=1, use_lcg=False)),
     ]
 
 

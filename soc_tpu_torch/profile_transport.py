@@ -33,9 +33,9 @@ import time
 
 import torch
 
-from soc_tpu.config import RunConfig
-from soc_tpu.io.dust import read_scattering_function, read_simple_dust
-from soc_tpu.io.fields import read_background_intensity
+from .config import RunConfig
+from .io.dust import read_scattering_function, read_simple_dust
+from .io.fields import read_background_intensity
 
 from .example_model import write_model
 from .io.cloud import read_cloud
@@ -96,8 +96,9 @@ def lane_sweep(ini, device, card):
               flush=True)
 
 
-def window(ini, device, lanes, card):
-    from torch.profiler import ProfilerActivity, profile
+def load_background(ini, device):
+    """(cfg, grid, medium, background intensity) of an equilibrium-dust
+    model's ini, the inputs of driver.simulate_background."""
     cfg = RunConfig(ini)
     orig = os.getcwd()
     os.chdir(os.path.dirname(ini))
@@ -110,6 +111,12 @@ def window(ini, device, lanes, card):
         ibg = read_background_intensity(cfg.file_background, NFREQ)
     finally:
         os.chdir(orig)
+    return cfg, grid, med, ibg
+
+
+def window(ini, device, lanes, card):
+    from torch.profiler import ProfilerActivity, profile
+    cfg, grid, med, ibg = load_background(ini, device)
     cfg.bgpac = 8 * int(grid.area)          # one batch per surface element
 
     def go():

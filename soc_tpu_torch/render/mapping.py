@@ -13,7 +13,7 @@ rays that have left change nothing.
 import numpy as np
 import torch
 
-from soc_tpu.constants import EPS, FACTOR, PARSEC, PLANCK
+from ..constants import EPS, FACTOR, PARSEC, PLANCK
 
 from ..ops import traverse
 
@@ -59,17 +59,21 @@ def _front_surface(pos, odir, nx, ny, nz):
 
 
 def render_ortho(grid, emit_map, ext_gl, odir, ra, de, centre, map_dx,
-                 npix, max_steps=100000):
+                 npix, max_steps=100000, row0=0, nrows=None):
     """Orthographic multi-frequency map.
 
     emit_map : [CELLS, NF] emission pre-scaled by KK*freq (Jy/sr out)
     ext_gl   : [NF] extinction (abs+sca) / unit density / GL
     odir, ra, de : float32 [3] host arrays from observer_basis
+    row0, nrows : render only map rows [row0, row0 + nrows) (all by
+        default); NY is then nrows in the outputs
     Returns (photons [NF, NY, NX], tau [NF, NY, NX], colden [NY, NX]);
     colden is in GL units.
     """
     device = emit_map.device
     nxp, nyp = npix
+    if nrows is None:
+        nrows = nyp
     nf = emit_map.shape[1]
 
     def t3(v):
@@ -77,13 +81,14 @@ def render_ortho(grid, emit_map, ext_gl, odir, ra, de, centre, map_dx,
 
     odir, ra, de, centre = t3(odir), t3(ra), t3(de), t3(centre)
     i = torch.arange(nxp, dtype=torch.float32, device=device)
-    j = torch.arange(nyp, dtype=torch.float32, device=device)
-    jj, ii = torch.meshgrid(j, i, indexing="ij")      # [NY, NX]
+    j = torch.arange(nrows, dtype=torch.float32, device=device) + float(row0)
+    jj, ii = torch.meshgrid(j, i, indexing="ij")      # [NROWS, NX]
     ii = ii.reshape(-1)
     jj = jj.reshape(-1)
     pos = (centre[None, :]
            + ((ii - 0.5 * (nxp - 1)) * map_dx)[:, None] * ra[None, :]
            + ((jj - 0.5 * (nyp - 1)) * map_dx)[:, None] * de[None, :])
+    nyp = nrows             # the outputs cover only the rendered rows
     pos = pos + (grid.nx + grid.ny + grid.nz) * odir[None, :]
     pos = _front_surface(pos, odir, grid.nx, grid.ny, grid.nz)
 

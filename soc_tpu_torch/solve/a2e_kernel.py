@@ -6,9 +6,12 @@ Pallas kernel in ``solve/pallas_a2e.py``. It takes the pre-folded weights
 and so cannot apply the exact path's per-entry clamp: it equals the exact
 path only when all weights and all absorbed values are non-negative (the
 caller checks). ``solve_all_sizes_clamp`` launches ``a2e_clamp``, the exact
-path for any signs, from the unfolded weights.
+path for any signs, from the unfolded weights. ``solve_all_sizes_sharded``
+splits the cells over several devices and launches either kernel once per
+shard, as soc_tpu's ``solve_all_chunks_sharded`` splits its chunks over a
+device mesh.
 
-Both wrappers launch their kernel for CUDA tensors, or raise; only for CPU
+The wrappers launch their kernel for CUDA tensors, or raise; only for CPU
 tensors do they run the plain twin. The plain twin ``solve_batch`` is
 soc_tpu's exact XLA path written in torch: the heating matrix with each
 entry clamped at zero, the fold, the forward substitution with the
@@ -16,14 +19,21 @@ overflow rescale, and the emission, in float32 matrix products (no TF32).
 """
 
 import ctypes
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-launches = 0        # a2e_all_sizes launches made by solve_all_sizes
-clamp_launches = 0  # a2e_clamp launches made by solve_all_sizes_clamp
+launches = 0           # a2e_all_sizes launches made by solve_all_sizes
+clamp_launches = 0     # a2e_clamp launches made by solve_all_sizes_clamp
+_count_lock = threading.Lock()   # the counts may be added to from threads
+
+
+def _count(name):
+    with _count_lock:
+        globals()[name] += 1
 
 
 @dataclass(frozen=True)
@@ -199,11 +209,10 @@ def solve_all_sizes(stacks, absorbed, align=None):
     CUDA tensors: the pre-folded kernel a2e_all_sizes (exact only for
     non-negative weights and absorbed values). CPU tensors: the plain
     twin."""
-    global launches
     if absorbed.device.type == "cpu":
         return solve_all_sizes_plain(stacks, absorbed, align)
     out = _launch("a2e_all_sizes", "w_fold", stacks, absorbed, align)
-    launches += 1
+    _count("launches")
     return out
 
 
@@ -211,12 +220,53 @@ def solve_all_sizes_clamp(stacks, absorbed, align=None):
     """As solve_all_sizes, for weights and absorbed values of any sign:
     CUDA tensors launch a2e_clamp (stacks built with clamp=True), CPU
     tensors run the plain twin."""
-    global clamp_launches
     if absorbed.device.type == "cpu":
         return solve_all_sizes_plain(stacks, absorbed, align)
     out = _launch("a2e_clamp", "w_unf", stacks, absorbed, align)
-    clamp_launches += 1
+    _count("clamp_launches")
     return out
+
+
+def shard_ranges(cells, nshards):
+    """Contiguous [c0, c1) cell ranges, one per shard, the first
+    cells % nshards of them one cell longer."""
+    q, r = divmod(cells, nshards)
+    starts = [i * q + min(i, r) for i in range(nshards + 1)]
+    return list(zip(starts[:-1], starts[1:]))
+
+
+def solve_all_sizes_sharded(stacks_by_device, absorbed, align, devices,
+                            clamp):
+    """solve_all_sizes (or, with ``clamp``, solve_all_sizes_clamp) with
+    the cells split into contiguous ranges over ``devices``, one launch per
+    shard on its device's current stream; the counterpart of soc_tpu's
+    solve_all_chunks_sharded. A device may repeat: its shards then run one
+    after the other on that device.
+
+    stacks_by_device : {torch.device: A2EStacks on that device}
+    absorbed [cells, NFREQ] and align [S, cells] (or None) on any device;
+    the results come back to absorbed's device in cell order. The kernels
+    give each cell one thread and sum in a fixed order, so the result
+    equals one launch over all cells bit for bit. Shards with no cells
+    (more devices than cells) are skipped. Returns (tot, ptot or None)."""
+    solve = solve_all_sizes_clamp if clamp else solve_all_sizes
+    cells = absorbed.shape[0]
+    # every shard's inputs are copied before any kernel is queued: a copy
+    # between cards runs on the source card's stream, so a copy queued
+    # after a launch there would wait for that kernel
+    inputs = []
+    for dev, (c0, c1) in zip(devices, shard_ranges(cells, len(devices))):
+        if c1 == c0:
+            continue
+        dev = torch.device(dev)
+        al = None if align is None \
+            else align[:, c0:c1].to(dev).contiguous()
+        inputs.append((dev, absorbed[c0:c1].to(dev), al))
+    parts = [solve(stacks_by_device[dev], ab, al) for dev, ab, al in inputs]
+    tot = torch.cat([t.to(absorbed.device) for t, _ in parts])
+    if align is None:
+        return tot, None
+    return tot, torch.cat([p.to(absorbed.device) for _, p in parts])
 
 
 def stacks_from_numpy(w_flat, w_fold, tdown, ea, device, w_unf=None):

@@ -10,8 +10,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from soc_tpu.constants import (EMIT_COEFF, FACTOR, H_K, PARSEC, PLANCK,
-                               planck_intensity)
+from ..constants import (EMIT_COEFF, FACTOR, H_K, PARSEC, PLANCK,
+                         planck_intensity)
 
 
 @dataclass(frozen=True)

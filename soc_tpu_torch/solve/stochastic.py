@@ -11,13 +11,17 @@ CPU. Sizes at or above ``nstoch`` are solved at equilibrium on the host.
 
 On the card the solve routes as soc_tpu does (stochastic.py:262-272 there):
 the pre-folded kernel when every weight and absorbed value is >= 0, the
-clamp kernel (the exact path) otherwise.
+clamp kernel (the exact path) otherwise; and it splits the cells over every
+visible card, or over a given device list, as soc_tpu splits them over its
+local devices (stochastic.py:300-353 there).
 """
+
+import os
 
 import numpy as np
 import torch
 
-from soc_tpu.solve.solver_file import densify_weights
+from .solver_file import densify_weights
 
 from . import a2e_kernel
 from .a2e_kernel import solve_batch  # noqa: F401  (the plain twin)
@@ -99,7 +103,7 @@ def solve_equilibrium_size(solver, isize, absorbed, nip=5000):
     """Large grains above the stochastic cutoff: equilibrium treatment
     (kernel_A2E.c:110-154). absorbed [cells, NFREQ] host array; returns
     EMIT [cells, NFREQ] scaled by S_FRAC*GRAIN_DENSITY."""
-    from soc_tpu.constants import EMIT_COEFF, FACTOR, H_K, PLANCK, \
+    from ..constants import EMIT_COEFF, FACTOR, H_K, PLANCK, \
         planck_intensity
     if solver.s_frac[isize] <= 0.0:
         return np.zeros_like(np.asarray(absorbed, np.float32))
@@ -182,18 +186,36 @@ def fused_weights_nonneg(solver, nstoch=999):
     return all(cache[("fused_nonneg", i)] for i in range(n_stoch))
 
 
+def a2e_devices(device, devices=None):
+    """The devices the stochastic sizes' solve is split over, as soc_tpu
+    splits it (stochastic.py:300-303 there): the given list, else every
+    visible card when ``device`` is CUDA, else ``device`` alone. The
+    environment variable SOC_TPU_A2E_SHARD=0 turns the split off."""
+    device = torch.device(device)
+    if os.environ.get("SOC_TPU_A2E_SHARD", "1") == "0":
+        return [device]
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
 def solve_emission(solver, absorbed, device, nstoch=999, clip_last=True,
-                   aalg=None):
+                   aalg=None, devices=None):
     """Full A2E solve: emission summed over all grain sizes.
 
     absorbed : [CELLS, NFREQ] host array (the absorbed.data payload)
     nstoch   : sizes >= nstoch are treated at equilibrium
     aalg     : optional [CELLS] minimum aligned grain size; then the
                polarised emission PEMITTED is returned too
+    devices  : devices to split the cells over (see a2e_devices)
     On a CUDA device the stochastic sizes go through a hand kernel: the
     pre-folded one when all weights and absorbed values are >= 0, else the
     clamp kernel (negative entries come from the WITH_REFERENCE delta
-    fields of a later slice).
+    fields of a later slice), one launch per device
+    (a2e_kernel.solve_all_sizes_sharded).
     Returns EMITTED [CELLS, NFREQ] float32 (, PEMITTED if aalg given).
     """
     device = torch.device(device)
@@ -210,16 +232,17 @@ def solve_emission(solver, absorbed, device, nstoch=999, clip_last=True,
     if n_stoch > 0:
         clamp = not (fused_weights_nonneg(solver, n_stoch)
                      and absorbed.min() >= 0.0)
-        stacks = get_fused_stacks(solver, device, n_stoch, clamp=clamp)
-        solve = a2e_kernel.solve_all_sizes_clamp if clamp \
-            else a2e_kernel.solve_all_sizes
         align = None
         if aalg is not None:
             align = torch.as_tensor(np.stack(
                 [alignment_weights(solver, i, np.asarray(aalg))
                  for i in range(n_stoch)]), device=device)
-        tot, ptot = solve(stacks, torch.as_tensor(absorbed, device=device),
-                          align)
+        ab = torch.as_tensor(absorbed, device=device)
+        shards = a2e_devices(device, devices)
+        stacks = {d: get_fused_stacks(solver, d, n_stoch, clamp=clamp)
+                  for d in set(shards)}
+        tot, ptot = a2e_kernel.solve_all_sizes_sharded(stacks, ab, align,
+                                                        shards, clamp)
         emitted += tot.cpu().numpy()
         if pemitted is not None:
             pemitted += ptot.cpu().numpy()

@@ -39,8 +39,8 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from soc_tpu.constants import (ADHOC, DEPS, MAX_SCATTERINGS, PEPS,
-                               PHOTON_LIMIT, TAULIM)
+from ..constants import (ADHOC, DEPS, MAX_SCATTERINGS, PEPS, PHOTON_LIMIT,
+                         TAULIM)
 
 from ..ops import traverse
 from .. import rng as socrng
@@ -305,6 +305,14 @@ def _refill(kit, st, gen, params, next_id, total):
     return can.sum()
 
 
+def pool_lanes(nlanes, per_freq):
+    """Lane-pool size for a run whose largest budget is ``per_freq``: the
+    smaller of nlanes and that budget (at least 1024), rounded up to a
+    power of two."""
+    n = min(nlanes, max(1024, per_freq))
+    return 1 << (n - 1).bit_length() if n & (n - 1) else n
+
+
 def transport_run(grid, physics, source_params, total_packets, tabs, intf,
                   seed, source_kind="bg", nlanes=1 << 17,
                   per_freq_tally=False):
@@ -321,6 +329,27 @@ def transport_run(grid, physics, source_params, total_packets, tabs, intf,
     Returns (tabs, intf, escaped [NFREQ] float64, absorbed scalar) on the
     device; escaped is per frequency.
     """
+    return drain(transport_steps(grid, physics, source_params,
+                                 total_packets, tabs, intf, seed,
+                                 source_kind, nlanes, per_freq_tally))
+
+
+def drain(steps):
+    """Run a generator to its end; returns its return value."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as stop:
+            return stop.value
+
+
+def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
+                    seed, source_kind="bg", nlanes=1 << 17,
+                    per_freq_tally=False):
+    """transport_run as a generator: it yields after each refill body (a
+    refill, a service step and REFILL_PERIOD march steps queued on the
+    device) and returns transport_run's result, so one host thread can
+    step the pools of several devices in turn (ProductMesh.map_steps)."""
     from .sources import GENERATORS
     gen = GENERATORS[source_kind]
     kit = StepKit(grid, physics, seed, per_freq_tally)
@@ -356,6 +385,7 @@ def transport_run(grid, physics, source_params, total_packets, tabs, intf,
         kit.service(st)
         for _ in range(REFILL_PERIOD):
             kit.march(st, lane_c)
+        yield
     # final flush: lanes that died in the last block
     esc_w.index_add_(0, st.b.ifreq * ESC_SPREAD + esc_slot,
                      st.esc_pending.double())

@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from soc_tpu.constants import PEPS
+from ..constants import PEPS
 
 from ..ops import traverse
 from .. import rng as socrng
@@ -45,14 +45,17 @@ def packet_identity(ids_local, params):
     """Map local packet ids (int64 tensor) to (k, ifreq, hi) for a
     mixed-frequency run: ids count through the frequencies in turn.
 
-    params: 'per_freq' packets per frequency and 'hi_base' the
-    phase/iteration tag; hi = hi_base + ifreq. k and hi are 32-bit words
-    held in int64, as in soc_tpu_torch.rng; ids are int64, so a run of
-    any size needs no chunking to keep them in 32 bits.
+    params: 'per_freq' packets per frequency, 'hi_base' the
+    phase/iteration tag (hi = hi_base + ifreq) and 'k0' (default 0) the
+    within-frequency index of each frequency's first packet, so that a
+    pool can run a slice [k0, k0 + per_freq) of every channel's budget
+    (the dp shards of product.run_freqs). k and hi are 32-bit words held
+    in int64 and masked, as in soc_tpu_torch.rng; ids are int64, so a run
+    of any size needs no chunking to keep them in 32 bits.
     """
     pf = int(params["per_freq"])
     ifreq = ids_local // pf
-    k = ids_local - ifreq * pf
+    k = (ids_local - ifreq * pf + int(params.get("k0", 0))) & socrng.MASK32
     hi = (ifreq + int(params["hi_base"])) & socrng.MASK32
     return k, ifreq, hi
 

@@ -1,8 +1,10 @@
 """soc_tpu_torch on a CUDA device: the A2E kernels (pre-folded and clamp)
-against their plain twin, the wrapper's checks, the probes' four kernels
-against their plain versions, and the slice on the card against the slice
-on the CPU. Every test here carries the ``gpu`` marker and skips where
-there is no CUDA device. This file imports no jax, so it runs on a
+against their plain twin, the wrapper's checks, the sharded A2E solve
+against one launch, the probes' four kernels against their plain
+versions, the slice on the card against the slice on the CPU, and the
+`devices N` path over cuda:0 three times against the one-device run.
+Every test here carries the ``gpu`` marker and skips where there is no
+CUDA device. This file imports no jax, so it runs on a
 machine without it; tests/conftest.py does import jax, hence on the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -27,7 +29,8 @@ import torch
 from soc_tpu_torch.example_model import (gset_solver, negate_one_weight,
                                          synthetic_absorbed,
                                          with_negative_entries, write_model)
-from soc_tpu_torch.pipeline import full
+from soc_tpu_torch.parallel import mesh as tmesh
+from soc_tpu_torch.pipeline import driver, full
 from soc_tpu_torch.probes import common, gather_probe, kernels
 from soc_tpu_torch.probes import probe_gather, probe_gather2
 from soc_tpu_torch.solve import a2e_kernel, stochastic
@@ -147,6 +150,76 @@ def test_solve_emission_runs_clamp_kernel_for_negative_inputs(cuda, tmp_path,
     assert _max_rel(torch.as_tensor(got), torch.as_tensor(ref)) < REL_TOL
 
 
+@pytest.mark.parametrize("clamp", [False, True])
+def test_sharded_a2e_equals_one_launch(cuda, tmp_path, clamp):
+    """1000 cells with the polarised sum over cuda:0 three times and over
+    every visible card: one launch per shard, and the result equal to one
+    launch over all cells bit for bit (one thread per cell, a fixed order
+    of the sums)."""
+    sol, freq = gset_solver(str(tmp_path), nfreq=44, nsize=4, ne=48)
+    rng = np.random.default_rng(5)
+    ab = synthetic_absorbed(rng, sol, freq, 1000)
+    if clamp:
+        negate_one_weight(sol)
+        ab = with_negative_entries(rng, ab)
+    stacks = stochastic.get_fused_stacks(sol, cuda, clamp=clamp)
+    ab = torch.as_tensor(ab, device=cuda)
+    align = torch.as_tensor(rng.uniform(0, 1, (sol.nsize, 1000))
+                            .astype(np.float32), device=cuda)
+    solve = a2e_kernel.solve_all_sizes_clamp if clamp \
+        else a2e_kernel.solve_all_sizes
+    one = solve(stacks, ab, align)
+    visible = [torch.device("cuda", i)
+               for i in range(torch.cuda.device_count())]
+    count = "clamp_launches" if clamp else "launches"
+    for shards in ([cuda] * 3, visible):
+        by_device = {d: stochastic.get_fused_stacks(sol, d, clamp=clamp)
+                     for d in set(shards)}
+        n0 = getattr(a2e_kernel, count)
+        got = a2e_kernel.solve_all_sizes_sharded(by_device, ab, align,
+                                                 shards, clamp)
+        torch.cuda.synchronize()
+        assert getattr(a2e_kernel, count) - n0 == len(shards)
+        assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
+
+
+def test_devices_path_on_card(cuda, tmp_path, monkeypatch):
+    """`rt` and `pipeline` over cuda:0 three times (dp 3 at 8 channels,
+    a 6x6 map split into rows) against the one-device runs on the card:
+    the same packets on the same streams, the atomic adds in another
+    order, so every entry within 1e-4 relative or 1e-6 of the maximum."""
+    maps = []
+    real = tmesh.sharded_render_ortho
+    monkeypatch.setattr(tmesh, "sharded_render_ortho",
+                        lambda *a: maps.append(a[-1]) or real(*a))
+    shards = [cuda] * 3
+    ini = write_model(str(tmp_path / "rt"), 6, kind="eqdust", nfreq=8)
+    rd = driver.run(ini, device=cuda, lanes=1 << 12, devices=shards)
+    r1 = driver.run(ini, device=cuda, lanes=1 << 12)
+    assert [(m.n_dp, m.n_freq) for m in maps] == [(3, 1)]
+    for a, b in ((rd.absorbed, r1.absorbed), (rd.temperature, r1.temperature),
+                 (rd.emitted, r1.emitted), (rd.maps[0], r1.maps[0])):
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-6 * np.abs(b).max())
+    bal = (rd.absorbed_photons + rd.escaped) / rd.injected - 1
+    assert np.abs(bal).max() < 1e-4
+    kw = dict(kind="gset", nfreq=8, nsize=4, extra="nenumber 32\n")
+    out = []
+    for name, devices in (("one", None), ("three", shards)):
+        ini = write_model(str(tmp_path / name), 6, **kw)
+        n0 = a2e_kernel.launches
+        _, emitted, res_map = full.run_pipeline(ini, device=cuda,
+                                                lanes=1 << 12,
+                                                devices=devices)
+        # without a device list the solve splits over every visible card
+        assert a2e_kernel.launches - n0 == \
+            (3 if devices else torch.cuda.device_count())
+        out.append((emitted, res_map.maps[0]))
+    for a, b in zip(out[1], out[0]):
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-6 * np.abs(b).max())
+
+
 PROBE_CASES = {     # reduced reps; the scripts' shapes
     "probe_gather": lambda t, i, v: (
         probe_gather.cases(t, i, v, reps=4) + probe_gather2.cases(t, i, v,
@@ -212,7 +285,9 @@ def test_pipeline_on_card_matches_cpu(cuda, tmp_path):
         res_rt, emitted, res_map = full.run_pipeline(ini, device=dev,
                                                      lanes=1 << 12)
         launched = a2e_kernel.launches - n0
-        assert launched == (1 if dev.type == "cuda" else 0)
+        # on the card one launch per visible card, each over its cells
+        assert launched == (torch.cuda.device_count()
+                            if dev.type == "cuda" else 0)
         out[name] = (res_rt, emitted, res_map.maps[0])
     (rc, ec, mc), (rg, eg, mg) = out["cpu"], out["gpu"]
     bal = (rg.absorbed_photons + rg.escaped) / rg.injected - 1

@@ -108,7 +108,7 @@ def test_cli_rt_on_cpu_and_verbs(tmp_path, capsys):
     ("stepweight 1 0.5\n", "stepweight"), ("split 8\n", "split"),
     ("checkpoint c.ckpt\n", "checkpoint"), ("nnsolve x\n", "nnsolve"),
     ("CR_HEATING 1\n", "CR_HEATING"), ("polmap 1\n", "polmap"),
-    ("mmapabs\n", "mmapabs"), ("devices 2\n", "devices")])
+    ("mmapabs\n", "mmapabs"), ("domains 2\n", "domains")])
 def test_unsupported_keywords_raise(tmp_path, extra, name):
     ini = write_model(str(tmp_path), 4, kind="eqdust", nfreq=6, extra=extra)
     with pytest.raises(NotImplementedError, match=name):
