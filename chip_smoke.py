@@ -8,10 +8,12 @@ Phases (any failure exits non-zero before the final line):
   1. device: a CUDA device must be present (there is no CPU path); prints
      the card's name and power limit as nvidia-smi reports them
   2. build: compiles every soc_tpu_torch/csrc/*.cu source with nvcc, one
-     process each, all at once
+     process each, all at once, and prints each kernel's registers and
+     spills from ptxas; a spill in a2e_all_sizes fails
   3. A2E kernel against its plain twin on the card at NE 16/48/128/256
-     (NFREQ 44, all 24 grain sizes), TF32 off; then both timed at the
-     pipeline's shape (262,144 cells, NE 128)
+     (NFREQ 44, all 24 grain sizes), TF32 off; then its tile, staged
+     columns and resident warps per SM at the pipeline's shape (fewer
+     than 8 warps fail), and both timed there (262,144 cells, NE 128)
   4. the `pipeline` verb (cli.main, as `python -m soc_tpu_torch pipeline`)
      on a 64^3 model with a stochastic (GSET) dust: absorption run ->
      A2E -> 64x64 map, with checks of shapes,
@@ -33,7 +35,8 @@ Phases (any failure exits non-zero before the final line):
      deposits at 1e-5 of the maximum, the MX correctness deposit also at
      1e-5 of an exact float32 scatter's maximum), and the scatters and
      one-hot deposits also through one index_add_ call, their library
-     yardstick
+     yardstick; for each MX row the deposit rate (deposits per second of
+     device time) of the kernel and of index_add_
   8. the sharded A2E solve: `stochastic.solve_emission` at the pipeline's
      shape (262,144 cells x 24 sizes x NE 128 x NFREQ 44, with the
      polarised sum) over all visible cards, then over cuda:0 two and three
@@ -97,15 +100,18 @@ PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
 
 
 def a2e_work(cells, nsize, ne, nf, clamp, align):
-    """(float32 operations, bytes) of one A2E solve over all sizes, counted
-    from csrc/a2e.cu's loops (an FMA counts 2, an add 1; the divides and
-    the rescale, O(NE) a cell and size, are left out). Pre-folded kernel,
-    per cell and size: the bottom row NF*NE FMAs; substitution rows j = 1
-    .. NE-2, (NF + 1) FMAs and 1 subtraction for each l < j; the last row
-    NE-1 FMAs; the emission NF*NE FMAs and NE adds. Clamp kernel: (NF + 1)
-    FMAs for each heating entry below the diagonal, NE(NE-1)/2 of them, and
-    (NE-2)(NE-1)/2 adds of suffix sums, then the same emission. Bytes: each
-    input read once and each output written once."""
+    """(float32 operations, bytes) of one A2E solve over all sizes: the
+    function's work, counted once (an FMA counts 2, an add 1; the divides
+    and the rescale, O(NE) a cell and size, are left out), whatever loops
+    a kernel runs (a2e_all_sizes orders its sums otherwise, csrc/a2e.cu),
+    so that the bounds of successive designs compare. Pre-folded
+    solve, per cell and size: the bottom row NF*NE FMAs; substitution rows
+    j = 1 .. NE-2, (NF + 1) FMAs and 1 subtraction for each l < j; the last
+    row NE-1 FMAs; the emission NF*NE FMAs and NE adds. Exact (clamp)
+    solve: (NF + 1) FMAs for each heating entry below the diagonal,
+    NE(NE-1)/2 of them, and (NE-2)(NE-1)/2 adds of suffix sums, then the
+    same emission. Bytes: each input read once and each output written
+    once."""
     tri = (ne - 2) * (ne - 1) // 2
     if clamp:
         fma = (nf + 1) * ne * (ne - 1) // 2 + nf * ne
@@ -117,6 +123,19 @@ def a2e_work(cells, nsize, ne, nf, clamp, align):
     if align:
         words += nsize * cells + cells * nf
     return flops, 4 * words
+
+
+def ptxas_kernels(log):
+    """[(kernel, registers, bytes of spill stores and loads)] from nvcc's
+    -Xptxas -v output, one entry per compiled kernel."""
+    out = []
+    for m in re.finditer(r"Function properties for (\S+)\s*\n\s*(\d+) "
+                         r"bytes stack frame, (\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads", log):
+        regs = re.search(r"Used (\d+) registers", log[m.end():])
+        out.append((m.group(1), int(regs.group(1)) if regs else -1,
+                    int(m.group(3)) + int(m.group(4))))
+    return out
 
 
 def bound(flops, nbytes):
@@ -220,6 +239,19 @@ def kernel_phase(dev, work, rng, report):
             fail("NE %d: kernel differs from the plain twin" % ne)
         if ne == 128:
             full_sol, full_stacks = sol, stacks
+
+    # the kernel's layout at the pipeline's shape
+    tile, lc, warps = a2e_kernel.pick_fold_config(a2e_kernel._lib(), 44, 128,
+                                                  dev.index or 0)
+    c4 = -(-44 // 4)
+    print("phase 3: a2e_all_sizes at NE 128, NFREQ 44: tile %d cells, %d "
+          "columns staged at a time, %d resident warps per SM (at least "
+          "%d); %d FMAs per %d shared loads a step over l (%.2f)"
+          % (tile, lc, warps, a2e_kernel.MIN_WARPS, 4 * c4, c4 + 1,
+             4 * c4 / (c4 + 1)), flush=True)
+    if warps < a2e_kernel.MIN_WARPS:
+        fail("a2e_all_sizes keeps %d warps per SM at the pipeline's shape"
+             % warps)
 
     # timing at the pipeline's shape
     cells = 64 ** 3
@@ -642,6 +674,18 @@ def probes_phase(dev, report):
     bad = [r.name for r in results if not r.ok]
     if bad:
         fail("phase 7: kernels that fail their checks: %s" % ", ".join(bad))
+    for r in results:
+        if r.kernel != "probe_onehot":
+            continue
+        if r.device_seconds is None or r.library_device_seconds is None:
+            fail("phase 7: %s: device time not measured" % r.name)
+        print("phase 7: %s: %d deposits: %.4e deposits/s of device time "
+              "(%.4f ms), index_add_ %.4e deposits/s (%.4f ms) [%s]"
+              % (r.name, r.elems,
+                 r.elems / r.device_seconds, 1e3 * r.device_seconds,
+                 r.elems / r.library_device_seconds,
+                 1e3 * r.library_device_seconds, report["card"]),
+              flush=True)
     for name in PROBE_KERNELS:
         rows = [r for r in results if r.kernel == name]
         if launches[name] < 1 or not rows:
@@ -714,6 +758,11 @@ def main():
         secs, log = _build.build_log.get(name, (0.0, "cached"))
         print("phase 2: csrc/%s.cu in %.2f s; nvcc says:\n%s"
               % (name, secs, log.strip()), flush=True)
+        for kernel, regs, spills in ptxas_kernels(log):
+            print("phase 2: %s: %d registers, %d bytes spilled (stores + "
+                  "loads)" % (kernel, regs, spills), flush=True)
+            if "a2e_all_sizes" in kernel and spills:
+                fail("a2e_all_sizes spills registers")
 
     work = os.path.join(HERE, "_smoke_work")
     shutil.rmtree(work, ignore_errors=True)

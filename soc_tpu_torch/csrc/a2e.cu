@@ -14,27 +14,38 @@
 //   EMIT[c, f] += sum_l EA[s, f, l] x_l / max(sum x, 1e-35)
 //   PEMIT[c, f] += EMIT_s[c, f] * align[s, c]   (when align is given)
 //
-// Design. The TPU kernel keeps a tile's whole folded matrix [NE*NE, tile]
-// in its on-chip memory; at NE 128 that is far beyond the 227 KB of shared
-// memory a Hopper block may use.
-// Here one block handles T cells, one thread per cell, and loops over the
-// sizes itself, so EMIT and PEMIT sum in a fixed order with no atomics
-// (each thread owns its output rows). For every substitution row j the
-// block stages the row block W'[:, j*NE : j*NE + j] (the l < j part: x_l
-// for l >= j is still zero) in shared memory; each thread forms B[j, l]
-// on the fly and accumulates the row's dot with x at the same time.
-// x [NE][T], the bottom row S[NE-1] [NE][T] (computed once per size) and
-// the ABS tile [NFREQ][T] stay in shared memory beside the staged row
-// block: ~172 KB at NE 128, T 128, NFREQ 44, hence dynamic shared memory
-// above the 48 KB default.
+// What bounds it: the FP32 FMAs of the substitution, NFREQ * NE^2 / 2 a
+// cell and size (soc_tpu runs the solve at Precision.HIGHEST, and the
+// fold's S[j] - S[NE-1] cancels, so no tensor cores and no TF32), and
+// the shared-memory loads that feed them. The TPU kernel keeps a tile's
+// whole folded matrix [NE*NE, tile] on chip; a Hopper block cannot (227 KB).
 //
-// What bounds it on this card: re-reading W' from L2 once per block and
-// size (NE*NE*NFREQ*4 bytes, 2.9 MB at NE 128) and the FP32 FMAs, about
-// NFREQ*NE^2/2 per cell and size, each fed by two shared-memory loads.
-// T sets the reuse of every staged W' element; the wrapper picks the
-// largest T in {128, 64, 32} whose shared memory fits. All arithmetic is
-// FP32 (soc_tpu runs this solve at Precision.HIGHEST): no tensor cores and
-// no TF32. Tensor cores, TMA and cluster multicast of W' are later work.
+// Design (a2e_all_sizes_kernel). One thread owns one cell: its
+// populations x [NE] (a column of shared memory) and its output rows, and
+// it loops over the sizes itself, so EMIT and PEMIT sum in a fixed order
+// with no atomics and a cell's bits do not depend on where it sits in the
+// launch. The substitution is reordered so that each x_l feeds a chunk of
+// independent FMAs instead of one dependent chain:
+//   r[f] = sum_{l<j} W'[f, j, l] x_l        (a chunk of f in registers)
+//   s_j  = sum_f ABS[f] r[f] - q_j,  q_j = sum_{l<j} S[NE-1, l] x_l
+// q is a running sum per cell: S[NE-1, l] is formed (NFREQ FMAs) when x_l
+// is set, and q is scaled with x when the rescale fires; the bottom row
+// takes no shared memory. The weights are stored row by row, frequencies
+// last and zero-padded to NFP = 4 ceil(NFREQ/4) (w_fold [S, NE, NE, NFP]),
+// so a row's l < j part is one contiguous run: it is staged in shared
+// memory as [l][f] and read with 16-byte loads that every thread of the
+// block shares (broadcast). At NFREQ 44 one step over l is 1 load of x_l
+// and 11 of W', for 44 FMAs: 3.7 FMAs per shared load (the previous design
+// did 0.5). Frequencies come in register chunks of at most 48 (any NFREQ,
+// chunk by chunk); ABS stays in registers when one chunk holds them all,
+// else in shared memory. The staged weights stream through two buffers
+// with cp.async: a row (or, where shared memory is short, a run of `lc`
+// columns of it) is copied while the previous one computes, one wait and
+// one barrier each. Shared memory is x [NE][tile] plus the two buffers,
+// 110 KB at NE 128, NFREQ 44, tile 128: two blocks, 8 warps, per SM
+// (a2e_fold_smem_bytes; the wrapper picks tile and lc,
+// a2e_kernel.pick_fold_config). Each staged W' element serves the block's
+// tile cells, so W' is read from L2 once per block and size.
 //
 // a2e_clamp_kernel: the exact path for any sign of weights and absorbed
 // values. Replaces: soc_tpu/solve/stochastic.py solve_batch (:100-145, XLA,
@@ -56,14 +67,17 @@
 // Every a[u, l] is formed once, clamped, and never stored; s_j is a true
 // suffix sum of non-negative terms (no cancellation). W is passed
 // column-major, w_unf[s, f, l*NE + u] = W[u, l, f], so a column block is
-// contiguous. Shared memory and the FMA count are those of
-// a2e_all_sizes_kernel, plus NE^2/2 adds per cell and size for the suffix
-// sums.
+// contiguous. Shared memory: a2e_clamp_smem_bytes. Each FMA waits on two
+// shared-memory loads; its redesign is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int FOLD_THREADS = 128;  // the largest tile (cells per block)
+constexpr int FOLD_C4 = 12;        // float4 groups in a register chunk
+constexpr int FOLD_CH = 4 * FOLD_C4;
 
 // Normalises a cell's populations x (s_x[l * T + tid]) and adds size s's
 // emission EA x into tot (and align[s, c] times it into ptot), summing the
@@ -90,78 +104,199 @@ __device__ __forceinline__ void emit_size(
   }
 }
 
-__global__ void a2e_all_sizes_kernel(
-    const float* __restrict__ w_fold,    // [S, NF, NE*NE]
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A unit of the stream of staged weights: size s, substitution row j,
+// part u. It holds columns [u*lc, u*lc + cols) of row j (none for the last
+// row, whose sum is q alone) and, for u == 0, the bottom row's column j-1
+// in slot lc.
+struct Unit {
+  int s, j, u;
+};
+
+__device__ __forceinline__ int unit_cols(Unit t, int ne, int lc) {
+  return t.j == ne - 1 ? 0 : min(lc, t.j - t.u * lc);
+}
+
+__device__ __forceinline__ bool last_unit_of_row(Unit t, int ne, int lc) {
+  return t.j == ne - 1 || (t.u + 1) * lc >= t.j;
+}
+
+__device__ __forceinline__ Unit next_unit(Unit t, int ne, int lc) {
+  if (!last_unit_of_row(t, ne, lc)) return {t.s, t.j, t.u + 1};
+  if (t.j + 1 < ne) return {t.s, t.j + 1, 0};
+  return {t.s + 1, 1, 0};
+}
+
+// Queues the copies of unit t into buf ([lc + 1][nfp4] float4) and
+// commits them as one cp.async group.
+__device__ __forceinline__ void stage_unit(float4* buf,
+                                           const float4* __restrict__ w,
+                                           Unit t, int ne, int nfp4, int lc,
+                                           int tid, int T) {
+  const float4* W = w + (int64_t)t.s * ne * ne * nfp4;
+  const float4* row = W + ((int64_t)t.j * ne + t.u * lc) * nfp4;
+  const int n = unit_cols(t, ne, lc) * nfp4;
+  for (int i = tid; i < n; i += T) cp_async16(buf + i, row + i);
+  if (t.u == 0) {
+    const float4* bot = W + ((int64_t)(ne - 1) * ne + (t.j - 1)) * nfp4;
+    for (int i = tid; i < nfp4; i += T)
+      cp_async16(buf + lc * nfp4 + i, bot + i);
+  }
+  cp_async_commit();
+}
+
+// One register chunk, float4 groups [g0, g0 + C4), of a staged unit:
+// adds sum_f ABS[f] sum_l W'[f, j, l] x_l over the unit's columns into
+// dot and, with `bottom`, sum_f ABS[f] W'[f, NE-1, j-1] into bot. `a` holds
+// the chunk's ABS; with `multi` (more than one chunk) it is loaded here
+// from s_abs [NFP][T].
+template <int C4>
+__device__ __forceinline__ void chunk_unit(
+    const float4* buf, int nfp4, int g0, const float* s_x, int T, int tid,
+    int l0, int ncols, bool bottom, int lc, bool multi, const float* s_abs,
+    float (&a)[FOLD_CH], float& dot, float& bot) {
+  if (multi) {
+#pragma unroll
+    for (int k = 0; k < 4 * C4; ++k) a[k] = s_abs[(4 * g0 + k) * T + tid];
+  }
+  if (bottom) {
+    const float4* wb = buf + lc * nfp4 + g0;
+    float b0 = 0.0f, b1 = 0.0f, b2 = 0.0f, b3 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C4; ++k) {
+      const float4 w4 = wb[k];
+      b0 = fmaf(a[4 * k], w4.x, b0);
+      b1 = fmaf(a[4 * k + 1], w4.y, b1);
+      b2 = fmaf(a[4 * k + 2], w4.z, b2);
+      b3 = fmaf(a[4 * k + 3], w4.w, b3);
+    }
+    bot += (b0 + b1) + (b2 + b3);
+  }
+  if (ncols == 0) return;
+  float r[4 * C4];
+#pragma unroll
+  for (int k = 0; k < 4 * C4; ++k) r[k] = 0.0f;
+  const float* xp = s_x + l0 * T + tid;
+  const float4* wl = buf + g0;
+#pragma unroll 2
+  for (int l = 0; l < ncols; ++l) {
+    const float xl = xp[l * T];
+#pragma unroll
+    for (int k = 0; k < C4; ++k) {
+      const float4 w4 = wl[l * nfp4 + k];
+      r[4 * k] = fmaf(w4.x, xl, r[4 * k]);
+      r[4 * k + 1] = fmaf(w4.y, xl, r[4 * k + 1]);
+      r[4 * k + 2] = fmaf(w4.z, xl, r[4 * k + 2]);
+      r[4 * k + 3] = fmaf(w4.w, xl, r[4 * k + 3]);
+    }
+  }
+  float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d3 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < C4; ++k) {
+    d0 = fmaf(a[4 * k], r[4 * k], d0);
+    d1 = fmaf(a[4 * k + 1], r[4 * k + 1], d1);
+    d2 = fmaf(a[4 * k + 2], r[4 * k + 2], d2);
+    d3 = fmaf(a[4 * k + 3], r[4 * k + 3], d3);
+  }
+  dot += (d0 + d1) + (d2 + d3);
+}
+
+__global__ void __launch_bounds__(FOLD_THREADS, 2) a2e_all_sizes_kernel(
+    const float4* __restrict__ w_fold,   // [S, NE, NE, NFP/4]
     const float* __restrict__ tdown,     // [S, NE]
     const float* __restrict__ ea,        // [S, NF, NE]
     const float* __restrict__ absorbed,  // [C, NF]
     const float* __restrict__ align,     // [S, C] or nullptr
     float* __restrict__ tot,             // [C, NF]
     float* __restrict__ ptot,            // [C, NF] or nullptr
-    int nsize, int nf, int ne, int ncells) {
-  extern __shared__ float smem[];
+    int nsize, int nf, int ne, int ncells, int lc) {
+  extern __shared__ float4 smem4[];
   const int T = blockDim.x;
   const int tid = threadIdx.x;
   const int64_t c = (int64_t)blockIdx.x * T + tid;
   const bool valid = c < ncells;
-  float* s_abs = smem;             // [nf][T]
-  float* s_w = s_abs + nf * T;     // [nf][ne] staged row block
-  float* s_x = s_w + nf * ne;      // [ne][T] populations
-  float* s_bot = s_x + ne * T;     // [ne][T] bottom row S[NE-1]
-  const int64_t nn = (int64_t)ne * ne;
+  const int nfp4 = (nf + 3) / 4;
+  const int nch = (nfp4 + FOLD_C4 - 1) / FOLD_C4;
+  const bool multi = nch > 1;
+  const int stage = (lc + 1) * nfp4;
+  float4* bufs = smem4;                                   // 2 x [lc+1][nfp4]
+  float* s_x = reinterpret_cast<float*>(smem4 + 2 * stage);  // [ne][T]
+  float* s_abs = s_x + ne * T;             // [4 nfp4][T], only when multi
 
-  for (int f = 0; f < nf; ++f)
-    s_abs[f * T + tid] = valid ? absorbed[c * nf + f] : 0.0f;
+  float a[FOLD_CH];
+#pragma unroll
+  for (int k = 0; k < FOLD_CH; ++k)
+    a[k] = (!multi && valid && k < nf) ? absorbed[c * nf + k] : 0.0f;
+  if (multi)
+    for (int f = 0; f < 4 * nfp4; ++f)
+      s_abs[f * T + tid] = (valid && f < nf) ? absorbed[c * nf + f] : 0.0f;
+  for (int l = 0; l < ne; ++l) s_x[l * T + tid] = (l == 0) ? 1.0e-20f : 0.0f;
 
-  for (int s = 0; s < nsize; ++s) {
-    const float* W = w_fold + (int64_t)s * nf * nn;
-    const float* td = tdown + (int64_t)s * ne;
-
-    // ---- bottom row S[NE-1, l], l < NE
-    __syncthreads();
-    for (int i = tid; i < nf * ne; i += T) {
-      const int f = i / ne, l = i - f * ne;
-      s_w[f * ne + l] = W[f * nn + (int64_t)(ne - 1) * ne + l];
-    }
-    __syncthreads();
-    for (int l = 0; l < ne; ++l) {
-      float acc = 0.0f;
-      for (int f = 0; f < nf; ++f)
-        acc = fmaf(s_w[f * ne + l], s_abs[f * T + tid], acc);
-      s_bot[l * T + tid] = acc;
-      s_x[l * T + tid] = (l == 0) ? 1.0e-20f : 0.0f;
-    }
-
-    // ---- forward substitution with the overflow rescale
-    for (int j = 1; j < ne; ++j) {
-      float sj = 0.0f;
-      if (j < ne - 1) {
-        __syncthreads();
-        for (int i = tid; i < nf * j; i += T) {
-          const int f = i / j, l = i - f * j;
-          s_w[f * ne + l] = W[f * nn + (int64_t)j * ne + l];
-        }
-        __syncthreads();
-        for (int l = 0; l < j; ++l) {
-          float acc = 0.0f;
-          for (int f = 0; f < nf; ++f)
-            acc = fmaf(s_w[f * ne + l], s_abs[f * T + tid], acc);
-          const float b = acc - s_bot[l * T + tid];
-          sj = fmaf(b, s_x[l * T + tid], sj);
-        }
-      } else {
-        for (int l = 0; l < j; ++l)
-          sj = fmaf(s_bot[l * T + tid], s_x[l * T + tid], sj);
+  float q = 0.0f;    // sum_{l<j} S[NE-1, l] x_l
+  float dot = 0.0f;  // row j's sum_f ABS[f] r[f] over the units so far
+  Unit t = {0, 1, 0};
+  stage_unit(bufs, w_fold, t, ne, nfp4, lc, tid, T);
+  for (int it = 0; t.s < nsize; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // unit t staged; every thread done with unit it-1
+    const Unit nx = next_unit(t, ne, lc);
+    if (nx.s < nsize)
+      stage_unit(bufs + ((it + 1) & 1) * stage, w_fold, nx, ne, nfp4, lc,
+                 tid, T);
+    const float4* buf = bufs + (it & 1) * stage;
+    const int ncols = unit_cols(t, ne, lc);
+    const bool bottom = t.u == 0;
+    float bot = 0.0f;
+    for (int k = 0; k < nch; ++k) {
+      const int g0 = k * nfp4 / nch;
+      switch ((k + 1) * nfp4 / nch - g0) {
+#define A2E_CHUNK(C4)                                                   \
+  case C4:                                                              \
+    chunk_unit<C4>(buf, nfp4, g0, s_x, T, tid, t.u * lc, ncols, bottom, \
+                   lc, multi, s_abs, a, dot, bot);                      \
+    break;
+        A2E_CHUNK(1) A2E_CHUNK(2) A2E_CHUNK(3) A2E_CHUNK(4)
+        A2E_CHUNK(5) A2E_CHUNK(6) A2E_CHUNK(7) A2E_CHUNK(8)
+        A2E_CHUNK(9) A2E_CHUNK(10) A2E_CHUNK(11) A2E_CHUNK(12)
+#undef A2E_CHUNK
       }
-      float xj = fminf(fmaxf(sj / (td[j] + 1.0e-30f), 0.0f), 3.0e37f);
+    }
+    if (bottom) q = fmaf(bot, s_x[(t.j - 1) * T + tid], q);
+    if (last_unit_of_row(t, ne, lc)) {
+      const int j = t.j;
+      const float sj = j < ne - 1 ? dot - q : q;
+      dot = 0.0f;
+      const float td = tdown[(int64_t)t.s * ne + j];
+      float xj = fminf(fmaxf(sj / (td + 1.0e-30f), 0.0f), 3.0e37f);
       if (xj > 1.0e20f) {
         for (int l = 0; l < j; ++l) s_x[l * T + tid] *= 1.0e-20f;
+        q *= 1.0e-20f;
         xj *= 1.0e-20f;
       }
       s_x[j * T + tid] = xj;
+      if (j == ne - 1) {
+        emit_size(s_x, T, tid, c, valid, t.s, ea, align, tot, ptot, nf, ne,
+                  ncells);
+        for (int l = 0; l < ne; ++l)
+          s_x[l * T + tid] = (l == 0) ? 1.0e-20f : 0.0f;
+        q = 0.0f;
+      }
     }
-
-    emit_size(s_x, T, tid, c, valid, s, ea, align, tot, ptot, nf, ne, ncells);
+    t = nx;
   }
 }
 
@@ -240,9 +375,34 @@ __global__ void a2e_clamp_kernel(
 
 extern "C" {
 
-// Dynamic shared memory, in bytes, that a block of `tile` cells needs
-// (either kernel).
-size_t a2e_smem_bytes(int nf, int ne, int tile) {
+// Dynamic shared memory, in bytes, of a2e_all_sizes with `tile` cells a
+// block and runs of `lc` columns: two staging buffers [lc + 1][NFP], x
+// [NE][tile], and ABS [NFP][tile] when NFREQ needs more than one chunk.
+size_t a2e_fold_smem_bytes(int nf, int ne, int tile, int lc) {
+  const size_t nfp4 = (nf + 3) / 4;
+  const bool multi = nfp4 > (size_t)FOLD_C4;
+  return sizeof(float4) * 2 * (size_t)(lc + 1) * nfp4 +
+         sizeof(float) * ((size_t)ne * tile + (multi ? 4 * nfp4 * tile : 0));
+}
+
+// Blocks of a2e_all_sizes that fit on one SM of the current device at
+// (tile, lc), by its registers and shared memory; negative: a CUDA error.
+int a2e_fold_blocks_per_sm(int nf, int ne, int tile, int lc) {
+  const size_t smem = a2e_fold_smem_bytes(nf, ne, tile, lc);
+  cudaError_t err = cudaFuncSetAttribute(
+      a2e_all_sizes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, a2e_all_sizes_kernel, tile, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return blocks;
+}
+
+// Dynamic shared memory, in bytes, that a2e_clamp needs for a block of
+// `tile` cells.
+size_t a2e_clamp_smem_bytes(int nf, int ne, int tile) {
   return sizeof(float) *
          ((size_t)nf * tile + (size_t)nf * ne + 2 * (size_t)ne * tile);
 }
@@ -257,28 +417,30 @@ int a2e_max_smem(int device) {
 }
 
 // Launches the solve on `stream`; returns the cudaError_t of the launch.
+// w_fold [S, NE, NE, NFP] (NFP = 4 ceil(NFREQ/4)), 16-byte aligned.
 int a2e_all_sizes(const float* w_fold, const float* tdown, const float* ea,
                   const float* absorbed, const float* align, float* tot,
                   float* ptot, int nsize, int nf, int ne, int ncells,
-                  int tile, void* stream) {
-  const size_t smem = a2e_smem_bytes(nf, ne, tile);
+                  int tile, int lc, void* stream) {
+  const size_t smem = a2e_fold_smem_bytes(nf, ne, tile, lc);
   cudaError_t err = cudaFuncSetAttribute(
       a2e_all_sizes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (ncells + tile - 1) / tile;
   a2e_all_sizes_kernel<<<blocks, tile, smem, (cudaStream_t)stream>>>(
-      w_fold, tdown, ea, absorbed, align, tot, ptot, nsize, nf, ne, ncells);
+      reinterpret_cast<const float4*>(w_fold), tdown, ea, absorbed, align,
+      tot, ptot, nsize, nf, ne, ncells, lc);
   return (int)cudaGetLastError();
 }
 
-// The exact (clamp) solve; same arguments and shared memory as
-// a2e_all_sizes, with w_unf in place of w_fold.
+// The exact (clamp) solve; the arguments of a2e_all_sizes with w_unf in
+// place of w_fold and no lc.
 int a2e_clamp(const float* w_unf, const float* tdown, const float* ea,
               const float* absorbed, const float* align, float* tot,
               float* ptot, int nsize, int nf, int ne, int ncells, int tile,
               void* stream) {
-  const size_t smem = a2e_smem_bytes(nf, ne, tile);
+  const size_t smem = a2e_clamp_smem_bytes(nf, ne, tile);
   cudaError_t err = cudaFuncSetAttribute(
       a2e_clamp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

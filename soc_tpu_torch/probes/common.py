@@ -188,6 +188,7 @@ class Result:
     bound_by: Optional[str] = None          # "bytes" or "operations"
     library_seconds: Optional[float] = None          # the library call's
     library_device_seconds: Optional[float] = None   # call and device time
+    elems: Optional[int] = None             # the case's adds (Case.elems)
 
     @property
     def ok(self):
@@ -246,7 +247,7 @@ def run_cases(cases, kernels, plain):
         res = Result(case.name, case.kernel, ks, ps, err,
                      abs_error(kout, pout), case.tol, out=kout,
                      device_seconds=kd, plain_device_seconds=pd,
-                     bound_seconds=bound, bound_by=by)
+                     bound_seconds=bound, bound_by=by, elems=case.elems)
         if case.library is not None:
             res.library_seconds, res.library_device_seconds, check = \
                 _library(case, pout)

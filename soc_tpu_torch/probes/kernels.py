@@ -275,10 +275,10 @@ def _bf16_parts(v, split):
 
 
 def onehot(ix, v, split, reps, use_lcg):
-    """MX: out [512, 512] += the bf16-rounded v (split 1) or its two bf16
-    terms (split 2) at cell j = hi * 512 + lo, for reps steps (j stepped by
-    the LCG mod 512^2 first when use_lcg), as one-hot tensor-core
-    products. CUDA tensors: the kernel."""
+    """MX: out [512, 512] += the bf16-rounded v (split 1) or the sum of its
+    two bf16 terms (split 2) at cell j = hi * 512 + lo, for reps steps (j
+    stepped by the LCG mod 512^2 first when use_lcg). CUDA tensors: the
+    kernel, a tally held in the shared memory of groups of 8 blocks."""
     if ix.device.type == "cpu":
         return onehot_plain(ix, v, split, reps, use_lcg)
     device = _cuda_device(ix, "onehot")
@@ -287,9 +287,10 @@ def onehot(ix, v, split, reps, use_lcg):
     if v.shape != ix.shape or split not in (1, 2):
         raise ValueError("onehot: v %s against ix %s, split %r"
                          % (tuple(v.shape), tuple(ix.shape), split))
-    if not use_lcg and ix.numel() and not bool(
-            ((ix >= 0) & (ix < ONEHOT_SIDE ** 2)).all()):
-        raise ValueError("onehot: indices outside [0, 512^2)")
+    if not use_lcg and ix.numel():
+        lo, hi = torch.aminmax(ix)
+        if int(lo) < 0 or int(hi) >= ONEHOT_SIDE ** 2:
+            raise ValueError("onehot: indices outside [0, 512^2)")
     lib = _lib("probe_onehot")
     out = torch.zeros((ONEHOT_SIDE, ONEHOT_SIDE), dtype=torch.float32,
                       device=device)

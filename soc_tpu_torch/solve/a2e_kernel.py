@@ -19,6 +19,8 @@ overflow rescale, and the emission, in float32 matrix products (no TF32).
 """
 
 import ctypes
+import itertools
+import math
 import threading
 from dataclasses import dataclass
 from typing import Optional
@@ -42,9 +44,12 @@ class A2EStacks:
 
     w_flat : [S, NE*NE, NFREQ] dense heating weights (AF folded in), for
              the plain twin; None in stacks built for the kernels alone
-    w_fold : [S, NFREQ, NE*NE] the same weights with the u-cumsum fold
-             pre-applied in float64, transposed, for a2e_all_sizes; None
-             in stacks built for the clamp kernel
+    w_fold : [S, NE, NE, NFP] the same weights with the u-cumsum fold
+             pre-applied in float64, for a2e_all_sizes: row j's column l
+             holds the frequencies, zero-padded to NFP = 4*ceil(NFREQ/4)
+             so that each column is 16-byte aligned, w_fold[s, j, l, f] =
+             W'[s, f, j*NE + l] of soc_tpu's prepare_size_arrays_fused
+             (fold_rows); None in stacks built for the clamp kernel
     tdown  : [S, NE] cooling rates
     ea     : [S, NFREQ, NE] emission arrays (Ibeg-masked)
     w_unf  : [S, NFREQ, NE*NE] the unfolded weights, column-major:
@@ -116,6 +121,8 @@ def solve_all_sizes_plain(stacks, absorbed, align=None, batch=16384):
 
 
 _SMEM_CAP = {}
+_FOLD_CONFIG = {}
+MIN_WARPS = 8           # a2e_all_sizes: resident warps per SM aimed for
 
 
 def _lib():
@@ -123,31 +130,79 @@ def _lib():
     lib = _build.library("a2e")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.a2e_all_sizes, lib.a2e_clamp):
-            fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-            fn.restype = ctypes.c_int
-        lib.a2e_smem_bytes.argtypes = [i, i, i]
-        lib.a2e_smem_bytes.restype = ctypes.c_size_t
+        lib.a2e_all_sizes.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.a2e_clamp.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.a2e_all_sizes.restype = lib.a2e_clamp.restype = i
+        lib.a2e_fold_smem_bytes.argtypes = [i, i, i, i]
+        lib.a2e_fold_smem_bytes.restype = ctypes.c_size_t
+        lib.a2e_fold_blocks_per_sm.argtypes = [i, i, i, i]
+        lib.a2e_fold_blocks_per_sm.restype = i
+        lib.a2e_clamp_smem_bytes.argtypes = [i, i, i]
+        lib.a2e_clamp_smem_bytes.restype = ctypes.c_size_t
         lib.a2e_max_smem.argtypes = [i]
-        lib.a2e_max_smem.restype = ctypes.c_int
+        lib.a2e_max_smem.restype = i
         lib.a2e_error_string.argtypes = [i]
         lib.a2e_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
 
 
-def pick_tile(lib, nfreq, ne, device_index):
-    """Largest tile (cells per block) whose shared memory fits; raises for
-    a shape the kernel cannot take."""
+def _smem_cap(lib, device_index):
     cap = _SMEM_CAP.get(device_index)
     if cap is None:
         cap = _SMEM_CAP[device_index] = lib.a2e_max_smem(device_index)
+    return cap
+
+
+def _too_large(kernel, nfreq, ne, cap):
+    return ValueError("A2E kernel %s: NE=%d with NFREQ=%d needs more shared "
+                      "memory than a block may use (%d bytes)"
+                      % (kernel, ne, nfreq, cap))
+
+
+def pick_clamp_tile(lib, nfreq, ne, device_index):
+    """a2e_clamp: the largest tile (cells per block) whose shared memory
+    fits; raises for a shape the kernel cannot take."""
+    cap = _smem_cap(lib, device_index)
     for tile in (128, 64, 32):
-        if lib.a2e_smem_bytes(nfreq, ne, tile) <= cap:
+        if lib.a2e_clamp_smem_bytes(nfreq, ne, tile) <= cap:
             return tile
-    raise ValueError("A2E kernel: NE=%d with NFREQ=%d needs more shared "
-                     "memory than a block may use (%d bytes)"
-                     % (ne, nfreq, cap))
+    raise _too_large("a2e_clamp", nfreq, ne, cap)
+
+
+def pick_fold_config(lib, nfreq, ne, device_index):
+    """a2e_all_sizes: (tile, lc, resident warps per SM). lc is the number
+    of a row's columns staged at a time: the whole row (NE - 2) where
+    shared memory allows, else 64, 32, 16 or 8. The first (tile, lc), tiles
+    from 128 down and lc from the whole row down, that keeps MIN_WARPS warps
+    on an SM; else the one that keeps the most. A larger tile reads W' from
+    L2 fewer times; a larger lc needs fewer barriers. The choice depends
+    on the shape and the device alone, never on the cell count: lc sets
+    the order of the sums, and a shard must add up as one launch does.
+    Raises for a shape the kernel cannot take."""
+    key = (device_index, nfreq, ne)
+    if key in _FOLD_CONFIG:
+        return _FOLD_CONFIG[key]
+    cap = _smem_cap(lib, device_index)
+    whole = max(ne - 2, 1)
+    lcs = [whole] + [lc for lc in (64, 32, 16, 8) if lc < whole]
+    best = (0, 0, 0)
+    for tile, lc in itertools.product((128, 64, 32), lcs):
+        if lib.a2e_fold_smem_bytes(nfreq, ne, tile, lc) > cap:
+            continue
+        blocks = lib.a2e_fold_blocks_per_sm(nfreq, ne, tile, lc)
+        if blocks < 0:
+            raise RuntimeError("A2E kernel a2e_all_sizes: occupancy query "
+                               "failed: %s"
+                               % lib.a2e_error_string(-blocks).decode())
+        if blocks * tile // 32 > best[2]:
+            best = (tile, lc, blocks * tile // 32)
+        if best[2] >= MIN_WARPS:
+            break
+    if best[2] == 0:
+        raise _too_large("a2e_all_sizes", nfreq, ne, cap)
+    _FOLD_CONFIG[key] = best
+    return best
 
 
 def _check_cuda(name, t, device, shape):
@@ -178,23 +233,29 @@ def _launch(kernel, weights_name, stacks, absorbed, align):
         raise ValueError("A2E kernel %s: these stacks carry no %s"
                          % (kernel, weights_name))
     _check_cuda("absorbed", absorbed, device, (cells, nfreq))
-    _check_cuda(weights_name, weights, device, (nsize, nfreq, ne * ne))
+    _check_cuda(weights_name, weights, device,
+                (nsize, ne, ne, padded_nfreq(nfreq))
+                if weights_name == "w_fold" else (nsize, nfreq, ne * ne))
     _check_cuda("tdown", stacks.tdown, device, (nsize, ne))
     _check_cuda("ea", stacks.ea, device, (nsize, nfreq, ne))
     if align is not None:
         _check_cuda("align", align, device, (nsize, cells))
     lib = _lib()
-    tile = pick_tile(lib, nfreq, ne, device.index or 0)
+    index = device.index or 0
     tot = torch.empty((cells, nfreq), dtype=torch.float32, device=device)
     ptot = torch.empty_like(tot) if align is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
+        if kernel == "a2e_all_sizes":
+            config = pick_fold_config(lib, nfreq, ne, index)[:2]
+        else:
+            config = (pick_clamp_tile(lib, nfreq, ne, index),)
         err = getattr(lib, kernel)(
             weights.data_ptr(), stacks.tdown.data_ptr(),
             stacks.ea.data_ptr(), absorbed.data_ptr(),
             align.data_ptr() if align is not None else None,
             tot.data_ptr(), ptot.data_ptr() if ptot is not None else None,
-            nsize, nfreq, ne, cells, tile, stream)
+            nsize, nfreq, ne, cells, *config, stream)
     if err != 0:
         raise RuntimeError("A2E kernel %s launch failed: %s"
                            % (kernel, lib.a2e_error_string(err).decode()))
@@ -269,11 +330,31 @@ def solve_all_sizes_sharded(stacks_by_device, absorbed, align, devices,
     return tot, torch.cat([p.to(absorbed.device) for _, p in parts])
 
 
+def padded_nfreq(nfreq):
+    """NFP, the frequency axis of w_fold: NFREQ rounded up to a multiple
+    of 4."""
+    return -(-nfreq // 4) * 4
+
+
+def fold_rows(w_fold):
+    """soc_tpu's folded weights [S, NFREQ, NE*NE] (prepare_size_arrays_fused
+    stacked), a tensor, as a2e_all_sizes reads them: [S, NE, NE, NFP],
+    frequencies last, zero-padded; rearranged on w_fold's device."""
+    nsize, nfreq, nn = w_fold.shape
+    ne = math.isqrt(nn)
+    rows = w_fold.reshape(nsize, nfreq, ne, ne).permute(0, 2, 3, 1)
+    return torch.nn.functional.pad(
+        rows, (0, padded_nfreq(nfreq) - nfreq)).contiguous()
+
+
 def stacks_from_numpy(w_flat, w_fold, tdown, ea, device, w_unf=None):
     """A2EStacks from host arrays (see convert.py); w_flat, w_fold and
-    w_unf may each be None."""
+    w_unf may each be None. w_fold comes in soc_tpu's layout [S, NFREQ,
+    NE*NE] and is carried as fold_rows gives it."""
     def t(a):
         return None if a is None else torch.tensor(
             np.ascontiguousarray(a, np.float32), device=device)
-    return A2EStacks(w_flat=t(w_flat), w_fold=t(w_fold), tdown=t(tdown),
-                     ea=t(ea), ne=int(np.shape(tdown)[-1]), w_unf=t(w_unf))
+    return A2EStacks(w_flat=t(w_flat),
+                     w_fold=None if w_fold is None else fold_rows(t(w_fold)),
+                     tdown=t(tdown), ea=t(ea), ne=int(np.shape(tdown)[-1]),
+                     w_unf=t(w_unf))

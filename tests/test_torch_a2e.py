@@ -6,7 +6,9 @@ torch; on the CPU it must match ``stochastic.solve_batch`` at rtol 2e-5
 math, summed in another order), with and without negative absorbed values
 (the per-entry clamp). For non-negative inputs it must also match the
 Pallas kernel in interpret mode, exactly as soc_tpu's tests run it. The
-kernel itself runs only on a CUDA device (tests/test_torch_gpu.py).
+kernel itself runs only on a CUDA device (tests/test_torch_gpu.py),
+where it is held to the plain twin; these tests close the chain from the
+twin to soc_tpu at the same edges of the kernel's tiling.
 """
 
 import sys
@@ -26,6 +28,7 @@ from soc_tpu_torch.solve import stochastic as tsto
 
 sys.path.insert(0, "tests")
 from test_a2e import random_solver  # noqa: E402
+from test_torch_gpu import rescale_count  # noqa: E402
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -56,20 +59,37 @@ def test_solve_batch_matches_xla(ne, negative):
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-25)
 
 
-def test_plain_twin_matches_pallas_interpret():
-    """Non-negative inputs: the plain twin equals the fused Pallas kernel
-    (interpret mode) that the CUDA kernel replaces."""
-    solver = random_solver(ne=128, nfreq=12, nsize=1, seed=11)
-    absorbed = _absorbed(12, 256, 4, False)
+# (NE, NFREQ, absorbed scale, whether the 1e-20 rescale fires): NE 2 with
+# one column, odd NE, NFREQ not a multiple of 4, NE 128 where soc_tpu runs
+# its Pallas kernel, and NE 4 heated 1e6 times harder, where the rescale
+# fires though it does not at the plain scale (random_solver's steep
+# weights make it fire at NE >= 17 already)
+TWIN_CASES = [(2, 5, 1.0, False), (17, 45, 1.0, True), (33, 44, 1.0, True),
+              (128, 12, 1.0, True), (4, 5, 1.0, False), (4, 5, 1e6, True)]
+
+
+@pytest.mark.parametrize("ne,nfreq,scale,fires", TWIN_CASES)
+def test_plain_twin_matches_pallas_interpret(ne, nfreq, scale, fires):
+    """Non-negative inputs: the plain twin equals what soc_tpu runs for
+    this shape: the fused Pallas kernel (interpret mode) that the CUDA
+    kernel replaces where NE is a multiple of 128, the XLA solve_batch
+    elsewhere (soc_tpu's stochastic.py:262 takes the kernel only there)."""
+    solver = random_solver(ne=ne, nfreq=nfreq, nsize=1, seed=11)
+    absorbed = (_absorbed(nfreq, 256, 4, False) * scale).astype(np.float32)
     w_t, tdown, ea_n = jsto.prepare_size_arrays_fused(solver, 0)
-    fused = np.asarray(solve_batch_fused(w_t, tdown, jnp.asarray(ea_n),
-                                         jnp.asarray(absorbed), 128,
-                                         tile=128, interpret=True))
+    if ne % 128 == 0:
+        ref = solve_batch_fused(w_t, tdown, jnp.asarray(ea_n),
+                                jnp.asarray(absorbed), ne, tile=128,
+                                interpret=True)
+    else:
+        ref = jsto.solve_batch(*jsto.prepare_size_arrays(solver, 0),
+                               jnp.asarray(absorbed), ne)
     tw, ttd, tea = tsto.prepare_size_arrays(solver, 0)
-    got = tsto.solve_batch(torch.as_tensor(tw), torch.as_tensor(ttd),
-                           torch.as_tensor(tea), torch.as_tensor(absorbed),
-                           128).numpy()
-    np.testing.assert_allclose(got, fused, rtol=2e-5, atol=1e-25)
+    tw, ttd, tab = (torch.as_tensor(a) for a in (tw, ttd, absorbed))
+    assert (rescale_count(tw, ttd, tab, ne) > 0) == fires
+    got = tsto.solve_batch(tw, ttd, torch.as_tensor(tea), tab, ne).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-5, atol=1e-25)
     # the kernel's folded weights are soc_tpu's, bit for bit
     tw_fold, _, _ = tsto.prepare_size_arrays_fused(solver, 0)
     np.testing.assert_array_equal(tw_fold, np.asarray(w_t))
@@ -134,6 +154,86 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         a2e_kernel.solve_all_sizes(stacks, torch.zeros((4, 8),
                                                        device="meta"))
+
+
+@pytest.mark.parametrize("nfreq", [8, 5])
+def test_folded_stacks_are_soc_tpu_weights_by_row(nfreq):
+    """a2e_all_sizes' w_fold [S, NE, NE, NFP] is soc_tpu's folded
+    prepare_size_arrays_fused [NFREQ, NE*NE] of each size, with row j's
+    column l holding the frequencies, zero-padded to a multiple of 4."""
+    ne = 16
+    solver = random_solver(ne=ne, nfreq=nfreq, nsize=3, seed=5)
+    w = tsto.get_fused_stacks(solver, CPU).w_fold.numpy()
+    nfp = a2e_kernel.padded_nfreq(nfreq)
+    assert nfp % 4 == 0 and nfp - nfreq < 4
+    assert w.shape == (3, ne, ne, nfp)
+    assert not w[..., nfreq:].any()
+    for s in range(3):
+        ref = np.asarray(jsto.prepare_size_arrays_fused(solver, s)[0])
+        np.testing.assert_array_equal(
+            w[s, :, :, :nfreq], ref.reshape(nfreq, ne, ne).transpose(1, 2, 0))
+
+
+class _FakeLib:
+    """a2e.cu's sizing entry points for a card with ``cap`` bytes of
+    shared memory a block and ``sm`` an SM (1 KB kept per block), and
+    ``regs`` registers a thread."""
+
+    def __init__(self, cap=232448, sm=233472, regs=168):
+        self.cap, self.sm, self.regs, self.queries = cap, sm, regs, 0
+
+    def a2e_max_smem(self, device):
+        return self.cap
+
+    def a2e_fold_smem_bytes(self, nf, ne, tile, lc):
+        nfp4 = -(-nf // 4)
+        multi = nfp4 > 12
+        return 16 * 2 * (lc + 1) * nfp4 + 4 * (ne * tile
+                                               + (4 * nfp4 * tile if multi
+                                                  else 0))
+
+    def a2e_fold_blocks_per_sm(self, nf, ne, tile, lc):
+        self.queries += 1
+        smem = self.a2e_fold_smem_bytes(nf, ne, tile, lc) + 1024
+        return min(self.sm // smem, 65536 // (self.regs * tile))
+
+    def a2e_clamp_smem_bytes(self, nf, ne, tile):
+        return 4 * (nf * tile + nf * ne + 2 * ne * tile)
+
+
+@pytest.mark.parametrize("nfreq,ne,want", [
+    (44, 128, (128, 126, 8)),     # the pipeline: whole rows, 2 blocks
+    (44, 16, (128, 14, 12)),      # registers, not shared memory, bound it
+    (44, 256, (64, 16, 6)),       # 8 warps nowhere: the most warps
+    (100, 129, (64, 16, 6)),      # ABS in shared memory too
+    (5, 2, (128, 1, 12)),         # one column a row at most
+])
+def test_fold_config_choice(monkeypatch, nfreq, ne, want):
+    """pick_fold_config: the largest tile, then the most columns, that
+    keeps 8 warps on an SM, else the most warps; cached per device and
+    shape."""
+    monkeypatch.setattr(a2e_kernel, "_FOLD_CONFIG", {})
+    monkeypatch.setattr(a2e_kernel, "_SMEM_CAP", {})
+    lib = _FakeLib()
+    assert a2e_kernel.pick_fold_config(lib, nfreq, ne, 0) == want
+    n = lib.queries
+    assert a2e_kernel.pick_fold_config(lib, nfreq, ne, 0) == want
+    assert lib.queries == n
+
+
+def test_kernel_shape_limits_name_the_shape(monkeypatch):
+    """A shape neither kernel takes raises, naming NE, NFREQ and the cap;
+    a2e_all_sizes takes shapes the clamp kernel cannot."""
+    monkeypatch.setattr(a2e_kernel, "_FOLD_CONFIG", {})
+    monkeypatch.setattr(a2e_kernel, "_SMEM_CAP", {})
+    lib = _FakeLib(cap=16384, sm=20000)
+    with pytest.raises(ValueError, match=r"NE=1024 with NFREQ=44 .*16384"):
+        a2e_kernel.pick_fold_config(lib, 44, 1024, 0)
+    with pytest.raises(ValueError, match=r"NE=256 with NFREQ=44 .*16384"):
+        a2e_kernel.pick_clamp_tile(lib, 44, 256, 0)
+    assert a2e_kernel.pick_fold_config(lib, 44, 64, 0)[2] > 0
+    with pytest.raises(ValueError, match="a2e_clamp"):
+        a2e_kernel.pick_clamp_tile(lib, 44, 64, 0)
 
 
 def test_unfolded_stacks_are_soc_tpu_weights_transposed():

@@ -53,18 +53,54 @@ def _max_rel(got, ref):
     return float((torch.abs(got - ref)[sel] / ref[sel]).max())
 
 
-@pytest.mark.parametrize("ne", [16, 48, 128, 256])
-def test_kernel_matches_plain_twin(cuda, tmp_path, ne):
-    """All sizes in one launch, with the align-weighted sum; 1000 cells is
-    not a multiple of any tile, so the ragged last block is covered."""
-    sol, freq = gset_solver(str(tmp_path), nfreq=44, nsize=4, ne=ne)
+def rescale_count(w_flat, tdown, absorbed, ne):
+    """How often the forward substitution's 1e-20 rescale fires over the
+    cells of ``absorbed`` [cells, NFREQ] for one size (w_flat [NE*NE,
+    NFREQ], tdown [NE]): the plain twin's float32 steps, counted."""
+    a = torch.clamp_min(absorbed @ w_flat.T, 0.0).reshape(-1, ne, ne)
+    s = torch.flip(torch.cumsum(torch.flip(a, [1]), 1), [1])
+    b = s - a[:, ne - 1:ne, :]
+    b[:, ne - 1, :] = a[:, ne - 1, :]
+    x = torch.zeros((a.shape[0], ne), dtype=torch.float32,
+                    device=absorbed.device)
+    x[:, 0] = 1.0e-20
+    fired = 0
+    for j in range(1, ne):
+        xj = torch.clamp((b[:, j, :j] * x[:, :j]).sum(1)
+                         / (tdown[j] + 1.0e-30), 0.0, 3.0e37)
+        big = xj > 1.0e20
+        fired += int(big.sum())
+        x[big] *= 1.0e-20
+        x[:, j] = torch.where(big, xj * 1.0e-20, xj)
+    return fired
+
+
+# (NE, NFREQ, cells, absorbed scale): the pipeline's NFREQ at NE 16-256;
+# NE and NFREQ at the edges of the kernel's tiling (NFREQ 5 and 45 not a
+# multiple of 4, 100 more than one register chunk; NE 2 and 3 with at most
+# one column a row, 17 and 129 odd); 1 cell and 1000 (not a multiple of
+# any tile: a ragged last block); a heating 1e4 times stronger, where the
+# 1e-20 rescale fires
+A2E_CASES = ([(ne, 44, 1000, 1.0) for ne in (16, 48, 128, 256)]
+             + [(ne, nf, cells, 1.0) for ne in (2, 3, 17, 129)
+                for nf in (5, 45, 100) for cells in (1, 1000)]
+             + [(128, 44, 1000, 1e4)])
+
+
+@pytest.mark.parametrize("ne,nfreq,cells,scale", A2E_CASES)
+def test_kernel_matches_plain_twin(cuda, tmp_path, ne, nfreq, cells, scale):
+    """All sizes in one launch, with the align-weighted sum."""
+    sol, freq = gset_solver(str(tmp_path), nfreq=nfreq, nsize=4, ne=ne)
     assert stochastic.fused_weights_nonneg(sol)
     rng = np.random.default_rng(ne)
     stacks = stochastic.get_fused_stacks(sol, cuda, plain=True)
-    ab = torch.as_tensor(synthetic_absorbed(rng, sol, freq, 1000),
+    ab = torch.as_tensor(synthetic_absorbed(rng, sol, freq, cells) * scale,
                          device=cuda)
-    align = torch.as_tensor(rng.uniform(0, 1, (sol.nsize, 1000))
+    align = torch.as_tensor(rng.uniform(0, 1, (sol.nsize, cells))
                             .astype(np.float32), device=cuda)
+    fired = sum(rescale_count(stacks.w_flat[s], stacks.tdown[s], ab, ne)
+                for s in range(sol.nsize))
+    assert (fired > 0) == (scale > 1.0), fired
     n0 = a2e_kernel.launches
     tot, ptot = a2e_kernel.solve_all_sizes(stacks, ab, align)
     assert a2e_kernel.launches == n0 + 1
@@ -155,7 +191,9 @@ def test_sharded_a2e_equals_one_launch(cuda, tmp_path, clamp):
     """1000 cells with the polarised sum over cuda:0 three times and over
     every visible card: one launch per shard, and the result equal to one
     launch over all cells bit for bit (one thread per cell, a fixed order
-    of the sums)."""
+    of the sums). Then two shards split at cells 1, 127 and 129, which
+    moves every cell of the second to another place in its block: still
+    bit for bit."""
     sol, freq = gset_solver(str(tmp_path), nfreq=44, nsize=4, ne=48)
     rng = np.random.default_rng(5)
     ab = synthetic_absorbed(rng, sol, freq, 1000)
@@ -181,6 +219,11 @@ def test_sharded_a2e_equals_one_launch(cuda, tmp_path, clamp):
         torch.cuda.synchronize()
         assert getattr(a2e_kernel, count) - n0 == len(shards)
         assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
+    for c0 in (1, 127, 129):
+        parts = [solve(stacks, ab[i0:i1], align[:, i0:i1].contiguous())
+                 for i0, i1 in ((0, c0), (c0, 1000))]
+        for k in range(2):
+            assert torch.equal(torch.cat([p[k] for p in parts]), one[k]), c0
 
 
 def test_devices_path_on_card(cuda, tmp_path, monkeypatch):
@@ -258,6 +301,43 @@ def test_probe_kernel_matches_plain(cuda, kernel):
         assert rel <= probe_gather2.MX_CHECK_LIMIT
 
 
+# MX indices: the edges of the CTAs' slices of the table (each CTA of a
+# cluster holds 32,768 cells), every lane on one cell, or random cells
+# stepped by the LCG
+MX_INDICES = {
+    "edges": lambda n, rng: np.resize(
+        np.array([0, 32767, 32768, 262143], np.int32), n),
+    "hot": lambda n, rng: np.full(n, 32768, np.int32),
+    "lcg": lambda n, rng: rng.integers(-2 ** 31, 2 ** 31 - 1, n,
+                                       dtype=np.int64).astype(np.int32),
+}
+
+
+@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("reps", [1, 32])
+@pytest.mark.parametrize("n", [1, 513])
+@pytest.mark.parametrize("pattern", list(MX_INDICES))
+def test_onehot_kernel_edges(cuda, pattern, n, reps, split):
+    """The MX deposit kernel against its plain version (index_add_) at the
+    slice edges, on a hot spot and on LCG chains, for 1 and 513 lanes, 1
+    and 32 steps, split 1 and 2: within 1e-5 of the maximum (float32 adds
+    in another order)."""
+    rng = np.random.default_rng(n * 64 + reps)
+    ix = torch.as_tensor(MX_INDICES[pattern](n, rng), device=cuda)
+    v = torch.as_tensor(rng.uniform(0.0, 1.0, n).astype(np.float32),
+                        device=cuda)
+    use_lcg = pattern == "lcg"
+    n0 = kernels.launches["probe_onehot"]
+    got = kernels.onehot(ix, v, split, reps, use_lcg)
+    assert kernels.launches["probe_onehot"] == n0 + 1
+    ref = kernels.onehot_plain(ix, v, split, reps, use_lcg)
+    torch.cuda.synchronize()
+    assert float(ref.max()) > 0
+    err = common.error(got, ref, common.REL_OF_MAX)
+    assert err <= common.LIMITS[common.REL_OF_MAX], err
+    assert int((got != 0).sum()) == int((ref != 0).sum())
+
+
 def test_probe_wrappers_check_inputs(cuda):
     t = torch.rand(2048, 128, device=cuda)
     ix = torch.randint(0, 2048, (1024, 128), device=cuda,
@@ -270,6 +350,9 @@ def test_probe_wrappers_check_inputs(cuda):
         kernels.gather(t, ix, kernels.LCG_BEFORE, kernels.ROW, 2)
     with pytest.raises(ValueError, match="onehot"):
         kernels.onehot(ix, t[:1024], 3, 1, True)
+    far = torch.tensor([0, 512 * 512], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        kernels.onehot(far, torch.ones(2, device=cuda), 1, 1, False)
 
 
 def test_pipeline_on_card_matches_cpu(cuda, tmp_path):
