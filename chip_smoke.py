@@ -9,7 +9,7 @@ Phases (any failure exits non-zero before the final line):
      the card's name and power limit as nvidia-smi reports them
   2. build: compiles every soc_tpu_torch/csrc/*.cu source with nvcc, one
      process each, all at once, and prints each kernel's registers and
-     spills from ptxas; a spill in a2e_all_sizes fails
+     spills from ptxas; a spill in a2e_all_sizes or a2e_clamp fails
   3. A2E kernel against its plain twin on the card at NE 16/48/128/256
      (NFREQ 44, all 24 grain sizes), TF32 off; then its tile, staged
      columns and resident warps per SM at the pipeline's shape (fewer
@@ -26,17 +26,20 @@ Phases (any failure exits non-zero before the final line):
      pre-folded kernel (which cannot clamp) differs from the twin by more
      than 10x the tolerance; then
      `stochastic.solve_emission` on such inputs at the pipeline's shape,
-     which must run the clamp kernel and not the pre-folded one; then
-     both timed at that shape
+     which must run the clamp kernel and not the pre-folded one; then the
+     clamp kernel's tile, staged rows and resident warps per SM at that
+     shape (fewer than 8 warps fail), and both timed there
   7. the gather/scatter probes (soc_tpu_torch.probes: probe_gather,
      probe_gather2, gather_probe) at the scripts' constants: every row
      timed through its CUDA kernel and its plain version and held to it
      (gathers bit for bit, RG at 1e-6 relative, scatters and one-hot
      deposits at 1e-5 of the maximum, the MX correctness deposit also at
-     1e-5 of an exact float32 scatter's maximum), and the scatters and
-     one-hot deposits also through one index_add_ call, their library
-     yardstick; for each MX row the deposit rate (deposits per second of
-     device time) of the kernel and of index_add_
+     1e-5 of an exact float32 scatter's maximum), and every row but RG
+     also through one PyTorch call, its library yardstick (embedding_bag
+     for the gathers, index_add_ for the scatters and one-hot deposits);
+     each gather row's device time (best of 3, with the spread) beside
+     its library call's; for each MX row the deposit rate (deposits per
+     second of device time) of the kernel and of index_add_
   8. the sharded A2E solve: `stochastic.solve_emission` at the pipeline's
      shape (262,144 cells x 24 sizes x NE 128 x NFREQ 44, with the
      polarised sum) over all visible cards, then over cuda:0 two and three
@@ -453,6 +456,16 @@ def clamp_phase(dev, solvers, rng, report):
           " %d clamp kernel launch(es), 0 pre-folded" % (cells, wall,
                                                         launches), flush=True)
 
+    # the kernel's layout at the pipeline's shape
+    tile, lr, warps = a2e_kernel.pick_clamp_config(a2e_kernel._lib(), 44, 128,
+                                                   dev.index or 0)
+    print("phase 6: a2e_clamp at NE 128, NFREQ 44: tile %d cells, %d rows "
+          "staged at a time, %d resident warps per SM (at least %d)"
+          % (tile, lr, warps, a2e_kernel.MIN_WARPS), flush=True)
+    if warps < a2e_kernel.MIN_WARPS:
+        fail("a2e_clamp keeps %d warps per SM at the pipeline's shape"
+             % warps)
+
     # timing at the pipeline's shape
     stacks = stochastic.get_fused_stacks(full_sol, dev, plain=True,
                                          clamp=True)
@@ -675,6 +688,18 @@ def probes_phase(dev, report):
     if bad:
         fail("phase 7: kernels that fail their checks: %s" % ", ".join(bad))
     for r in results:
+        if r.kernel != "probe_gather":
+            continue
+        if r.device_seconds is None or r.library_device_seconds is None:
+            fail("phase 7: %s: device time not measured" % r.name)
+        print("phase 7: %s: device time (best of 3) kernel %.4f ms (spread "
+              "%.4f), embedding_bag %.4f ms (spread %.4f), %.2fx [%s]"
+              % (r.name, 1e3 * r.device_seconds, 1e3 * r.device_spread,
+                 1e3 * r.library_device_seconds,
+                 1e3 * r.library_device_spread,
+                 r.library_device_seconds / r.device_seconds,
+                 report["card"]), flush=True)
+    for r in results:
         if r.kernel != "probe_onehot":
             continue
         if r.device_seconds is None or r.library_device_seconds is None:
@@ -761,8 +786,9 @@ def main():
         for kernel, regs, spills in ptxas_kernels(log):
             print("phase 2: %s: %d registers, %d bytes spilled (stores + "
                   "loads)" % (kernel, regs, spills), flush=True)
-            if "a2e_all_sizes" in kernel and spills:
-                fail("a2e_all_sizes spills registers")
+            for name in ("a2e_all_sizes", "a2e_clamp"):
+                if name in kernel and spills:
+                    fail("%s spills registers" % name)
 
     work = os.path.join(HERE, "_smoke_work")
     shutil.rmtree(work, ignore_errors=True)

@@ -14,7 +14,9 @@ given device, so that both packages can compute on identical inputs:
                                                                 -> A2EStacks
       (soc_tpu's prepare_size_arrays / prepare_size_arrays_fused outputs
       stacked on a size axis; w_flat may be None for kernel-only stacks,
-      w_fold None for clamp-kernel stacks, which carry w_unf instead)
+      w_fold None for clamp-kernel stacks, which carry w_unf instead: the
+      dense prepare_size_arrays weights [S, NE*NE, NFREQ] again, which
+      a2e_kernel.unfold_cols lays out column by column, [S, NE, NE, NFP])
 """
 
 import numpy as np

@@ -55,20 +55,37 @@
 //             so the fold cannot move into the weights)
 //   B[j, l] = sum_{u=j}^{NE-2} a[u, l] (j < NE-1),  B[NE-1, l] = a[NE-1, l]
 //   then the substitution, rescale, normalisation and emission above.
-// Design. The lower triangle of a (NE(NE-1)/2 floats a cell, 32.5 KB at
-// NE 128) does not fit a tile of cells in shared memory, and B cannot be
-// formed as a total minus a prefix (at high j the suffix is many orders
-// below the total). Instead the kernel swaps the two sums of s_j:
+// What bounds it: the same FP32 FMAs as a2e_all_sizes, NFREQ NE(NE-1)/2 a
+// cell and size, and the shared-memory loads that feed them.
+// Design. The lower triangle of a does not fit a tile of cells in shared
+// memory, and B cannot be formed as a total minus a prefix (at high j the
+// suffix is many orders below the total). So the two sums of s_j swap:
 //   s_j = sum_{l<j} B[j, l] x_l = sum_{u=j}^{NE-2} p_j[u],
-//   p_j[u] = sum_{l<j} a[u, l] x_l,
-// keeping p[u] per cell in shared memory. When x_j is known, column j of
-// a (entries u > j) is formed from the staged column block of W and
-// added into p[u] += a[u, j] x_j; the 1e-20 rescale of x scales p as well.
-// Every a[u, l] is formed once, clamped, and never stored; s_j is a true
-// suffix sum of non-negative terms (no cancellation). W is passed
-// column-major, w_unf[s, f, l*NE + u] = W[u, l, f], so a column block is
-// contiguous. Shared memory: a2e_clamp_smem_bytes. Each FMA waits on two
-// shared-memory loads; its redesign is later work.
+//   p_j[u] = sum_{l<j} a[u, l] x_l.
+// When x_j is known, column j of a (rows u > j) is formed and added into
+// p[u] += a[u, j] x_j; the same loop sums the new p[u] for u <= NE-2,
+// which is s_{j+1} (non-negative terms, no cancellation), so no separate
+// suffix pass. Every a[u, l] is formed once, clamped, and never stored.
+// One thread owns one cell and one shared slot per population: slot u
+// holds p[u] until step u and x_u after it (p[u] is spent in s_u, the
+// step that sets x_u), so x and p together take [NE][tile]; the 1e-20
+// rescale scales every slot but j. The weights are stored column by
+// column, frequencies last and zero-padded to NFP (w_unf [S, NE (column
+// l), NE (row u), NFP]), so column j's live rows u > j are one contiguous
+// run: it streams through two shared buffers with cp.async (one wait and
+// one barrier a run of `lr` rows) and is read with 16-byte loads that the
+// whole block shares. ABS stays in registers when one chunk of at most 48
+// frequencies holds it (else chunk by chunk from shared memory), and
+// CLAMP_ROWS rows are formed a pass with independent sums: at NFREQ 44 an
+// entry is 11 broadcast loads for 44 FMAs. Time follows the rows a pass
+// and the resident warps (8 rows and 12 warps ran 1.7x faster than 2 rows
+// and 8 warps at the pipeline's shape, PERF.md), so at NE 128, NFREQ 44
+// and tile 128 the columns stream in runs of 32 rows: 64 KB of slots + two
+// 5.5 KB buffers, three blocks (12 warps) per SM (a2e_clamp_smem_bytes;
+// a2e_kernel.pick_clamp_config picks tile and lr from the shape and card
+// alone). A
+// cell's sums run in one order whatever the tile, the run length and the
+// cell's place in the launch, so shards add up as one launch does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -300,75 +317,192 @@ __global__ void __launch_bounds__(FOLD_THREADS, 2) a2e_all_sizes_kernel(
   }
 }
 
-__global__ void a2e_clamp_kernel(
-    const float* __restrict__ w_unf,     // [S, NF, NE*NE], [f][l*NE + u]
+constexpr int CLAMP_ROWS = 8;   // rows u of a column formed a pass
+
+// A unit of a2e_clamp's stream of staged weights: size s, column j, part
+// k: rows [j + 1 + k lr, min(j + 1 + (k + 1) lr, NE)) of column j.
+struct CUnit {
+  int s, j, k;
+};
+
+__device__ __forceinline__ int cunit_row0(CUnit t, int lr) {
+  return t.j + 1 + t.k * lr;
+}
+
+__device__ __forceinline__ bool last_cunit_of_col(CUnit t, int ne, int lr) {
+  return cunit_row0(t, lr) + lr >= ne;
+}
+
+__device__ __forceinline__ CUnit next_cunit(CUnit t, int ne, int lr) {
+  if (!last_cunit_of_col(t, ne, lr)) return {t.s, t.j, t.k + 1};
+  if (t.j + 1 < ne - 1) return {t.s, t.j + 1, 0};
+  return {t.s + 1, 0, 0};
+}
+
+// Queues the copies of unit t's rows of w_unf into buf ([lr][nfp4]
+// float4) and commits them as one cp.async group.
+__device__ __forceinline__ void stage_cunit(float4* buf,
+                                            const float4* __restrict__ w,
+                                            CUnit t, int ne, int nfp4, int lr,
+                                            int tid, int T) {
+  const int u0 = cunit_row0(t, lr);
+  const int n = (min(u0 + lr, ne) - u0) * nfp4;
+  const float4* src = w + (((int64_t)t.s * ne + t.j) * ne + u0) * nfp4;
+  for (int i = tid; i < n; i += T) cp_async16(buf + i, src + i);
+  cp_async_commit();
+}
+
+// One register chunk, float4 groups [g0, g0 + C4), of CLAMP_ROWS staged
+// rows (row r at rows[r]): adds sum_f ABS[f] W[u, j, f] into d[r], each
+// row's sum in four independent parts. `a` holds the chunk's ABS; with
+// `multi` (more than one chunk) it is loaded here from s_abs [NFP][T].
+template <int C4>
+__device__ __forceinline__ void chunk_rows(
+    const float4* const (&rows)[CLAMP_ROWS], int g0, bool multi,
+    const float* s_abs, int T, int tid, float (&a)[FOLD_CH],
+    float (&d)[CLAMP_ROWS]) {
+  if (multi) {
+#pragma unroll
+    for (int k = 0; k < 4 * C4; ++k) a[k] = s_abs[(4 * g0 + k) * T + tid];
+  }
+#pragma unroll
+  for (int r = 0; r < CLAMP_ROWS; ++r) {
+    float e0 = 0.0f, e1 = 0.0f, e2 = 0.0f, e3 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C4; ++k) {
+      const float4 w4 = rows[r][g0 + k];
+      e0 = fmaf(a[4 * k], w4.x, e0);
+      e1 = fmaf(a[4 * k + 1], w4.y, e1);
+      e2 = fmaf(a[4 * k + 2], w4.z, e2);
+      e3 = fmaf(a[4 * k + 3], w4.w, e3);
+    }
+    d[r] += (e0 + e1) + (e2 + e3);
+  }
+}
+
+// x_j = clip(s_j / (tdown_j + 1e-30), 0, 3e37) with the 1e-20 rescale of
+// every other slot (x_l for l < j, p[u] for u > j); stores it in slot j.
+__device__ __forceinline__ float set_population(float* slot, int T, int ne,
+                                                int j, float sj, float td) {
+  float xj = fminf(fmaxf(sj / (td + 1.0e-30f), 0.0f), 3.0e37f);
+  if (xj > 1.0e20f) {
+    for (int l = 0; l < ne; ++l)
+      if (l != j) slot[l * T] *= 1.0e-20f;
+    xj *= 1.0e-20f;
+  }
+  slot[j * T] = xj;
+  return xj;
+}
+
+__global__ void __launch_bounds__(FOLD_THREADS, 3) a2e_clamp_kernel(
+    const float4* __restrict__ w_unf,    // [S, NE (l), NE (u), NFP/4]
     const float* __restrict__ tdown,     // [S, NE]
     const float* __restrict__ ea,        // [S, NF, NE]
     const float* __restrict__ absorbed,  // [C, NF]
     const float* __restrict__ align,     // [S, C] or nullptr
     float* __restrict__ tot,             // [C, NF]
     float* __restrict__ ptot,            // [C, NF] or nullptr
-    int nsize, int nf, int ne, int ncells) {
-  extern __shared__ float smem[];
+    int nsize, int nf, int ne, int ncells, int lr) {
+  extern __shared__ float4 smem4[];
   const int T = blockDim.x;
   const int tid = threadIdx.x;
   const int64_t c = (int64_t)blockIdx.x * T + tid;
   const bool valid = c < ncells;
-  float* s_abs = smem;             // [nf][T]
-  float* s_w = s_abs + nf * T;     // [nf][ne] staged column block
-  float* s_x = s_w + nf * ne;      // [ne][T] populations
-  float* s_p = s_x + ne * T;       // [ne][T] p[u] = sum_{l<j} a[u,l] x_l
-  const int64_t nn = (int64_t)ne * ne;
+  const int nfp4 = (nf + 3) / 4;
+  const int nch = (nfp4 + FOLD_C4 - 1) / FOLD_C4;
+  const bool multi = nch > 1;
+  const int stage = lr * nfp4;
+  float4* bufs = smem4;                                   // 2 x [lr][nfp4]
+  float* s_slot = reinterpret_cast<float*>(smem4 + 2 * stage);  // [ne][T]
+  float* s_abs = s_slot + ne * T;          // [4 nfp4][T], only when multi
+  float* slot = s_slot + tid;              // this cell's slots, stride T
 
-  for (int f = 0; f < nf; ++f)
-    s_abs[f * T + tid] = valid ? absorbed[c * nf + f] : 0.0f;
+  float a[FOLD_CH];
+#pragma unroll
+  for (int k = 0; k < FOLD_CH; ++k)
+    a[k] = (!multi && valid && k < nf) ? absorbed[c * nf + k] : 0.0f;
+  if (multi)
+    for (int f = 0; f < 4 * nfp4; ++f)
+      s_abs[f * T + tid] = (valid && f < nf) ? absorbed[c * nf + f] : 0.0f;
+  for (int l = 0; l < ne; ++l) slot[l * T] = (l == 0) ? 1.0e-20f : 0.0f;
 
-  for (int s = 0; s < nsize; ++s) {
-    const float* W = w_unf + (int64_t)s * nf * nn;
-    const float* td = tdown + (int64_t)s * ne;
-    for (int l = 0; l < ne; ++l) {
-      s_x[l * T + tid] = (l == 0) ? 1.0e-20f : 0.0f;
-      s_p[l * T + tid] = 0.0f;
+  float xj = 1.0e-20f;  // the population of the column being formed
+  float sacc = 0.0f;    // s_{j+1}: sum of the new p[u], j < u <= NE-2
+  CUnit t = {0, 0, 0};
+  stage_cunit(bufs, w_unf, t, ne, nfp4, lr, tid, T);
+  for (int it = 0; t.s < nsize; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // unit t staged; every thread done with unit it-1
+    const CUnit nx = next_cunit(t, ne, lr);
+    if (nx.s < nsize)
+      stage_cunit(bufs + ((it + 1) & 1) * stage, w_unf, nx, ne, nfp4, lr,
+                  tid, T);
+    const float4* buf = bufs + (it & 1) * stage;
+    const float* td = tdown + (int64_t)t.s * ne;
+    if (t.k == 0 && t.j > 0) {
+      xj = set_population(slot, T, ne, t.j, sacc, td[t.j]);
+      sacc = 0.0f;
     }
-    for (int j = 0; j < ne; ++j) {
-      if (j > 0) {
-        // s_j: suffix sum over rows u = NE-2 down to j (row NE-1 alone
-        // for the last step), as the exact path's reversed cumsum
-        float sj;
-        if (j < ne - 1) {
-          sj = 0.0f;
-          for (int u = ne - 2; u >= j; --u) sj += s_p[u * T + tid];
-        } else {
-          sj = s_p[(ne - 1) * T + tid];
-        }
-        float xj = fminf(fmaxf(sj / (td[j] + 1.0e-30f), 0.0f), 3.0e37f);
-        if (xj > 1.0e20f) {
-          for (int l = 0; l < j; ++l) s_x[l * T + tid] *= 1.0e-20f;
-          for (int u = j + 1; u < ne; ++u) s_p[u * T + tid] *= 1.0e-20f;
-          xj *= 1.0e-20f;
-        }
-        s_x[j * T + tid] = xj;
+    const int u0 = cunit_row0(t, lr);
+    const int nrows = min(u0 + lr, ne) - u0;
+    for (int i = 0; i < nrows; i += CLAMP_ROWS) {
+      // a short last pass re-reads its last row and drops the sum
+      const float4* rows[CLAMP_ROWS];
+      float d[CLAMP_ROWS];
+#pragma unroll
+      for (int r = 0; r < CLAMP_ROWS; ++r) {
+        rows[r] = buf + min(i + r, nrows - 1) * nfp4;
+        d[r] = 0.0f;
       }
-      if (j == ne - 1) break;
-      // column j of a, rows u > j: stage W[u, j, f] for all f
-      const int nu = ne - 1 - j;
-      __syncthreads();
-      for (int i = tid; i < nf * nu; i += T) {
-        const int f = i / nu, u = j + 1 + (i - f * nu);
-        s_w[f * ne + u] = W[f * nn + (int64_t)j * ne + u];
+      for (int k = 0; k < nch; ++k) {
+        const int g0 = k * nfp4 / nch;
+        switch ((k + 1) * nfp4 / nch - g0) {
+#define A2E_ROWS(C4)                                      \
+  case C4:                                                \
+    chunk_rows<C4>(rows, g0, multi, s_abs, T, tid, a, d); \
+    break;
+          A2E_ROWS(1) A2E_ROWS(2) A2E_ROWS(3) A2E_ROWS(4)
+          A2E_ROWS(5) A2E_ROWS(6) A2E_ROWS(7) A2E_ROWS(8)
+          A2E_ROWS(9) A2E_ROWS(10) A2E_ROWS(11) A2E_ROWS(12)
+#undef A2E_ROWS
+        }
       }
-      __syncthreads();
-      const float xj = s_x[j * T + tid];
-      for (int u = j + 1; u < ne; ++u) {
-        float acc = 0.0f;
-        for (int f = 0; f < nf; ++f)
-          acc = fmaf(s_w[f * ne + u], s_abs[f * T + tid], acc);
-        s_p[u * T + tid] = fmaf(fmaxf(acc, 0.0f), xj, s_p[u * T + tid]);
+#pragma unroll
+      for (int r = 0; r < CLAMP_ROWS; ++r) {
+        const int u = u0 + i + r;
+        if (i + r < nrows) {
+          const float p = fmaf(fmaxf(d[r], 0.0f), xj, slot[u * T]);
+          slot[u * T] = p;
+          if (u <= ne - 2) sacc += p;
+        }
       }
     }
-
-    emit_size(s_x, T, tid, c, valid, s, ea, align, tot, ptot, nf, ne, ncells);
+    if (t.j == ne - 2 && last_cunit_of_col(t, ne, lr)) {
+      // the last step: x_{NE-1} from row NE-1 alone, then the emission
+      set_population(slot, T, ne, ne - 1, slot[(ne - 1) * T], td[ne - 1]);
+      emit_size(s_slot, T, tid, c, valid, t.s, ea, align, tot, ptot, nf, ne,
+                ncells);
+      for (int l = 0; l < ne; ++l) slot[l * T] = (l == 0) ? 1.0e-20f : 0.0f;
+      xj = 1.0e-20f;
+      sacc = 0.0f;
+    }
+    t = nx;
   }
+}
+
+// Blocks of `kernel` that fit on one SM of the current device with `smem`
+// bytes of dynamic shared memory and `threads` a block, by its registers
+// and shared memory; negative: a CUDA error.
+template <typename K>
+int blocks_per_sm(K kernel, size_t smem, int threads) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return blocks;
 }
 
 }  // namespace
@@ -388,23 +522,25 @@ size_t a2e_fold_smem_bytes(int nf, int ne, int tile, int lc) {
 // Blocks of a2e_all_sizes that fit on one SM of the current device at
 // (tile, lc), by its registers and shared memory; negative: a CUDA error.
 int a2e_fold_blocks_per_sm(int nf, int ne, int tile, int lc) {
-  const size_t smem = a2e_fold_smem_bytes(nf, ne, tile, lc);
-  cudaError_t err = cudaFuncSetAttribute(
-      a2e_all_sizes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return -(int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, a2e_all_sizes_kernel, tile, smem);
-  if (err != cudaSuccess) return -(int)err;
-  return blocks;
+  return blocks_per_sm(a2e_all_sizes_kernel,
+                       a2e_fold_smem_bytes(nf, ne, tile, lc), tile);
 }
 
-// Dynamic shared memory, in bytes, that a2e_clamp needs for a block of
-// `tile` cells.
-size_t a2e_clamp_smem_bytes(int nf, int ne, int tile) {
-  return sizeof(float) *
-         ((size_t)nf * tile + (size_t)nf * ne + 2 * (size_t)ne * tile);
+// Dynamic shared memory, in bytes, of a2e_clamp with `tile` cells a block
+// and runs of `lr` rows: two staging buffers [lr][NFP], the slots [NE]
+// [tile], and ABS [NFP][tile] when NFREQ needs more than one chunk.
+size_t a2e_clamp_smem_bytes(int nf, int ne, int tile, int lr) {
+  const size_t nfp4 = (nf + 3) / 4;
+  const bool multi = nfp4 > (size_t)FOLD_C4;
+  return sizeof(float4) * 2 * (size_t)lr * nfp4 +
+         sizeof(float) * ((size_t)ne * tile + (multi ? 4 * nfp4 * tile : 0));
+}
+
+// Blocks of a2e_clamp that fit on one SM of the current device at
+// (tile, lr); negative: a CUDA error.
+int a2e_clamp_blocks_per_sm(int nf, int ne, int tile, int lr) {
+  return blocks_per_sm(a2e_clamp_kernel, a2e_clamp_smem_bytes(nf, ne, tile, lr),
+                       tile);
 }
 
 // Largest dynamic shared memory a block may use on this device (bytes).
@@ -434,20 +570,22 @@ int a2e_all_sizes(const float* w_fold, const float* tdown, const float* ea,
   return (int)cudaGetLastError();
 }
 
-// The exact (clamp) solve; the arguments of a2e_all_sizes with w_unf in
-// place of w_fold and no lc.
+// The exact (clamp) solve; the arguments of a2e_all_sizes with w_unf
+// [S, NE, NE, NFP] (column, row, frequency) in place of w_fold and runs of
+// `lr` rows in place of lc.
 int a2e_clamp(const float* w_unf, const float* tdown, const float* ea,
               const float* absorbed, const float* align, float* tot,
               float* ptot, int nsize, int nf, int ne, int ncells, int tile,
-              void* stream) {
-  const size_t smem = a2e_clamp_smem_bytes(nf, ne, tile);
+              int lr, void* stream) {
+  const size_t smem = a2e_clamp_smem_bytes(nf, ne, tile, lr);
   cudaError_t err = cudaFuncSetAttribute(
       a2e_clamp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (ncells + tile - 1) / tile;
   a2e_clamp_kernel<<<blocks, tile, smem, (cudaStream_t)stream>>>(
-      w_unf, tdown, ea, absorbed, align, tot, ptot, nsize, nf, ne, ncells);
+      reinterpret_cast<const float4*>(w_unf), tdown, ea, absorbed, align,
+      tot, ptot, nsize, nf, ne, ncells, lr);
   return (int)cudaGetLastError();
 }
 

@@ -13,6 +13,7 @@ with ``torch.remainder`` (floored, never ``fmod``).
 """
 
 import sys
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -91,25 +92,54 @@ def timeit(fn, reps=3):
     return best, out
 
 
-def device_seconds(fn, reps=3):
-    """Device time per call of what ``fn`` launches (kernels, fills and
-    copies: the union of their intervals under torch.profiler over
-    ``reps`` calls), or None when the profiler saw no device activity. A
-    call's event-timed seconds also hold the host's launch overhead, which
-    outweighs the probes' shortest kernels."""
+def device_seconds(fn, reps=3, pause=0.02):
+    """(best, spread) of the device time of ``reps`` calls of ``fn``, or
+    (None, None) when the profiler saw fewer intervals than calls in each
+    of three tries. The calls run in one torch.profiler session,
+    ``pause`` seconds apart; the device intervals (kernels, fills and
+    copies) are cut into calls at the reps - 1 widest gaps between them,
+    each call's time is the union of its intervals, and only the calls
+    with the most intervals count. A call's event-timed seconds also hold
+    the host's launch overhead, which outweighs the probes' shortest
+    kernels; random gathers move by up to ~40% from call to call, hence
+    the best of several and its spread."""
     from torch.profiler import ProfilerActivity, profile
 
     from ..profile_transport import busy_seconds
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy, _ = busy_seconds(prof.events())
-    return None if busy is None else busy / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for r in range(reps):
+                if r:
+                    time.sleep(pause)
+                fn()
+                torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type.name == "CUDA"),
+                        key=lambda e: e.time_range.start)
+        if len(events) >= reps:
+            break
+    else:
+        return None, None
+    # gap before event i: its start less the latest end before it
+    gaps, end = [], events[0].time_range.end
+    for i, e in enumerate(events[1:], 1):
+        gaps.append((e.time_range.start - end, i))
+        end = max(end, e.time_range.end)
+    cuts = sorted(i for _, i in sorted(gaps)[len(gaps) - (reps - 1):])
+    calls = [events[a:b] for a, b in zip([0] + cuts, cuts + [len(events)])]
+    # every call launches the same work: a call with fewer intervals than
+    # the fullest lost some to the profiler and is left out
+    full = max(len(c) for c in calls)
+    times = [busy_seconds(c)[0] for c in calls if len(c) == full]
+    return min(times), max(times) - min(times)
 
 
-def _ms(seconds):
-    return "not measured" if seconds is None else "%.4f ms" % (1e3 * seconds)
+def _ms(seconds, spread=None):
+    if seconds is None:
+        return "not measured"
+    if spread is None:
+        return "%.4f ms" % (1e3 * seconds)
+    return "%.4f ms (spread %.4f)" % (1e3 * seconds, 1e3 * spread)
 
 
 def report(name, seconds, elems):
@@ -180,14 +210,16 @@ class Result:
     err: Optional[float]            # kernel against plain in ``tol``'s
     abs_err: Optional[float]        # measure, and as max |k - p|
     tol: str
-    device_seconds: Optional[float] = None      # per call, see
+    device_seconds: Optional[float] = None      # best per call, see
     plain_device_seconds: Optional[float] = None  # device_seconds()
+    device_spread: Optional[float] = None       # the kernel's, max - min
     out: object = None              # the kernel's output (or the plain's)
     checks: list = field(default_factory=list)  # (label, err, limit)
     bound_seconds: Optional[float] = None   # least time on the card
     bound_by: Optional[str] = None          # "bytes" or "operations"
     library_seconds: Optional[float] = None          # the library call's
     library_device_seconds: Optional[float] = None   # call and device time
+    library_device_spread: Optional[float] = None
     elems: Optional[int] = None             # the case's adds (Case.elems)
 
     @property
@@ -207,21 +239,22 @@ def _nbytes(case, out):
 def _library(case, ref):
     """Times the case's library call (call time, device time) and holds its
     output to the plain version's with the case's tolerance; returns the
-    (seconds, device seconds, check)."""
+    (seconds, device seconds, device spread, check)."""
     call = case.library(*case.args)
     ls, lout = timeit(call)
-    ld = device_seconds(call)
+    ld, lspread = device_seconds(call)
     err = error(lout, ref, REL_OF_MAX if case.tol == EXACT else case.tol)
     print(f"  {case.name}: library call {ls * 1e3:.4f} ms, device time "
-          f"{_ms(ld)}; against plain {err:.3e}", flush=True)
-    return ls, ld, ("library call against plain", err,
-                    LIMITS[REL_OF_MAX if case.tol == EXACT else case.tol])
+          f"{_ms(ld, lspread)}; against plain {err:.3e}", flush=True)
+    return ls, ld, lspread, (
+        "library call against plain", err,
+        LIMITS[REL_OF_MAX if case.tol == EXACT else case.tol])
 
 
 def run_cases(cases, kernels, plain):
     """Times each case's kernel and plain version (best of 3 calls each,
-    then their device time per call), and its library call where it has
-    one, prints the report lines, and returns the Results with the
+    then the best of 3 device times per call), and its library call where
+    it has one, prints the report lines, and returns the Results with the
     kernel-vs-plain errors and the case's least time on the card. A build
     or launch error propagates."""
     results = []
@@ -235,22 +268,25 @@ def run_cases(cases, kernels, plain):
         ps, pout = timeit(lambda: case.fn(*case.args, ops=plain))
         ks, kout = timeit(lambda: case.fn(*case.args, ops=kernels))
         err = error(kout, pout, case.tol)
-        kd = device_seconds(lambda: case.fn(*case.args, ops=kernels))
-        pd = device_seconds(lambda: case.fn(*case.args, ops=plain))
+        kd, kspread = device_seconds(lambda: case.fn(*case.args,
+                                                      ops=kernels))
+        pd, _ = device_seconds(lambda: case.fn(*case.args, ops=plain))
         report("cuda " + case.name, ks, case.elems)
         report("plain " + case.name, ps, case.elems)
         bound, by = bound_seconds(_nbytes(case, kout), case.elems)
-        print(f"  {case.name}: device time per call, kernel {_ms(kd)}, "
-              f"plain {_ms(pd)}, bound {bound * 1e3:.4f} ms ({by}); kernel "
+        print(f"  {case.name}: device time per call (best of 3), kernel "
+              f"{_ms(kd, kspread)}, plain {_ms(pd)}, bound {bound * 1e3:.4f} "
+              f"ms ({by}); kernel "
               f"against plain, {case.tol} error {err:.3e} (limit "
               f"{LIMITS[case.tol]:.0e})", flush=True)
         res = Result(case.name, case.kernel, ks, ps, err,
                      abs_error(kout, pout), case.tol, out=kout,
                      device_seconds=kd, plain_device_seconds=pd,
-                     bound_seconds=bound, bound_by=by, elems=case.elems)
+                     device_spread=kspread, bound_seconds=bound, bound_by=by,
+                     elems=case.elems)
         if case.library is not None:
-            res.library_seconds, res.library_device_seconds, check = \
-                _library(case, pout)
+            (res.library_seconds, res.library_device_seconds,
+             res.library_device_spread, check) = _library(case, pout)
             res.checks.append(check)
         results.append(res)
     return results

@@ -4,7 +4,8 @@ loop: the counterpart of scripts/gather_probe.py.
     python -m soc_tpu_torch.probes.gather_probe [mode ...]
       modes: plain (the script's run_xla, as plain PyTorch),
              take  (run_pallas_take, as the gather kernel, beside its
-                    plain version); default: both
+                    plain version and one embedding_bag call); default:
+                    both
 
 Needs a CUDA device; a build or launch error, or a kernel that disagrees
 with its plain version, exits non-zero.
@@ -19,7 +20,7 @@ import torch
 
 from . import common
 from .common import EXACT, Case
-from .kernels import FLAT, KERNELS, LCG_AFTER, PLAIN
+from .kernels import FLAT, KERNELS, LCG_AFTER, PLAIN, gather_library
 
 LANES = 1 << 15
 CELLS = 64 ** 3
@@ -61,6 +62,14 @@ def run_take(table, idx0, ops=KERNELS, iters=ITERS):
     return acc, torch.zeros(CELLS, dtype=torch.float32, device=acc.device)
 
 
+def take_library(table, idx0, iters=ITERS):
+    """run_take as one PyTorch call: embedding_bag over each lane's
+    indices (kernels.gather_library), with the same all-zero tabs."""
+    call = gather_library(table, idx0, LCG_AFTER, FLAT, iters)
+    tabs = torch.zeros(CELLS, dtype=torch.float32, device=table.device)
+    return lambda: (call(), tabs)
+
+
 def cases(table, idx0, modes, iters=ITERS):
     out = []
     for m in modes:
@@ -71,7 +80,8 @@ def cases(table, idx0, modes, iters=ITERS):
         elif m == "take":
             out.append(Case("take", partial(run_take, iters=iters),
                             (table, idx0), iters * LANES, EXACT,
-                            "probe_gather"))
+                            "probe_gather",
+                            library=partial(take_library, iters=iters)))
         else:
             raise ValueError("unknown mode %r (modes: plain, take)" % m)
     return out

@@ -48,8 +48,9 @@ def _lib(name):
         lib.probe_gather.argtypes = [p, p, p] + [i] * 9 + [p]
         lib.probe_row_gather.argtypes = [p, p, p, i, i, i, i, p]
         lib.probe_max_smem.argtypes = [i]
+        lib.probe_gather_unroll.argtypes = [i]
         lib.probe_gather.restype = lib.probe_row_gather.restype = i
-        lib.probe_max_smem.restype = i
+        lib.probe_max_smem.restype = lib.probe_gather_unroll.restype = i
         errs = lib.probe_error_string
     elif name == "probe_scatter":
         lib.probe_scatter.argtypes = [p, p, p] + [i] * 7 + [p]
@@ -130,8 +131,7 @@ def gather(t, ix, rule, layout, reps):
     index = device.index or 0
     if index not in _SMEM_CAP:
         _SMEM_CAP[index] = lib.probe_max_smem(index)
-    # a row that fits in shared memory is staged there
-    stage = int(layout == ROW and 4 * mod <= _SMEM_CAP[index])
+    stage = int(staged(layout, mod, _SMEM_CAP[index]))
     out = torch.empty(ix.shape, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.probe_gather(t.data_ptr(), ix.data_ptr(), out.data_ptr(),
@@ -142,11 +142,18 @@ def gather(t, ix, rule, layout, reps):
     return out
 
 
-def gather_plain(t, ix, rule, layout, reps):
-    """Plain version of ``gather``: the same float32 adds in the same
-    order, so the two agree bit for bit."""
-    mod, rows, row_lanes, ncols = _gather_geometry(t, ix, layout)
-    flat = t.reshape(-1)
+def staged(layout, mod, cap):
+    """Whether the gather kernel copies the table to shared memory first,
+    with ``cap`` bytes of it a block: a row (ROW) or a column with the
+    others of its slab (COL) of ``mod`` floats that fits; a FLAT table is
+    read through L2."""
+    return layout != FLAT and 4 * mod <= cap
+
+
+def _gather_steps(t, ix, rule, layout, reps):
+    """The flat indices into t that a gather reads, one int64 tensor of
+    ix's shape per step, in step order."""
+    mod, rows, _, ncols = _gather_geometry(t, ix, layout)
     if layout == ROW:
         base = torch.arange(rows, device=t.device)[:, None] * mod
     elif layout == COL:
@@ -155,7 +162,6 @@ def gather_plain(t, ix, rule, layout, reps):
         base = 0
     stride = ncols if layout == COL else 1
     j = torch.remainder(ix, mod) if rule == ADD else ix
-    acc = torch.zeros(ix.shape, dtype=torch.float32, device=t.device)
     for i in range(reps):
         if rule == ADD:
             k = torch.remainder(j + i, mod)
@@ -163,10 +169,31 @@ def gather_plain(t, ix, rule, layout, reps):
             j = k = lcg(j, i, mod)
         else:
             k = j
-        acc = acc + flat[base + k.to(torch.int64) * stride]
+        yield base + k.to(torch.int64) * stride
         if rule == LCG_AFTER:
             j = lcg(j, i, mod)
+
+
+def gather_plain(t, ix, rule, layout, reps):
+    """Plain version of ``gather``: the same float32 adds in the same
+    order, so the two agree bit for bit."""
+    flat = t.reshape(-1)
+    acc = torch.zeros(ix.shape, dtype=torch.float32, device=t.device)
+    for k in _gather_steps(t, ix, rule, layout, reps):
+        acc = acc + flat[k]
     return acc
+
+
+def gather_library(t, ix, rule, layout, reps):
+    """``gather`` as one PyTorch call, its library yardstick: the [lanes,
+    reps] matrix of the flat indices each lane reads is built here, once,
+    and the returned callable sums each lane's bag with one
+    ``embedding_bag`` (in its own order, not step by step)."""
+    steps = list(_gather_steps(t, ix, rule, layout, reps))
+    bags = torch.stack(steps, -1).reshape(-1, reps)
+    weight = t.reshape(-1, 1)
+    return lambda: torch.nn.functional.embedding_bag(
+        bags, weight, mode="sum").view(ix.shape)
 
 
 # ------------------------------------------------------------ row gather

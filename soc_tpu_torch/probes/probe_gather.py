@@ -2,7 +2,8 @@
 scripts/probe_gather.py. Its Pallas kernels A1-A5 run as the gather kernel
 and S1 as the scatter kernel (``kernels``); its XLA baselines run as plain
 PyTorch. Each kernel's line is printed beside its plain version's, with
-the kernel-against-plain error.
+the kernel-against-plain error, and beside one PyTorch call computing the
+same function (embedding_bag for the gathers, index_add_ for S1).
 
     python -m soc_tpu_torch.probes.probe_gather
 
@@ -19,7 +20,7 @@ import torch
 
 from . import common
 from .common import EXACT, REL_OF_MAX, Case
-from .kernels import ADD, COL, FLAT, KERNELS, PLAIN, ROW
+from .kernels import ADD, COL, FLAT, KERNELS, PLAIN, ROW, gather_library
 
 CELLS = 64 * 64 * 64            # 262144, the pipeline's grid
 N = 1 << 17                     # 131072 lanes
@@ -108,6 +109,12 @@ def s1_library(ix, v, reps=4):
     return lambda: vv.new_zeros(CELLS).index_add_(0, k, vv)
 
 
+def gather_yardstick(rule, layout, reps):
+    """A gather row's library yardstick: one embedding_bag over the
+    indices the row reads (kernels.gather_library)."""
+    return partial(gather_library, rule=rule, layout=layout, reps=reps)
+
+
 def cases(tbl, idx, vals, reps=REPS):
     """Every line of the script, with its arguments built as the script
     builds them."""
@@ -123,15 +130,20 @@ def cases(tbl, idx, vals, reps=REPS):
         Case("baseline gather+scatter", partial(baseline_both, reps=reps),
              (tbl, idx, vals), N * reps),
         Case("A1 1-D fancy gather", partial(a1, reps=reps), (tbl, idx),
-             N * reps, EXACT, "probe_gather"),
+             N * reps, EXACT, "probe_gather",
+             library=gather_yardstick(ADD, FLAT, reps)),
         Case("A2 2-D (row,col) gather", partial(a2, reps=reps),
-             (tbl2, idx2), N * reps, EXACT, "probe_gather"),
+             (tbl2, idx2), N * reps, EXACT, "probe_gather",
+             library=gather_yardstick(ADD, FLAT, reps)),
         Case("A3 take flat", partial(a3, reps=reps), (tbl, idx2),
-             N * reps, EXACT, "probe_gather"),
+             N * reps, EXACT, "probe_gather",
+             library=gather_yardstick(ADD, FLAT, reps)),
         Case("A4 take_along_axis lanes", partial(a4, reps=reps),
-             (tbl2[:1024], idx2), N * reps, EXACT, "probe_gather"),
+             (tbl2[:1024], idx2), N * reps, EXACT, "probe_gather",
+             library=gather_yardstick(ADD, ROW, reps)),
         Case("A5 take_along_axis sublanes", partial(a5, reps=reps),
-             (tbl2, idx2), N * reps, EXACT, "probe_gather"),
+             (tbl2, idx2), N * reps, EXACT, "probe_gather",
+             library=gather_yardstick(ADD, COL, reps)),
         Case("S1 vector scatter-add", s1, (idx, vals), N * 4, REL_OF_MAX,
              "probe_scatter", library=s1_library),
     ]

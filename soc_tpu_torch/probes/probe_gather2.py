@@ -4,7 +4,9 @@ scripts/probe_gather2.py. Its Pallas kernels run as the gather kernel
 (W1-W4), the row-gather kernel (RG), the scatter kernel (S2) and the
 one-hot kernel (MX); its XLA baselines as plain PyTorch. Each kernel's
 line is printed beside its plain version's, with the kernel-against-plain
-error, and the MX correctness deposit against an exact float32 scatter.
+error, and beside one PyTorch call computing the same function where
+there is one (embedding_bag for W1-W4, index_add_ for S2 and MX); the MX
+correctness deposit is also held to an exact float32 scatter.
 
     python -m soc_tpu_torch.probes.probe_gather2
 
@@ -22,7 +24,7 @@ from . import common
 from .common import EXACT, REL, REL_OF_MAX, Case
 from .kernels import KERNELS, LCG_BEFORE, ONEHOT_SIDE, PLAIN, ROW, \
     _bf16_parts
-from .probe_gather import CELLS, N, inputs
+from .probe_gather import CELLS, N, gather_yardstick, inputs
 
 REPS = 32
 RG_ROWS = 128           # RG reads the rows of j[0, :128] only
@@ -150,18 +152,23 @@ def cases(tbl, idx, vals, reps=REPS):
              (idx, vals), N * reps),
         Case("W1 take_along rows8 x 262144", partial(w1, reps=reps),
              (tbl[None, :].expand(8, CELLS).contiguous(),
-              idx.reshape(8, N // 8)), N * reps, EXACT, "probe_gather"),
+              idx.reshape(8, N // 8)), N * reps, EXACT, "probe_gather",
+             library=gather_yardstick(LCG_BEFORE, ROW, reps)),
         Case("W2 take_along rows1 x 262144", partial(w2, reps=reps),
              (tbl.reshape(1, CELLS), idx.reshape(1, N)), N * reps, EXACT,
-             "probe_gather"),
+             "probe_gather", library=gather_yardstick(LCG_BEFORE, ROW, reps)),
         Case("W3 take_along rows8 x 32768", partial(w3, reps=reps),
              (tbl.reshape(8, CELLS // 8),
               torch.remainder(idx, CELLS // 8).reshape(8, N // 8)),
-             N * reps, EXACT, "probe_gather"),
+             N * reps, EXACT, "probe_gather",
+             library=gather_yardstick(LCG_BEFORE, ROW, reps)),
         Case("W4 take_along rows1024 x 2560", partial(w4, reps=reps),
              (tbl[None, :2560].expand(1024, 2560).contiguous(),
               torch.remainder(idx, 2560).reshape(1024, 128)),
-             N * reps, EXACT, "probe_gather"),
+             N * reps, EXACT, "probe_gather",
+             library=gather_yardstick(LCG_BEFORE, ROW, reps)),
+        # no library call: one embedding_bag of the rows would still
+        # leave a sum over their columns, a second call
         Case("RG row gather t[r] 128 rows", partial(rg, reps=reps),
              (tbl.reshape(2048, 128),
               torch.remainder(idx, 2048).reshape(8, N // 8)),

@@ -52,9 +52,11 @@ class A2EStacks:
              (fold_rows); None in stacks built for the clamp kernel
     tdown  : [S, NE] cooling rates
     ea     : [S, NFREQ, NE] emission arrays (Ibeg-masked)
-    w_unf  : [S, NFREQ, NE*NE] the unfolded weights, column-major:
-             w_unf[s, f, l*NE + u] = w_flat[s, u*NE + l, f], for
-             a2e_clamp; None unless the clamp path was asked for
+    w_unf  : [S, NE, NE, NFP] the unfolded weights column by column, for
+             a2e_clamp: column l's row u holds the frequencies, zero-padded
+             as in w_fold, w_unf[s, l, u, f] = w_flat[s, u*NE + l, f]
+             (unfold_cols), so column l's rows u > l are one contiguous
+             run; None unless the clamp path was asked for
     """
 
     w_flat: Optional[torch.Tensor]
@@ -121,8 +123,11 @@ def solve_all_sizes_plain(stacks, absorbed, align=None, batch=16384):
 
 
 _SMEM_CAP = {}
-_FOLD_CONFIG = {}
-MIN_WARPS = 8           # a2e_all_sizes: resident warps per SM aimed for
+_CONFIG = {}
+MIN_WARPS = 8           # resident warps per SM: a2e_all_sizes' aim, and
+                        # the least either kernel keeps at the pipeline's
+                        # shape (chip_smoke.py phases 3 and 6)
+CLAMP_WARPS = 12        # a2e_clamp's aim: it runs faster with 12 than 8
 
 
 def _lib():
@@ -131,14 +136,13 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.a2e_all_sizes.argtypes = [p] * 7 + [i] * 6 + [p]
-        lib.a2e_clamp.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.a2e_clamp.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.a2e_all_sizes.restype = lib.a2e_clamp.restype = i
-        lib.a2e_fold_smem_bytes.argtypes = [i, i, i, i]
-        lib.a2e_fold_smem_bytes.restype = ctypes.c_size_t
-        lib.a2e_fold_blocks_per_sm.argtypes = [i, i, i, i]
-        lib.a2e_fold_blocks_per_sm.restype = i
-        lib.a2e_clamp_smem_bytes.argtypes = [i, i, i]
-        lib.a2e_clamp_smem_bytes.restype = ctypes.c_size_t
+        for kernel in ("fold", "clamp"):
+            smem = getattr(lib, "a2e_%s_smem_bytes" % kernel)
+            blocks = getattr(lib, "a2e_%s_blocks_per_sm" % kernel)
+            smem.argtypes = blocks.argtypes = [i, i, i, i]
+            smem.restype, blocks.restype = ctypes.c_size_t, i
         lib.a2e_max_smem.argtypes = [i]
         lib.a2e_max_smem.restype = i
         lib.a2e_error_string.argtypes = [i]
@@ -160,49 +164,58 @@ def _too_large(kernel, nfreq, ne, cap):
                       % (kernel, ne, nfreq, cap))
 
 
-def pick_clamp_tile(lib, nfreq, ne, device_index):
-    """a2e_clamp: the largest tile (cells per block) whose shared memory
-    fits; raises for a shape the kernel cannot take."""
+def _pick_config(lib, kernel, nfreq, ne, device_index, whole, aim):
+    """(tile, run, resident warps per SM) of ``kernel`` ("fold" or
+    "clamp"): the first (tile, run), tiles from 128 down and staged runs
+    from ``whole`` down through 64, 32, 16 and 8, that keeps ``aim``
+    warps on an SM; else the one that keeps the most. Cached per device
+    and shape; raises for a shape the kernel cannot take."""
+    key = (kernel, device_index, nfreq, ne)
+    if key in _CONFIG:
+        return _CONFIG[key]
+    name = "a2e_all_sizes" if kernel == "fold" else "a2e_clamp"
+    smem_bytes = getattr(lib, "a2e_%s_smem_bytes" % kernel)
+    blocks_per_sm = getattr(lib, "a2e_%s_blocks_per_sm" % kernel)
     cap = _smem_cap(lib, device_index)
-    for tile in (128, 64, 32):
-        if lib.a2e_clamp_smem_bytes(nfreq, ne, tile) <= cap:
-            return tile
-    raise _too_large("a2e_clamp", nfreq, ne, cap)
+    runs = [whole] + [n for n in (64, 32, 16, 8) if n < whole]
+    best = (0, 0, 0)
+    for tile, run in itertools.product((128, 64, 32), runs):
+        if smem_bytes(nfreq, ne, tile, run) > cap:
+            continue
+        blocks = blocks_per_sm(nfreq, ne, tile, run)
+        if blocks < 0:
+            raise RuntimeError("A2E kernel %s: occupancy query failed: %s"
+                               % (name, lib.a2e_error_string(-blocks)
+                                  .decode()))
+        if blocks * tile // 32 > best[2]:
+            best = (tile, run, blocks * tile // 32)
+        if best[2] >= aim:
+            break
+    if best[2] == 0:
+        raise _too_large(name, nfreq, ne, cap)
+    _CONFIG[key] = best
+    return best
 
 
 def pick_fold_config(lib, nfreq, ne, device_index):
     """a2e_all_sizes: (tile, lc, resident warps per SM). lc is the number
     of a row's columns staged at a time: the whole row (NE - 2) where
-    shared memory allows, else 64, 32, 16 or 8. The first (tile, lc), tiles
-    from 128 down and lc from the whole row down, that keeps MIN_WARPS warps
-    on an SM; else the one that keeps the most. A larger tile reads W' from
+    shared memory allows, else 64, 32, 16 or 8. A larger tile reads W' from
     L2 fewer times; a larger lc needs fewer barriers. The choice depends
     on the shape and the device alone, never on the cell count: lc sets
-    the order of the sums, and a shard must add up as one launch does.
-    Raises for a shape the kernel cannot take."""
-    key = (device_index, nfreq, ne)
-    if key in _FOLD_CONFIG:
-        return _FOLD_CONFIG[key]
-    cap = _smem_cap(lib, device_index)
-    whole = max(ne - 2, 1)
-    lcs = [whole] + [lc for lc in (64, 32, 16, 8) if lc < whole]
-    best = (0, 0, 0)
-    for tile, lc in itertools.product((128, 64, 32), lcs):
-        if lib.a2e_fold_smem_bytes(nfreq, ne, tile, lc) > cap:
-            continue
-        blocks = lib.a2e_fold_blocks_per_sm(nfreq, ne, tile, lc)
-        if blocks < 0:
-            raise RuntimeError("A2E kernel a2e_all_sizes: occupancy query "
-                               "failed: %s"
-                               % lib.a2e_error_string(-blocks).decode())
-        if blocks * tile // 32 > best[2]:
-            best = (tile, lc, blocks * tile // 32)
-        if best[2] >= MIN_WARPS:
-            break
-    if best[2] == 0:
-        raise _too_large("a2e_all_sizes", nfreq, ne, cap)
-    _FOLD_CONFIG[key] = best
-    return best
+    the order of the sums, and a shard must add up as one launch does."""
+    return _pick_config(lib, "fold", nfreq, ne, device_index,
+                        max(ne - 2, 1), MIN_WARPS)
+
+
+def pick_clamp_config(lib, nfreq, ne, device_index):
+    """a2e_clamp: (tile, lr, resident warps per SM). lr is the number of
+    a column's rows staged at a time: the longest column's NE - 1, else
+    64, 32, 16 or 8, the first that keeps CLAMP_WARPS warps on an SM;
+    chosen, as for pick_fold_config, from the shape and the device
+    alone."""
+    return _pick_config(lib, "clamp", nfreq, ne, device_index, ne - 1,
+                        CLAMP_WARPS)
 
 
 def _check_cuda(name, t, device, shape):
@@ -234,8 +247,7 @@ def _launch(kernel, weights_name, stacks, absorbed, align):
                          % (kernel, weights_name))
     _check_cuda("absorbed", absorbed, device, (cells, nfreq))
     _check_cuda(weights_name, weights, device,
-                (nsize, ne, ne, padded_nfreq(nfreq))
-                if weights_name == "w_fold" else (nsize, nfreq, ne * ne))
+                (nsize, ne, ne, padded_nfreq(nfreq)))
     _check_cuda("tdown", stacks.tdown, device, (nsize, ne))
     _check_cuda("ea", stacks.ea, device, (nsize, nfreq, ne))
     if align is not None:
@@ -246,10 +258,9 @@ def _launch(kernel, weights_name, stacks, absorbed, align):
     ptot = torch.empty_like(tot) if align is not None else None
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        if kernel == "a2e_all_sizes":
-            config = pick_fold_config(lib, nfreq, ne, index)[:2]
-        else:
-            config = (pick_clamp_tile(lib, nfreq, ne, index),)
+        pick = pick_fold_config if kernel == "a2e_all_sizes" \
+            else pick_clamp_config
+        config = pick(lib, nfreq, ne, index)[:2]
         err = getattr(lib, kernel)(
             weights.data_ptr(), stacks.tdown.data_ptr(),
             stacks.ea.data_ptr(), absorbed.data_ptr(),
@@ -347,14 +358,28 @@ def fold_rows(w_fold):
         rows, (0, padded_nfreq(nfreq) - nfreq)).contiguous()
 
 
+def unfold_cols(w_flat):
+    """soc_tpu's dense weights [S, NE*NE, NFREQ] (prepare_size_arrays
+    stacked, row u*NE + l), a tensor, as a2e_clamp reads them: [S, NE, NE,
+    NFP], column l, then row u, then the frequencies, zero-padded;
+    rearranged on w_flat's device."""
+    nsize, nn, nfreq = w_flat.shape
+    ne = math.isqrt(nn)
+    cols = w_flat.reshape(nsize, ne, ne, nfreq).transpose(1, 2)
+    return torch.nn.functional.pad(
+        cols, (0, padded_nfreq(nfreq) - nfreq)).contiguous()
+
+
 def stacks_from_numpy(w_flat, w_fold, tdown, ea, device, w_unf=None):
     """A2EStacks from host arrays (see convert.py); w_flat, w_fold and
     w_unf may each be None. w_fold comes in soc_tpu's layout [S, NFREQ,
-    NE*NE] and is carried as fold_rows gives it."""
+    NE*NE] and is carried as fold_rows gives it; w_unf, the clamp kernel's
+    weights, comes as the dense weights of soc_tpu's prepare_size_arrays
+    [S, NE*NE, NFREQ] and is carried as unfold_cols gives it."""
     def t(a):
         return None if a is None else torch.tensor(
             np.ascontiguousarray(a, np.float32), device=device)
     return A2EStacks(w_flat=t(w_flat),
                      w_fold=None if w_fold is None else fold_rows(t(w_fold)),
                      tdown=t(tdown), ea=t(ea), ne=int(np.shape(tdown)[-1]),
-                     w_unf=t(w_unf))
+                     w_unf=None if w_unf is None else unfold_cols(t(w_unf)))

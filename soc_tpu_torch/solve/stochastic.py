@@ -84,21 +84,6 @@ def prepare_size_arrays_fused(solver, isize):
     return out
 
 
-def prepare_size_arrays_unfolded(solver, isize):
-    """Per-size weights for the clamp kernel: the dense weights of
-    prepare_size_arrays, unfolded, column-major and frequency-first,
-    w_unf [NFREQ, NE*NE] with w_unf[f, l*NE + u] = W[u, l, f]."""
-    cache = _cache(solver)
-    key = ("unfolded", isize)
-    if key not in cache:
-        w_flat = prepare_size_arrays(solver, isize)[0]
-        ne = solver.ne
-        cache[key] = np.ascontiguousarray(
-            w_flat.reshape(ne, ne, -1).transpose(2, 1, 0)
-            .reshape(-1, ne * ne))
-    return cache[key]
-
-
 def solve_equilibrium_size(solver, isize, absorbed, nip=5000):
     """Large grains above the stochastic cutoff: equilibrium treatment
     (kernel_A2E.c:110-154). absorbed [cells, NFREQ] host array; returns
@@ -147,9 +132,9 @@ def get_fused_stacks(solver, device, nstoch=999, plain=None, clamp=False):
     """Device-resident A2EStacks of the first min(nstoch, NSIZE) sizes,
     built and cached on the solver per device. They carry the pre-folded
     w_fold, or with ``clamp`` the unfolded w_unf of the clamp kernel
-    instead. The dense w_flat, which only the plain twin reads, is carried
-    when ``plain`` is true; by default only for the CPU, where the twin is
-    the solve."""
+    instead (a2e_kernel.unfold_cols of the dense weights). The dense
+    w_flat, which only the plain twin reads, is carried when ``plain`` is
+    true; by default only for the CPU, where the twin is the solve."""
     device = torch.device(device)
     if plain is None:
         plain = device.type == "cpu"
@@ -159,18 +144,13 @@ def get_fused_stacks(solver, device, nstoch=999, plain=None, clamp=False):
     if key not in cache:
         sizes = range(n_stoch)
         flat = [prepare_size_arrays(solver, i) for i in sizes]
-        if clamp:
-            w_fold = None
-            w_unf = np.stack([prepare_size_arrays_unfolded(solver, i)
-                              for i in sizes])
-        else:
-            w_fold = np.stack([prepare_size_arrays_fused(solver, i)[0]
-                               for i in sizes])
-            w_unf = None
+        w_flat = np.stack([p[0] for p in flat]) if plain or clamp else None
+        w_fold = None if clamp else np.stack(
+            [prepare_size_arrays_fused(solver, i)[0] for i in sizes])
         cache[key] = a2e_kernel.stacks_from_numpy(
-            np.stack([p[0] for p in flat]) if plain else None, w_fold,
+            w_flat if plain else None, w_fold,
             np.stack([p[1] for p in flat]), np.stack([p[2] for p in flat]),
-            device, w_unf=w_unf)
+            device, w_unf=w_flat if clamp else None)
     return cache[key]
 
 

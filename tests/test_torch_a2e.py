@@ -197,8 +197,16 @@ class _FakeLib:
         smem = self.a2e_fold_smem_bytes(nf, ne, tile, lc) + 1024
         return min(self.sm // smem, 65536 // (self.regs * tile))
 
-    def a2e_clamp_smem_bytes(self, nf, ne, tile):
-        return 4 * (nf * tile + nf * ne + 2 * ne * tile)
+    def a2e_clamp_smem_bytes(self, nf, ne, tile, lr):
+        nfp4 = -(-nf // 4)
+        multi = nfp4 > 12
+        return 16 * 2 * lr * nfp4 + 4 * (ne * tile
+                                         + (4 * nfp4 * tile if multi else 0))
+
+    def a2e_clamp_blocks_per_sm(self, nf, ne, tile, lr):
+        self.queries += 1
+        smem = self.a2e_clamp_smem_bytes(nf, ne, tile, lr) + 1024
+        return min(self.sm // smem, 65536 // (self.regs * tile))
 
 
 @pytest.mark.parametrize("nfreq,ne,want", [
@@ -212,7 +220,7 @@ def test_fold_config_choice(monkeypatch, nfreq, ne, want):
     """pick_fold_config: the largest tile, then the most columns, that
     keeps 8 warps on an SM, else the most warps; cached per device and
     shape."""
-    monkeypatch.setattr(a2e_kernel, "_FOLD_CONFIG", {})
+    monkeypatch.setattr(a2e_kernel, "_CONFIG", {})
     monkeypatch.setattr(a2e_kernel, "_SMEM_CAP", {})
     lib = _FakeLib()
     assert a2e_kernel.pick_fold_config(lib, nfreq, ne, 0) == want
@@ -221,34 +229,62 @@ def test_fold_config_choice(monkeypatch, nfreq, ne, want):
     assert lib.queries == n
 
 
+@pytest.mark.parametrize("nfreq,ne,want", [
+    (44, 128, (128, 32, 12)),     # the pipeline: runs of 32, 3 blocks
+    (44, 16, (128, 15, 12)),      # registers, not shared memory, bound it
+    (44, 256, (64, 32, 6)),       # 12 warps nowhere: the most warps
+    (100, 129, (64, 16, 6)),      # ABS in shared memory too
+    (5, 2, (128, 1, 12)),         # one row a column at most
+])
+def test_clamp_config_choice(monkeypatch, nfreq, ne, want):
+    """pick_clamp_config: the largest tile, then the most rows, that
+    keeps 12 warps on an SM, else the most warps; cached per device and
+    shape, apart from pick_fold_config's choice for the same shape."""
+    monkeypatch.setattr(a2e_kernel, "_CONFIG", {})
+    monkeypatch.setattr(a2e_kernel, "_SMEM_CAP", {})
+    lib = _FakeLib()
+    assert a2e_kernel.pick_clamp_config(lib, nfreq, ne, 0) == want
+    n = lib.queries
+    assert a2e_kernel.pick_clamp_config(lib, nfreq, ne, 0) == want
+    assert lib.queries == n
+    a2e_kernel.pick_fold_config(lib, nfreq, ne, 0)
+    assert lib.queries > n
+
+
 def test_kernel_shape_limits_name_the_shape(monkeypatch):
-    """A shape neither kernel takes raises, naming NE, NFREQ and the cap;
-    a2e_all_sizes takes shapes the clamp kernel cannot."""
-    monkeypatch.setattr(a2e_kernel, "_FOLD_CONFIG", {})
+    """A shape a kernel cannot take raises, naming the kernel, NE, NFREQ
+    and the cap; both take NE 64 in 16 KB."""
+    monkeypatch.setattr(a2e_kernel, "_CONFIG", {})
     monkeypatch.setattr(a2e_kernel, "_SMEM_CAP", {})
     lib = _FakeLib(cap=16384, sm=20000)
-    with pytest.raises(ValueError, match=r"NE=1024 with NFREQ=44 .*16384"):
+    with pytest.raises(ValueError, match=r"a2e_all_sizes: NE=1024 with "
+                       r"NFREQ=44 .*16384"):
         a2e_kernel.pick_fold_config(lib, 44, 1024, 0)
-    with pytest.raises(ValueError, match=r"NE=256 with NFREQ=44 .*16384"):
-        a2e_kernel.pick_clamp_tile(lib, 44, 256, 0)
+    with pytest.raises(ValueError, match=r"a2e_clamp: NE=256 with NFREQ=44 "
+                       r".*16384"):
+        a2e_kernel.pick_clamp_config(lib, 44, 256, 0)
     assert a2e_kernel.pick_fold_config(lib, 44, 64, 0)[2] > 0
-    with pytest.raises(ValueError, match="a2e_clamp"):
-        a2e_kernel.pick_clamp_tile(lib, 44, 64, 0)
+    assert a2e_kernel.pick_clamp_config(lib, 44, 64, 0)[2] > 0
 
 
-def test_unfolded_stacks_are_soc_tpu_weights_transposed():
-    """The clamp kernel's w_unf [S, NFREQ, NE*NE] (column-major,
-    w_unf[s, f, l*NE + u] = W[u, l, f]) is soc_tpu's prepare_size_arrays
-    w_flat [NE*NE, NFREQ], transposed; clamp stacks carry no w_fold."""
-    ne, nfreq = 16, 8
+@pytest.mark.parametrize("nfreq", [8, 5])
+def test_unfolded_stacks_are_soc_tpu_weights_transposed(nfreq):
+    """The clamp kernel's w_unf [S, NE, NE, NFP] is soc_tpu's
+    prepare_size_arrays w_flat [NE*NE, NFREQ] of each size, column by
+    column: w_unf[s, l, u, :NFREQ] = W[u, l, :], the frequencies
+    zero-padded to a multiple of 4; clamp stacks carry no w_fold."""
+    ne = 16
     solver = random_solver(ne=ne, nfreq=nfreq, nsize=3, seed=5)
     stacks = tsto.get_fused_stacks(solver, CPU, clamp=True)
     assert stacks.w_fold is None
-    assert tuple(stacks.w_unf.shape) == (3, nfreq, ne * ne)
+    nfp = a2e_kernel.padded_nfreq(nfreq)
+    w = stacks.w_unf.numpy()
+    assert w.shape == (3, ne, ne, nfp)
+    assert not w[..., nfreq:].any()
     for s in range(3):
-        w = np.asarray(jsto.prepare_size_arrays(solver, s)[0])
-        ref = w.reshape(ne, ne, nfreq).transpose(2, 1, 0).reshape(nfreq, -1)
-        np.testing.assert_array_equal(stacks.w_unf[s].numpy(), ref)
+        ref = np.asarray(jsto.prepare_size_arrays(solver, s)[0])
+        np.testing.assert_array_equal(
+            w[s, :, :, :nfreq], ref.reshape(ne, ne, nfreq).transpose(1, 0, 2))
     assert tsto.get_fused_stacks(solver, CPU).w_unf is None
 
 

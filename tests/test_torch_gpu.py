@@ -16,8 +16,8 @@ product, TF32 off), so they agree to 1e-4 relative over the cells whose
 emission is above 1e-6 of the maximum, as chip_smoke.py demands. The clamp
 kernel sums the same products in yet another order (see csrc/a2e.cu): the
 same tolerance; its inputs are ones where the clamp changes the result by
-more than ten times that. The probe kernels are held to their plain versions with
-the limits of ``probes.common`` (gathers bit for bit).
+more than ten times that. The probe kernels are held to their plain
+versions with the limits of ``probes.common`` (gathers bit for bit).
 """
 
 import os
@@ -165,6 +165,55 @@ def test_clamp_kernel_matches_plain_twin(cuda, tmp_path, ne):
         stochastic.get_fused_stacks(sol, cuda), ab)
     assert _max_rel(torch.nan_to_num(unclamped, nan=float("inf")),
                     tot_p) > 10 * REL_TOL
+
+
+# (NE, NFREQ, cells, absorbed scale, staged rows): a2e_clamp over NE 2-256
+# and NFREQ 5-100 (5 not a multiple of 4, 49 and 100 more than one
+# register chunk) on 1000 cells (a ragged last block for every tile); a
+# heating 1e4 times stronger, where the rescale fires; and runs of 7 and
+# 40 rows, which divide no column's NE-1-j rows evenly at NE 48 and 128,
+# on 1 and 333 cells
+CLAMP_CASES = ([(ne, nf, 1000, 1.0, None) for ne in (2, 3, 16, 48, 128, 256)
+                for nf in (5, 44, 49, 100)]
+               + [(128, 44, 1000, 1e4, None), (48, 44, 1, 1.0, 7),
+                  (128, 44, 333, 1.0, 40)])
+
+
+@pytest.mark.parametrize("ne,nfreq,cells,scale,lr", CLAMP_CASES)
+def test_clamp_kernel_shapes(cuda, tmp_path, monkeypatch, ne, nfreq, cells,
+                             scale, lr):
+    """The clamp kernel against the plain twin (1e-4) on a negative weight
+    and negative absorbed values, with the align-weighted sum. With a
+    forced run of lr staged rows it equals the picked run's result bit for
+    bit: the sums of a cell do not depend on how a column is staged."""
+    sol, freq = gset_solver(str(tmp_path), nfreq=nfreq, nsize=3, ne=ne)
+    negate_one_weight(sol)
+    rng = np.random.default_rng(ne * 1000 + nfreq)
+    stacks = stochastic.get_fused_stacks(sol, cuda, plain=True, clamp=True)
+    ab = torch.as_tensor(with_negative_entries(
+        rng, synthetic_absorbed(rng, sol, freq, cells)) * scale,
+        device=cuda)
+    align = torch.as_tensor(rng.uniform(0, 1, (sol.nsize, cells))
+                            .astype(np.float32), device=cuda)
+    fired = sum(rescale_count(stacks.w_flat[s], stacks.tdown[s], ab, ne)
+                for s in range(sol.nsize))
+    assert (fired > 0) == (scale > 1.0), fired
+    n0 = a2e_kernel.clamp_launches
+    tot, ptot = a2e_kernel.solve_all_sizes_clamp(stacks, ab, align)
+    assert a2e_kernel.clamp_launches == n0 + 1
+    tot_p, ptot_p = a2e_kernel.solve_all_sizes_plain(stacks, ab, align)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(tot).all()) and bool(torch.isfinite(ptot).all())
+    assert _max_rel(tot, tot_p) < REL_TOL
+    assert _max_rel(ptot, ptot_p) < REL_TOL
+    if lr is not None:
+        tile, _, warps = a2e_kernel.pick_clamp_config(
+            a2e_kernel._lib(), nfreq, ne, cuda.index or 0)
+        monkeypatch.setitem(a2e_kernel._CONFIG,
+                            ("clamp", cuda.index or 0, nfreq, ne),
+                            (tile, lr, warps))
+        got = a2e_kernel.solve_all_sizes_clamp(stacks, ab, align)
+        assert torch.equal(got[0], tot) and torch.equal(got[1], ptot)
 
 
 @pytest.mark.parametrize("neg_weight", [False, True])
@@ -336,6 +385,53 @@ def test_onehot_kernel_edges(cuda, pattern, n, reps, split):
     err = common.error(got, ref, common.REL_OF_MAX)
     assert err <= common.LIMITS[common.REL_OF_MAX], err
     assert int((got != 0).sum()) == int((ref != 0).sum())
+
+
+# (layout, table shape, index shape): a power-of-two M and not, the
+# probes' 262,144 among them; rows and columns that fit in shared memory
+# (staged) and that do not (M above 58,112 floats: read through L2); lane
+# counts that are not a multiple of the block (1000 flat lanes, rows of
+# 130 and 1100 lanes, column slabs of 7 and 30 rows)
+GATHER_SHAPES = [
+    (kernels.FLAT, (4096,), (1000,)), (kernels.FLAT, (1000,), (1000,)),
+    (kernels.FLAT, (262144,), (1000,)),
+    (kernels.ROW, (3, 4096), (3, 1100)), (kernels.ROW, (3, 2560), (3, 130)),
+    (kernels.ROW, (2, 65536), (2, 130)), (kernels.ROW, (2, 60001), (2, 130)),
+    (kernels.COL, (2048, 48), (7, 48)), (kernels.COL, (1000, 6), (30, 6)),
+    (kernels.COL, (65536, 2), (70, 2)), (kernels.COL, (60001, 2), (70, 2)),
+    (kernels.COL, (8, 65537), (2, 65537)),
+]
+
+
+@pytest.mark.parametrize("layout,tshape,xshape", GATHER_SHAPES)
+@pytest.mark.parametrize("rule", [kernels.ADD, kernels.LCG_BEFORE,
+                                  kernels.LCG_AFTER])
+def test_gather_kernel_edges(cuda, rule, layout, tshape, xshape):
+    """The gather kernel against its plain version, bit for bit, for 1,
+    U-1, U+1 and 400 steps (U the loads a lane keeps in flight, from
+    global memory and from shared memory), on start indices over all of
+    int32 (negative ones too; LCG_AFTER reads t at its start index, so
+    there they lie in [0, M))."""
+    rng = np.random.default_rng(len(tshape) * 7 + rule)
+    t = torch.as_tensor(rng.random(tshape, np.float32), device=cuda)
+    ix = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, xshape,
+                                      dtype=np.int64).astype(np.int32),
+                         device=cuda)
+    mod = kernels._gather_geometry(t, ix, layout)[0]
+    if rule == kernels.LCG_AFTER:
+        ix = torch.remainder(ix, mod)
+    lib = kernels._lib("probe_gather")
+    steps = {1, 400}
+    for staged in (0, 1):
+        unroll = lib.probe_gather_unroll(staged)
+        steps |= {unroll - 1, unroll + 1}
+    for reps in sorted(steps):
+        n0 = kernels.launches["probe_gather"]
+        got = kernels.gather(t, ix, rule, layout, reps)
+        assert kernels.launches["probe_gather"] == n0 + 1
+        ref = kernels.gather_plain(t, ix, rule, layout, reps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), reps
 
 
 def test_probe_wrappers_check_inputs(cuda):

@@ -230,6 +230,59 @@ def test_gather_probe_take(gp):
     _same(g_tabs, tabs)
 
 
+GATHER_ROWS = ["A1", "A2", "A3", "A4", "A5", "W1", "W2", "W3", "W4", "take"]
+
+
+@pytest.fixture(scope="module")
+def gather_cases():
+    """Every gather row of the three probe modules at the scripts' shapes,
+    with a few steps, by the first word of its name."""
+    tbl, idx, vals = tpg.inputs(0, torch.device("cpu"))
+    table, idx0 = gather_probe.inputs(0, torch.device("cpu"))
+    rows = (tpg.cases(tbl, idx, vals, reps=REPS)
+            + tpg2.cases(tbl, idx, vals, reps=REPS)
+            + gather_probe.cases(table, idx0, ["take"], iters=ITERS))
+    return {c.name.split()[0]: c for c in rows}
+
+
+@pytest.mark.parametrize("row", GATHER_ROWS)
+def test_gather_row_library_matches_plain(gather_cases, row):
+    """Each gather row's library yardstick, one embedding_bag over the
+    [lanes, reps] indices the row reads, computes what the row's plain
+    version does, held as the card holds it (1e-5 of the maximum: the bag
+    sums in its own order); the plain version counts no launch. RG has no
+    one-call yardstick."""
+    case = gather_cases[row]
+    assert case.kernel == "probe_gather" and case.library is not None
+    n0 = dict(kernels.launches)
+    call = case.library(*case.args)
+    got, ref = call(), case.fn(*case.args, ops=kernels.PLAIN)
+    assert kernels.launches == n0
+    err = common.error(got, ref, common.REL_OF_MAX)
+    assert err <= common.LIMITS[common.REL_OF_MAX], err
+    assert gather_cases["RG"].library is None
+
+
+H100_SMEM = 232448     # shared memory a block may use on an H100
+
+
+@pytest.mark.parametrize("layout,mod,want", [
+    (kernels.FLAT, 262144, False),      # A1-A3, W2 as FLAT, take
+    (kernels.ROW, 128, True),           # A4
+    (kernels.COL, 2048, True),          # A5
+    (kernels.ROW, 262144, False),       # W1, W2
+    (kernels.ROW, 32768, True),         # W3
+    (kernels.ROW, 2560, True),          # W4
+    (kernels.ROW, 58112, True),         # the largest row that fits
+    (kernels.COL, 58113, False),
+    (kernels.COL, 8, True),             # short columns, however many
+])
+def test_gather_staging(layout, mod, want):
+    """Which probe rows the gather kernel stages in shared memory on an
+    H100: a row or column that fits; a FLAT table never."""
+    assert kernels.staged(layout, mod, H100_SMEM) == want
+
+
 def test_lcg_wraps_like_jax_int32():
     """common.lcg against the scripts' jnp int32 expression on values near
     +-2^31, where the product and the adds wrap."""
