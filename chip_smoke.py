@@ -13,11 +13,20 @@ Phases (any failure exits non-zero before the final line):
   3. A2E kernel against its plain twin on the card at NE 16/48/128/256
      (NFREQ 44, all 24 grain sizes), TF32 off; then its tile, staged
      columns and resident warps per SM at the pipeline's shape (fewer
-     than 8 warps fail), and both timed there (262,144 cells, NE 128)
+     than 8 warps fail), and both timed there (262,144 cells, NE 128);
+     then the shapes both A2E kernels take on this card (their shared
+     memory ceiling: the largest NE at NFREQ 1000, the largest NFREQ at
+     NE 256 and at NE 32)
   4. the `pipeline` verb (cli.main, as `python -m soc_tpu_torch pipeline`)
      on a 64^3 model with a stochastic (GSET) dust: absorption run ->
      A2E -> 64x64 map, with checks of shapes,
-     finiteness, energy balance and the kernel's launch count
+     finiteness, energy balance and the kernel's launch count; then the
+     absorption stage again with the same seed and lane pool: the
+     run-to-run spread of the tallies (the atomics add in another order),
+     max |diff| / max, the largest relative difference above 1e-3 of the
+     maximum and the share of entries that differ, and the float64 escape
+     totals, within phase 9's bound (1e-4 relative or 1e-6 of the
+     maximum)
   5. the `rt` verb on the same grid with the equilibrium dust the
      pipeline's absorption stage wrote
   6. the A2E clamp kernel (negative weights and absorbed values) against
@@ -37,9 +46,16 @@ Phases (any failure exits non-zero before the final line):
      1e-5 of an exact float32 scatter's maximum), and every row but RG
      also through one PyTorch call, its library yardstick (embedding_bag
      for the gathers, index_add_ for the scatters and one-hot deposits);
-     each gather row's device time (best of 3, with the spread) beside
-     its library call's; for each MX row the deposit rate (deposits per
-     second of device time) of the kernel and of index_add_
+     each gather, RG and scatter row's device time (best of 3, with the
+     spread; a row whose time was not measured fails; with its best
+     call's span, first start to last end, and each of its device
+     intervals where it has several) beside its plain version's and its
+     library call's (with its span), and RG's beside its two-call
+     reference (embedding_bag, then a sum: RG has no one-call
+     yardstick); for each MX row the deposit rate (deposits per second of
+     device time) of the kernel and of index_add_; then the rate of random
+     atomics, the scatter kernel's FLAT LCG_BEFORE form over S1's inputs
+     (launches outside the counted run)
   8. the sharded A2E solve: `stochastic.solve_emission` at the pipeline's
      shape (262,144 cells x 24 sizes x NE 128 x NFREQ 44, with the
      polarised sum) over all visible cards, then over cuda:0 two and three
@@ -255,6 +271,15 @@ def kernel_phase(dev, work, rng, report):
     if warps < a2e_kernel.MIN_WARPS:
         fail("a2e_all_sizes keeps %d warps per SM at the pipeline's shape"
              % warps)
+    lib, index = a2e_kernel._lib(), dev.index or 0
+    for kernel, name in (("fold", "a2e_all_sizes"), ("clamp", "a2e_clamp")):
+        print("phase 3: %s takes, in %d bytes of shared memory a block: NE "
+              "<= %d at NFREQ 1000; NFREQ <= %d at NE 256, <= %d at NE 32"
+              % (name, a2e_kernel._smem_cap(lib, index),
+                 a2e_kernel.shape_ceiling(lib, kernel, index, nfreq=1000),
+                 a2e_kernel.shape_ceiling(lib, kernel, index, ne=256),
+                 a2e_kernel.shape_ceiling(lib, kernel, index, ne=32)),
+              flush=True)
 
     # timing at the pipeline's shape
     cells = 64 ** 3
@@ -341,8 +366,56 @@ def pipeline_phase(dev, work, args, report):
     report["stages"] = dict(absorption_s=t_rt, a2e_s=t_a2e,
                             maps_s=res_map.timings["maps"], total_s=wall,
                             packets=res_rt.packets)
+    absorption_spread(dev, work, res_rt, lanes)
     return {"absorbed.data": absorbed, "emitted.data": emitted_f,
             "map_dir_00.bin": maps}
+
+
+def absorption_spread(dev, work, first, lanes):
+    """Phase 4: the pipeline's absorption stage run again on the same ini,
+    seed and lane pool (no files written), its tallies held to the first
+    run's ``first``: the same packets on the same streams, the card's
+    atomic adds in another order."""
+    import torch
+    from soc_tpu_torch.config import RunConfig
+    from soc_tpu_torch.pipeline import driver, full
+    orig = os.getcwd()
+    os.chdir(work)
+    try:
+        cfg = full.absorption_config(RunConfig("run.ini").validate())
+        t0 = time.time()
+        res = driver.run(cfg=cfg, device=dev, lanes=lanes, write_files=False,
+                         workdir=work)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        os.chdir(orig)
+    a = np.asarray(first.absorbed, np.float64)
+    b = np.asarray(res.absorbed, np.float64)
+    if b.shape != a.shape or res.packets != first.packets:
+        fail("phase 4: the rerun traced %d packets into %s, the first %d "
+             "into %s" % (res.packets, b.shape, first.packets, a.shape))
+    peak = np.abs(a).max()
+    diff = np.abs(b - a)
+    big = np.abs(a) > 1e-3 * peak
+    esc = np.abs(res.escaped - first.escaped) \
+        / np.maximum(np.abs(first.escaped), 1e-300)
+    ok = bool(np.isfinite(b).all()) and np.allclose(
+        b, a, rtol=PRODUCT_RTOL, atol=PRODUCT_ATOL * peak) \
+        and np.allclose(res.escaped, first.escaped, rtol=PRODUCT_RTOL,
+                        atol=0.0)
+    print("phase 4: same-seed rerun of the absorption stage (%d packets, "
+          "%d lanes) %.2f s: absorbed max |diff| / max = %.3e; largest "
+          "relative difference over the entries above 1e-3 of the max = "
+          "%.3e; entries that differ: %.4f%% of %d; escape totals "
+          "(float64) largest relative difference %.3e; within rtol %.0e or "
+          "%.0e of the max: %s"
+          % (res.packets, lanes, wall, diff.max() / peak,
+             (diff[big] / np.abs(a[big])).max(), 100 * (diff > 0).mean(),
+             a.size, esc.max(), PRODUCT_RTOL, PRODUCT_ATOL, ok), flush=True)
+    if not ok:
+        fail("phase 4: the same-seed rerun of the absorption stage differs "
+             "beyond the bound")
 
 
 def rt_phase(dev, work):
@@ -688,17 +761,33 @@ def probes_phase(dev, report):
     if bad:
         fail("phase 7: kernels that fail their checks: %s" % ", ".join(bad))
     for r in results:
-        if r.kernel != "probe_gather":
+        if r.kernel == "probe_row_gather":
+            other = (r.reference_device_seconds, r.reference_device_spread,
+                     r.reference_span)
+            label = "no one-call library call; two calls (embedding_bag, sum)"
+        elif r.kernel in ("probe_gather", "probe_scatter"):
+            other = (r.library_device_seconds, r.library_device_spread,
+                     r.library_span)
+            label = "embedding_bag" if r.kernel == "probe_gather" \
+                else "index_add_"
+        else:
             continue
-        if r.device_seconds is None or r.library_device_seconds is None:
+        if r.device_seconds is None:
             fail("phase 7: %s: device time not measured" % r.name)
-        print("phase 7: %s: device time (best of 3) kernel %.4f ms (spread "
-              "%.4f), embedding_bag %.4f ms (spread %.4f), %.2fx [%s]"
+        if other[0] is None:
+            fail("phase 7: %s: %s: device time not measured"
+                 % (r.name, label))
+        print("phase 7: %s: device time per call (best of 3) kernel %.4f ms "
+              "(spread %.4f; span %.4f ms%s), plain %s, %s %.4f ms (spread "
+              "%.4f; span %.4f ms), %.2fx [%s]"
               % (r.name, 1e3 * r.device_seconds, 1e3 * r.device_spread,
-                 1e3 * r.library_device_seconds,
-                 1e3 * r.library_device_spread,
-                 r.library_device_seconds / r.device_seconds,
-                 report["card"]), flush=True)
+                 1e3 * r.device_span,
+                 "" if len(r.device_intervals) < 2 else ": " + ", ".join(
+                     "%s %.4f" % (n, 1e3 * t) for n, t in r.device_intervals),
+                 "not measured" if r.plain_device_seconds is None
+                 else "%.4f ms" % (1e3 * r.plain_device_seconds), label,
+                 1e3 * other[0], 1e3 * other[1], 1e3 * other[2],
+                 other[0] / r.device_seconds, report["card"]), flush=True)
     for r in results:
         if r.kernel != "probe_onehot":
             continue
@@ -746,6 +835,38 @@ def probes_phase(dev, report):
                            for r in rows)
                  else " (device time not measured for every row: call "
                       "times stand in)"), flush=True)
+    random_atomics(dev, report["card"])
+
+
+def random_atomics(dev, card):
+    """Phase 7: the rate of random float atomics into a table in L2, the
+    floor of a fused march's deposits (one atomic a deposit, into the
+    cells a packet crosses): the scatter kernel's FLAT LCG_BEFORE form
+    over S1's inputs, 2^17 lanes x 4 steps into 262,144 cells, each step
+    an atomicAdd at an LCG index; held to the plain version. S1 itself
+    folds three quarters of its adds into a stencil, since the ADD rule
+    puts a lane's steps on consecutive cells. These launches come after
+    the counted run."""
+    from soc_tpu_torch.probes import common, kernels, probe_gather
+    _, idx, vals = probe_gather.inputs(0, dev)
+    args = (idx, vals, kernels.LCG_BEFORE, kernels.FLAT, probe_gather.CELLS,
+            4)
+    err = common.error(kernels.scatter(*args), kernels.scatter_plain(*args),
+                       common.REL_OF_MAX)
+    best, spread, call = common.device_seconds(lambda: kernels.scatter(*args))
+    if best is None:
+        fail("phase 7: random atomics: device time not measured")
+    atomics = 4 * idx.numel()
+    deposit = max(t for n, t in common.intervals(call) if "flat_lcg" in n)
+    print("phase 7: random atomics (FLAT LCG_BEFORE over S1's inputs, %d "
+          "atomicAdds into %d cells): device time per call (best of 3) "
+          "%.4f ms (spread %.4f), %.4e atomics/s; the atomic kernel alone "
+          "%.4f ms, %.4e atomics/s; against plain %.3e (limit %.0e) [%s]"
+          % (atomics, probe_gather.CELLS, 1e3 * best, 1e3 * spread,
+             atomics / best, 1e3 * deposit, atomics / deposit, err,
+             common.LIMITS[common.REL_OF_MAX], card), flush=True)
+    if err > common.LIMITS[common.REL_OF_MAX]:
+        fail("phase 7: random atomics differ from the plain version")
 
 
 def main():

@@ -3,8 +3,9 @@
 Each kernel source under ``csrc/`` is compiled by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to ``_build/`` next to
-this file (listed in .gitignore), named by the hash of the source and the
-flags: a changed source builds anew, an unchanged one loads at once.
+this file (listed in .gitignore), named by the hash of the source, the
+headers of ``csrc/`` it includes and the flags: a changed source or header
+builds anew, an unchanged one loads at once.
 Nothing is built when the module is imported: a kernel's first launch
 builds its own source only. Several threads may build different sources
 at once.
@@ -13,6 +14,7 @@ at once.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,6 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 _lock = threading.Lock()
 _loaded = {}
 build_log = {}      # source name -> (seconds, nvcc output) of this process
@@ -45,6 +48,27 @@ def _nvcc():
     return path
 
 
+def _digest(src):
+    """Hash of ``src``, of the headers of csrc/ it includes (#include
+    "...", followed through the headers), and of the flags."""
+    h = hashlib.sha256()
+    todo, seen = [src], set()
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as fp:
+            text = fp.read()
+        h.update(text)
+        for m in _INCLUDE.findall(text):
+            header = os.path.join(CSRC, m.decode())
+            if os.path.exists(header):      # else a system header
+                todo.append(header)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def library(name):
     """ctypes handle of csrc/<name>.cu, compiled on first use (only this
     source is built)."""
@@ -52,10 +76,7 @@ def library(name):
         if name in _loaded:
             return _loaded[name]
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fp:
-        digest = hashlib.sha256(fp.read() + " ".join(NVCC_FLAGS)
-                                .encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest))
+    out = os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, _digest(src)))
     if not os.path.exists(out):
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)

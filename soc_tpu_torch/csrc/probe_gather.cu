@@ -10,7 +10,8 @@
 // What probe_gather_kernel computes, per lane n (one thread per lane):
 //   acc = 0; for i < reps: acc = acc + t[base(n) + k_i(n) * stride]
 // in the probes' order, so the sum is bit for bit the plain version's.
-// The index rule k_i (template RULE):
+// The index rule k_i (template RULE; csrc/probe_index.cuh, shared with
+// the scatter kernel):
 //   ADD        k_i = (ix[n] mod M + i) mod M            (A1-A5)
 //   LCG_BEFORE j = lcg(j, i, M); k_i = j, j_0 = ix[n]   (W1-W4)
 //   LCG_AFTER  k_i = j; then j = lcg(j, i, M)           (run_pallas_take)
@@ -48,19 +49,44 @@
 // of it staged block by block, with the values passed through a scratch
 // array, were both measured and both ran slower (PERF.md).
 
-// probe_row_gather_kernel (RG): one warp per output column k < nk. The
-// warp carries j = r[k] (row 0 of the probe's index array) through the LCG
-// mod M and, at every step, reads the whole table row t[j, :] (ncols
-// floats, coalesced), reduces it with shuffles and adds it to acc[k]. The
-// probe chains the LCG over all of its [8, 16384] indices but reads only
-// j[0, :128]; the other lanes' chains feed no output and are not computed.
+// probe_row_gather_kernel (RG) computes out[k] = sum_{i < reps} rowsum(
+// t[j_i(k)]) for k < nk, with j_i(k) stepped by the LCG mod M from j_0 =
+// r[k] (row 0 of the probe's index array; the probe chains the LCG over
+// all of its [8, 16384] indices but reads only j[0, :128], and the other
+// chains feed no output). At the probe's shape (t [2048, 128], nk 128,
+// reps 32) that is 4,096 random reads of a 512-byte row from a 1 MB table
+// that stays in L2: the bound is a few L2 round trips and the launch, not
+// the bytes. The first design gave a warp to each column k, 32 blocks, and
+// walked the 32 steps one after another, a load, a reduction and a
+// dependent add each: 32 L2 round trips in series on a quarter of the
+// card. This one:
+//   - one block per column k (128 blocks for the probe, one an SM), 8
+//     warps; the LCG never depends on a loaded value, so each warp walks
+//     the chain itself to the RG_U = 4 steps it owns in a pass of 32 and
+//     issues their RG_U row reads before any add: one float4 a lane and a
+//     row (a coalesced 512-byte request), or scalars where the row is not
+//     16-byte aligned; every read of the block is in flight at once;
+//   - each warp reduces its rows with shuffles and leaves the row sums in
+//     shared memory; one thread adds them to the column's sum in step
+//     order, pass after pass (reps above 32 take several passes).
+// The row sums associate otherwise than torch's, so the check is 1e-6
+// relative (common.REL), as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "probe_index.cuh"
+
 namespace {
 
-enum { ADD = 0, LCG_BEFORE = 1, LCG_AFTER = 2 };
+using probe::ADD;
+using probe::FloorMod;
+using probe::LCG_AFTER;
+using probe::LCG_BEFORE;
+using probe::Walk;
+using probe::lcg;
+using probe::set_smem;
+
 enum { FLAT = 0, ROW = 1, COL = 2 };
 
 constexpr int GATHER_U = 4;         // loads in flight a lane: from L2
@@ -68,6 +94,9 @@ constexpr int SHARED_U = 16;        // and from shared memory
 constexpr int GATHER_THREADS = 256; // unstaged FLAT and COL blocks
 constexpr int COL_THREADS = 256;    // staged-column blocks
 constexpr int COL_GROUP = 16;       // most columns a staged block holds
+constexpr int RG_WARPS = 8;         // RG: warps a block (one output each)
+constexpr int RG_U = 4;             // RG: rows a warp reads at once
+constexpr int RG_PASS = RG_WARPS * RG_U;   // RG: steps a block takes a pass
 
 // 4-byte asynchronous copy global -> shared (any alignment), and the wait
 // for every copy this thread queued
@@ -89,78 +118,6 @@ __device__ __forceinline__ void stage(float* s, const float* src, int n) {
   cp_async_wait_all();
   __syncthreads();
 }
-
-__device__ __forceinline__ int floor_mod(int x, int m) {
-  const int r = x % m;            // C's % truncates; the probes' % floors
-  return r < 0 ? r + m : r;
-}
-
-// x floored-mod d for every int32 x, d >= 1 fixed per launch, without a
-// division: a mask where d is a power of two, else the round-up method of
-// Granlund and Montgomery on u = x + 2^31 (as uint32): q = u / d =
-// (t + ((u - t) >> sh1)) >> sh2 with t = umulhi(magic, u), and x mod d =
-// (u mod d - 2^31 mod d) mod d.
-struct FloorMod {
-  int d;
-  uint32_t magic, off;  // off = 2^31 mod d
-  int sh1, sh2;
-  bool pow2;
-
-  static FloorMod make(int d) {
-    FloorMod f{};
-    f.d = d;
-    f.pow2 = (d & (d - 1)) == 0;
-    int l = 0;
-    while ((1ull << l) < (uint64_t)d) ++l;        // 2^(l-1) < d <= 2^l
-    f.magic = (uint32_t)((((1ull << l) - d) << 32) / d + 1);
-    f.sh1 = l < 1 ? l : 1;
-    f.sh2 = l > 1 ? l - 1 : 0;
-    f.off = (uint32_t)((1ull << 31) % (uint64_t)d);
-    return f;
-  }
-
-  __device__ __forceinline__ int operator()(int x) const {
-    if (pow2) return x & (d - 1);
-    const uint32_t u = (uint32_t)x ^ 0x80000000u;
-    const uint32_t t = __umulhi(magic, u);
-    const uint32_t q = (t + ((u - t) >> sh1)) >> sh2;
-    const uint32_t r = u - q * (uint32_t)d;
-    return r >= off ? (int)(r - off) : (int)(r + (uint32_t)d - off);
-  }
-};
-
-// int32 wraparound as JAX computes it: multiply and add as uint32, then
-// reinterpret as int32, then the floored modulus
-__device__ __forceinline__ int lcg(int j, int i, const FloorMod& fm) {
-  const uint32_t x = (uint32_t)j * 1103515245u + 12345u + (uint32_t)i;
-  return fm((int)x);
-}
-
-// A lane's walk through its indices: next(i) is k_i, the index of step i.
-template <int RULE>
-struct Walk {
-  int j;
-  FloorMod fm;
-
-  __device__ __forceinline__ Walk(int ix, const FloorMod& f) : fm(f) {
-    j = RULE == ADD ? floor_mod(ix, f.d) : ix;
-  }
-
-  __device__ __forceinline__ int next(int i) {
-    if (RULE == ADD) {
-      const int k = j;
-      j = j + 1 == fm.d ? 0 : j + 1;
-      return k;
-    }
-    if (RULE == LCG_BEFORE) {
-      j = lcg(j, i, fm);
-      return j;
-    }
-    const int k = j;
-    j = lcg(j, i, fm);
-    return k;
-  }
-};
 
 template <bool LDG>
 __device__ __forceinline__ float load(const float* p) {
@@ -253,40 +210,72 @@ __global__ void probe_gather_cols_kernel(const float* __restrict__ t,
   }
 }
 
-__global__ void probe_row_gather_kernel(const float* __restrict__ t,
-                                        const int* __restrict__ r,
-                                        float* __restrict__ out, int nk,
-                                        int ncols, FloorMod fm, int reps) {
-  const int k = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (k >= nk) return;
-  int j = r[k];
+// RG: block k of the grid computes out[k]; see the note at the top.
+template <bool VEC>
+__global__ void __launch_bounds__(32 * RG_WARPS)
+probe_row_gather_kernel(const float* __restrict__ t,
+                        const int* __restrict__ r, float* __restrict__ out,
+                        int ncols, FloorMod fm, int reps) {
+  __shared__ float s_sum[RG_PASS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = warp * RG_U;          // this warp's first step a pass
+  const int width = VEC ? ncols >> 2 : ncols;   // float4s or floats a row
+  int j = r[blockIdx.x];
   float acc = 0.0f;
-  for (int i = 0; i < reps; ++i) {
-    j = lcg(j, i, fm);
-    const float* row = t + (int64_t)j * ncols;
-    float s = 0.0f;
-    for (int c = lane; c < ncols; c += 32) s += row[c];
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    acc = acc + s;
+  for (int i0 = 0; i0 < reps; i0 += RG_PASS) {
+    const int n = min(RG_PASS, reps - i0);
+    // the chain up to this warp's steps, its RG_U rows, then the rest of
+    // the pass while the reads are in flight
+    for (int i = 0; i < first && i < n; ++i) j = lcg(j, i0 + i, fm);
+    const float* row[RG_U];
+#pragma unroll
+    for (int u = 0; u < RG_U; ++u) {
+      row[u] = t;
+      if (first + u < n) {
+        j = lcg(j, i0 + first + u, fm);
+        row[u] = t + (int64_t)j * ncols;
+      }
+    }
+    float s[RG_U];
+#pragma unroll
+    for (int u = 0; u < RG_U; ++u) s[u] = 0.0f;
+    // the warp's RG_U rows, 32 float4s (or floats) of each at a time: all
+    // of a column block's reads issued before its adds
+    for (int c0 = 0; c0 < width; c0 += 32) {
+      const int c = c0 + lane;
+      if (VEC) {
+        float4 x[RG_U];
+#pragma unroll
+        for (int u = 0; u < RG_U; ++u)
+          x[u] = first + u < n && c < width
+                     ? __ldg(reinterpret_cast<const float4*>(row[u]) + c)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int u = 0; u < RG_U; ++u)
+          s[u] += (x[u].x + x[u].y) + (x[u].z + x[u].w);
+      } else {
+        float x[RG_U];
+#pragma unroll
+        for (int u = 0; u < RG_U; ++u)
+          x[u] = first + u < n && c < width ? __ldg(row[u] + c) : 0.0f;
+#pragma unroll
+        for (int u = 0; u < RG_U; ++u) s[u] += x[u];
+      }
+    }
+    for (int i = first + RG_U; i < n; ++i) j = lcg(j, i0 + i, fm);
+#pragma unroll
+    for (int u = 0; u < RG_U; ++u) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+      if (lane == 0 && first + u < n) s_sum[first + u] = s[u];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int i = 0; i < n; ++i) acc = acc + s_sum[i];
+    __syncthreads();
   }
-  if (lane == 0) out[k] = acc;
-}
-
-int max_smem() {
-  int dev = 0, v = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return -1;
-  return v;
-}
-
-template <class K>
-int set_smem(K kern, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
 template <int RULE, int LAYOUT, bool STAGE>
@@ -312,22 +301,13 @@ int launch(const float* t, const int* ix, float* out, int n, FloorMod fm,
   return (int)cudaGetLastError();
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return -1;
-  return sms;
-}
-
 // COL staged: the most columns (a power of two dividing ncols, at most
 // COL_GROUP) whose slab fits in shared memory; blocks of rb rows, at most
 // one a SM, so that the grid runs in one wave.
 template <int RULE>
 int launch_cols(const float* t, const int* ix, float* out, int n,
                 FloorMod fm, int reps, int ncols, cudaStream_t stream) {
-  const int cap = max_smem(), sms = sm_count();
+  const int cap = probe::max_smem(), sms = probe::sm_count();
   if (cap < 0 || sms < 0) return (int)cudaErrorInvalidValue;
   int cg = COL_GROUP;
   while (cg > 1 &&
@@ -395,13 +375,17 @@ int probe_gather(const float* t, const int* ix, float* out, int rule,
   return (int)cudaErrorInvalidValue;
 }
 
-// RG: out[k] for k < nk from t [mod, ncols] and r (row 0 of the indices).
+// RG: out[k] for k < nk from t [mod, ncols] and r (row 0 of the
+// indices); vec: t's rows are 16-byte aligned (ncols a multiple of 4 and t
+// 16-byte aligned), read as float4.
 int probe_row_gather(const float* t, const int* r, float* out, int nk,
-                     int ncols, int mod, int reps, void* stream) {
-  const int warps = 4;
-  probe_row_gather_kernel<<<(nk + warps - 1) / warps, 32 * warps, 0,
-                            (cudaStream_t)stream>>>(
-      t, r, out, nk, ncols, FloorMod::make(mod), reps);
+                     int ncols, int mod, int reps, int vec, void* stream) {
+  if (mod < 1 || nk < 0) return (int)cudaErrorInvalidValue;
+  if (nk == 0) return (int)cudaSuccess;
+  auto kern = vec ? probe_row_gather_kernel<true>
+                  : probe_row_gather_kernel<false>;
+  kern<<<nk, 32 * RG_WARPS, 0, (cudaStream_t)stream>>>(
+      t, r, out, ncols, FloorMod::make(mod), reps);
   return (int)cudaGetLastError();
 }
 
@@ -411,13 +395,7 @@ int probe_row_gather(const float* t, const int* r, float* out, int nk,
 int probe_gather_unroll(int staged) { return staged ? SHARED_U : GATHER_U; }
 
 // Largest dynamic shared memory a block may use on this device (bytes).
-int probe_max_smem(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return -1;
-  return v;
-}
+int probe_max_smem(int device) { return probe::max_smem(device); }
 
 const char* probe_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

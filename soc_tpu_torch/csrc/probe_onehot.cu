@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "probe_index.cuh"
+
 namespace {
 
 constexpr int SIDE = 512;
@@ -102,14 +104,11 @@ int groups_for(int n) {
   if (err != cudaSuccess) return -(int)err;
   int most = device < 64 ? fit[device] : 0;
   if (most == 0) {
-    int sms = 0, blocks = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return -(int)err;
-    err = cudaFuncSetAttribute(probe_onehot_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SLICE * (int)sizeof(float));
-    if (err != cudaSuccess) return -(int)err;
+    int blocks = 0;
+    const int sms = probe::sm_count(device);
+    if (sms < 0) return -(int)cudaErrorInvalidDevice;
+    const int e = probe::set_smem(probe_onehot_kernel, SLICE * sizeof(float));
+    if (e != 0) return -e;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, probe_onehot_kernel, THREADS, SLICE * sizeof(float));
     if (err != cudaSuccess) return -(int)err;
@@ -129,10 +128,8 @@ extern "C" {
 // ix, v [n] -> out [512, 512] (zeroed by the caller); split 1 or 2.
 int probe_onehot(const int* ix, const float* v, float* out, int n, int reps,
                  int use_lcg, int split, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      probe_onehot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SLICE * (int)sizeof(float));
-  if (err != cudaSuccess) return (int)err;
+  const int e = probe::set_smem(probe_onehot_kernel, SLICE * sizeof(float));
+  if (e != 0) return e;
   const int groups = groups_for(n);
   if (groups < 0) return -groups;
   probe_onehot_kernel<<<SLICES * groups, THREADS, SLICE * sizeof(float),

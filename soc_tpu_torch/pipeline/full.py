@@ -123,6 +123,19 @@ def _simple_dust_substitutes(cfg):
     return rt_optical
 
 
+def absorption_config(cfg):
+    """Stage 1's configuration: the absorption run (nosolve, every
+    frequency tallied, no map) with simple-dust optics in place of each
+    gset dust, whose files it writes where they are missing (paths
+    relative to the working directory)."""
+    cfg_rt = copy.deepcopy(cfg)
+    cfg_rt.nosolve = True
+    cfg_rt.noabsorbed = False
+    cfg_rt.nomap = True
+    cfg_rt.file_optical = _simple_dust_substitutes(cfg)
+    return cfg_rt
+
+
 def run_pipeline(ini_path, device, lanes=driver.DEFAULT_LANES, ne=128,
                  mode=None, devices=None):
     """ASOC_driver equivalent: absorptions -> emission -> maps. Returns
@@ -149,12 +162,8 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, devices):
     ne = cfg.ne_number or ne
 
     # Stage 1: absorption run (nosolve; all frequencies tallied)
-    cfg_rt = copy.deepcopy(cfg)
-    cfg_rt.nosolve = True
-    cfg_rt.noabsorbed = False
-    cfg_rt.nomap = True
-    rt_optical = _simple_dust_substitutes(cfg)
-    cfg_rt.file_optical = rt_optical
+    cfg_rt = absorption_config(cfg)
+    rt_optical = cfg_rt.file_optical
     res_rt = driver.run(cfg=cfg_rt, device=device, lanes=lanes, workdir=".",
                         devices=devices)
     absorbed = res_rt.absorbed

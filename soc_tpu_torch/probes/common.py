@@ -93,16 +93,18 @@ def timeit(fn, reps=3):
 
 
 def device_seconds(fn, reps=3, pause=0.02):
-    """(best, spread) of the device time of ``reps`` calls of ``fn``, or
-    (None, None) when the profiler saw fewer intervals than calls in each
-    of three tries. The calls run in one torch.profiler session,
-    ``pause`` seconds apart; the device intervals (kernels, fills and
-    copies) are cut into calls at the reps - 1 widest gaps between them,
-    each call's time is the union of its intervals, and only the calls
-    with the most intervals count. A call's event-timed seconds also hold
-    the host's launch overhead, which outweighs the probes' shortest
-    kernels; random gathers move by up to ~40% from call to call, hence
-    the best of several and its spread."""
+    """(best, spread, best call) of the device time of ``reps`` calls of
+    ``fn``, or (None, None, None) when the profiler saw fewer intervals
+    than calls in each of three tries. The calls run in one torch.profiler
+    session, ``pause`` seconds apart; the device intervals (kernels, fills
+    and copies) are cut into calls at the reps - 1 widest gaps between
+    them, each call's time is the union of its intervals (the gaps between
+    them left out; ``span`` puts them in), and only the calls with the
+    most intervals count. The best call is its list of profiler events, in
+    order of start. A call's event-timed seconds also hold the host's
+    launch overhead, which outweighs the probes' shortest kernels; random
+    gathers move by up to ~40% from call to call, hence the best of
+    several and its spread."""
     from torch.profiler import ProfilerActivity, profile
 
     from ..profile_transport import busy_seconds
@@ -119,7 +121,7 @@ def device_seconds(fn, reps=3, pause=0.02):
         if len(events) >= reps:
             break
     else:
-        return None, None
+        return None, None, None
     # gap before event i: its start less the latest end before it
     gaps, end = [], events[0].time_range.end
     for i, e in enumerate(events[1:], 1):
@@ -130,8 +132,28 @@ def device_seconds(fn, reps=3, pause=0.02):
     # every call launches the same work: a call with fewer intervals than
     # the fullest lost some to the profiler and is left out
     full = max(len(c) for c in calls)
-    times = [busy_seconds(c)[0] for c in calls if len(c) == full]
-    return min(times), max(times) - min(times)
+    timed = sorted(((busy_seconds(c)[0], c) for c in calls
+                    if len(c) == full), key=lambda t: t[0])
+    return timed[0][0], timed[-1][0] - timed[0][0], timed[0][1]
+
+
+def span(call):
+    """Seconds from a call's first device interval's start to its last
+    end (see device_seconds), the gaps between intervals included."""
+    return (max(e.time_range.end for e in call)
+            - call[0].time_range.start) / 1e6
+
+
+def intervals(call):
+    """[(name, seconds)] of a call's device intervals (see
+    device_seconds), each kernel's name without its return type, anonymous
+    namespace, template and function arguments."""
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0].strip()
+        return name[5:] if name.startswith("void ") else name or "?"
+    return [(short(e.name), (e.time_range.end - e.time_range.start) / 1e6)
+            for e in call]
 
 
 def _ms(seconds, spread=None):
@@ -190,7 +212,9 @@ class Case:
     once and the output written once; library: where one PyTorch call
     computes the same function, library(*args) builds what that call takes
     from the arguments (untimed) and returns the call, a callable of no
-    arguments."""
+    arguments; reference: the same for a reference of several PyTorch calls
+    (RG's), timed and checked as the library call is but reported under
+    ``reference_label``, never as the library call."""
     name: str
     fn: Callable
     args: tuple
@@ -199,6 +223,8 @@ class Case:
     kernel: Optional[str] = None
     nbytes: Optional[int] = None
     library: Optional[Callable] = None
+    reference: Optional[Callable] = None
+    reference_label: str = ""
 
 
 @dataclass
@@ -221,6 +247,12 @@ class Result:
     library_device_seconds: Optional[float] = None   # call and device time
     library_device_spread: Optional[float] = None
     elems: Optional[int] = None             # the case's adds (Case.elems)
+    reference_device_seconds: Optional[float] = None    # Case.reference's
+    reference_device_spread: Optional[float] = None
+    device_span: Optional[float] = None     # span() of the best call of
+    library_span: Optional[float] = None    # the kernel, the library call
+    reference_span: Optional[float] = None  # and Case.reference
+    device_intervals: Optional[list] = None  # intervals() of the kernel's
 
     @property
     def ok(self):
@@ -236,18 +268,20 @@ def _nbytes(case, out):
         + sum(o.numel() * o.element_size() for o in _leaves(out))
 
 
-def _library(case, ref):
-    """Times the case's library call (call time, device time) and holds its
+def _library(case, ref, build, label):
+    """Times a library call or reference of the case (``build`` is
+    Case.library or Case.reference; call time, device time) and holds its
     output to the plain version's with the case's tolerance; returns the
-    (seconds, device seconds, device spread, check)."""
-    call = case.library(*case.args)
+    (seconds, device seconds, device spread, span of the best call,
+    check)."""
+    call = build(*case.args)
     ls, lout = timeit(call)
-    ld, lspread = device_seconds(call)
+    ld, lspread, lcall = device_seconds(call)
     err = error(lout, ref, REL_OF_MAX if case.tol == EXACT else case.tol)
-    print(f"  {case.name}: library call {ls * 1e3:.4f} ms, device time "
+    print(f"  {case.name}: {label} {ls * 1e3:.4f} ms, device time "
           f"{_ms(ld, lspread)}; against plain {err:.3e}", flush=True)
-    return ls, ld, lspread, (
-        "library call against plain", err,
+    return ls, ld, lspread, None if lcall is None else span(lcall), (
+        label + " against plain", err,
         LIMITS[REL_OF_MAX if case.tol == EXACT else case.tol])
 
 
@@ -268,9 +302,9 @@ def run_cases(cases, kernels, plain):
         ps, pout = timeit(lambda: case.fn(*case.args, ops=plain))
         ks, kout = timeit(lambda: case.fn(*case.args, ops=kernels))
         err = error(kout, pout, case.tol)
-        kd, kspread = device_seconds(lambda: case.fn(*case.args,
-                                                      ops=kernels))
-        pd, _ = device_seconds(lambda: case.fn(*case.args, ops=plain))
+        kd, kspread, kcall = device_seconds(lambda: case.fn(*case.args,
+                                                             ops=kernels))
+        pd, _, _ = device_seconds(lambda: case.fn(*case.args, ops=plain))
         report("cuda " + case.name, ks, case.elems)
         report("plain " + case.name, ps, case.elems)
         bound, by = bound_seconds(_nbytes(case, kout), case.elems)
@@ -284,9 +318,19 @@ def run_cases(cases, kernels, plain):
                      device_seconds=kd, plain_device_seconds=pd,
                      device_spread=kspread, bound_seconds=bound, bound_by=by,
                      elems=case.elems)
+        if kcall is not None:
+            res.device_span, res.device_intervals = span(kcall), \
+                intervals(kcall)
         if case.library is not None:
             (res.library_seconds, res.library_device_seconds,
-             res.library_device_spread, check) = _library(case, pout)
+             res.library_device_spread, res.library_span,
+             check) = _library(
+                 case, pout, case.library, "library call")
+            res.checks.append(check)
+        if case.reference is not None:
+            (_, res.reference_device_seconds, res.reference_device_spread,
+             res.reference_span, check) = _library(
+                 case, pout, case.reference, case.reference_label)
             res.checks.append(check)
         results.append(res)
     return results

@@ -38,6 +38,14 @@ launches = {"probe_gather": 0, "probe_row_gather": 0, "probe_scatter": 0,
 _SMEM_CAP = {}
 
 
+def _smem_cap(lib, index):
+    """Shared memory a block may use on card ``index`` (bytes), queried
+    once."""
+    if index not in _SMEM_CAP:
+        _SMEM_CAP[index] = lib.probe_max_smem(index)
+    return _SMEM_CAP[index]
+
+
 def _lib(name):
     from .. import _build
     lib = _build.library(name)
@@ -46,15 +54,17 @@ def _lib(name):
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "probe_gather":
         lib.probe_gather.argtypes = [p, p, p] + [i] * 9 + [p]
-        lib.probe_row_gather.argtypes = [p, p, p, i, i, i, i, p]
+        lib.probe_row_gather.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.probe_max_smem.argtypes = [i]
         lib.probe_gather_unroll.argtypes = [i]
         lib.probe_gather.restype = lib.probe_row_gather.restype = i
         lib.probe_max_smem.restype = lib.probe_gather_unroll.restype = i
         errs = lib.probe_error_string
     elif name == "probe_scatter":
-        lib.probe_scatter.argtypes = [p, p, p] + [i] * 7 + [p]
-        lib.probe_scatter.restype = i
+        lib.probe_scatter.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        lib.probe_max_smem = lib.probe_scatter_max_smem
+        lib.probe_max_smem.argtypes = [i]
+        lib.probe_scatter.restype = lib.probe_max_smem.restype = i
         errs = lib.probe_scatter_error_string
     else:
         lib.probe_onehot.argtypes = [p, p, p, i, i, i, i, p]
@@ -128,10 +138,7 @@ def gather(t, ix, rule, layout, reps):
     if rows > 65535:
         raise ValueError("ROW gather: at most 65535 rows, got %d" % rows)
     lib = _lib("probe_gather")
-    index = device.index or 0
-    if index not in _SMEM_CAP:
-        _SMEM_CAP[index] = lib.probe_max_smem(index)
-    stage = int(staged(layout, mod, _SMEM_CAP[index]))
+    stage = int(staged(layout, mod, _smem_cap(lib, device.index or 0)))
     out = torch.empty(ix.shape, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.probe_gather(t.data_ptr(), ix.data_ptr(), out.data_ptr(),
@@ -211,15 +218,40 @@ def row_gather(t, r, reps, nk):
         raise ValueError("row_gather: t [M, ncols] and r [R, >= nk] "
                          "expected, got %s and %s"
                          % (tuple(t.shape), tuple(r.shape)))
+    if t.shape[0] < 1 or nk < 0 or reps < 0:
+        raise ValueError("row_gather: needs M >= 1 rows, nk >= 0 and reps "
+                         ">= 0, got %d, %d and %d" % (t.shape[0], nk, reps))
     lib = _lib("probe_gather")
+    # rows read as float4 where each starts on 16 bytes
+    vec = int(t.shape[1] % 4 == 0 and t.data_ptr() % 16 == 0)
     out = torch.empty((1, nk), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.probe_row_gather(t.data_ptr(), r.data_ptr(),
                                    out.data_ptr(), nk, t.shape[1],
-                                   t.shape[0], reps, _stream(device))
+                                   t.shape[0], reps, vec, _stream(device))
     _raise_on(lib, err, "row gather kernel")
     launches["probe_row_gather"] += 1
     return out
+
+
+def row_gather_indices(r, reps, nk, mod):
+    """J [nk, reps] (int64): the table row that step i of chain k reads,
+    the LCG walked ahead from r[0, :nk] as the kernel walks it."""
+    j, steps = r[0, :nk], []
+    for i in range(reps):
+        j = lcg(j, i, mod)
+        steps.append(j.to(torch.int64))
+    return torch.stack(steps, 1)
+
+
+def row_gather_two_calls(t, r, reps, nk):
+    """RG as two PyTorch calls, its reference beside the kernel (it has no
+    one-call yardstick): J built here, once, then the returned callable
+    sums each chain's rows with one ``embedding_bag`` and their columns
+    with one ``sum``."""
+    bags = row_gather_indices(r, reps, nk, t.shape[0])
+    return lambda: torch.nn.functional.embedding_bag(
+        bags, t, mode="sum").sum(1)[None, :]
 
 
 def row_gather_plain(t, r, reps, nk):
@@ -252,7 +284,8 @@ def _scatter_geometry(ix, layout, mod):
 
 def scatter(ix, v, rule, layout, mod, reps):
     """FLAT: out [mod], out[k_i(n)] += v[n] for i < reps; ROW: out
-    [rows, mod], out[s, k_i(s, l)] += v[s, l]. CUDA tensors: the kernel."""
+    [rows, mod], out[s, k_i(s, l)] += v[s, l]. CUDA tensors: the kernel;
+    FLAT with ADD keeps its tally H [mod] in a scratch tensor."""
     if ix.device.type == "cpu":
         return scatter_plain(ix, v, rule, layout, mod, reps)
     device = _cuda_device(ix, "scatter")
@@ -263,12 +296,24 @@ def scatter(ix, v, rule, layout, mod, reps):
                          % (tuple(v.shape), tuple(ix.shape)))
     if rule not in (ADD, LCG_BEFORE):
         raise ValueError("unknown scatter rule %r" % (rule,))
+    if mod < 1 or reps < 0:
+        raise ValueError("scatter: needs mod >= 1 and reps >= 0, got %d "
+                         "and %d" % (mod, reps))
     shape, rows, row_lanes = _scatter_geometry(ix, layout, mod)
     lib = _lib("probe_scatter")
-    out = torch.zeros(shape, dtype=torch.float32, device=device)
+    cap = _smem_cap(lib, device.index or 0)
+    if layout == ROW and 4 * (-(-mod // 4) * 4) > cap:
+        raise ValueError("ROW scatter: a row's %d slots do not fit in the "
+                         "%d bytes of shared memory a block may use"
+                         % (mod, cap))
+    flat_add = layout == FLAT and rule == ADD
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    h = torch.empty(mod, dtype=torch.float32, device=device) \
+        if flat_add else None
     with torch.cuda.device(device):
         err = lib.probe_scatter(ix.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                rule, layout, ix.numel(), mod, reps, rows,
+                                None if h is None else h.data_ptr(), rule,
+                                layout, ix.numel(), mod, reps, rows,
                                 row_lanes, _stream(device))
     _raise_on(lib, err, "scatter kernel")
     launches["probe_scatter"] += 1

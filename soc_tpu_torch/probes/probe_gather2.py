@@ -5,8 +5,9 @@ scripts/probe_gather2.py. Its Pallas kernels run as the gather kernel
 one-hot kernel (MX); its XLA baselines as plain PyTorch. Each kernel's
 line is printed beside its plain version's, with the kernel-against-plain
 error, and beside one PyTorch call computing the same function where
-there is one (embedding_bag for W1-W4, index_add_ for S2 and MX); the MX
-correctness deposit is also held to an exact float32 scatter.
+there is one (embedding_bag for W1-W4, index_add_ for S2 and MX); RG,
+which has none, beside two (embedding_bag, then a sum over the columns);
+the MX correctness deposit is also held to an exact float32 scatter.
 
     python -m soc_tpu_torch.probes.probe_gather2
 
@@ -23,7 +24,7 @@ import torch
 from . import common
 from .common import EXACT, REL, REL_OF_MAX, Case
 from .kernels import KERNELS, LCG_BEFORE, ONEHOT_SIDE, PLAIN, ROW, \
-    _bf16_parts
+    _bf16_parts, row_gather_two_calls
 from .probe_gather import CELLS, N, gather_yardstick, inputs
 
 REPS = 32
@@ -168,14 +169,17 @@ def cases(tbl, idx, vals, reps=REPS):
              N * reps, EXACT, "probe_gather",
              library=gather_yardstick(LCG_BEFORE, ROW, reps)),
         # no library call: one embedding_bag of the rows would still
-        # leave a sum over their columns, a second call
+        # leave a sum over their columns, a second call; the two calls
+        # stand beside the kernel as its reference
         Case("RG row gather t[r] 128 rows", partial(rg, reps=reps),
              (tbl.reshape(2048, 128),
               torch.remainder(idx, 2048).reshape(8, N // 8)),
              RG_ROWS * reps, REL, "probe_row_gather",
              # the table the 128 chains walk, their 128 start indices and
              # the output: the rest of r is never read
-             nbytes=tbl.numel() * 4 + RG_ROWS * 4 * 2),
+             nbytes=tbl.numel() * 4 + RG_ROWS * 4 * 2,
+             reference=partial(row_gather_two_calls, reps=reps, nk=RG_ROWS),
+             reference_label="two calls (embedding_bag, sum)"),
         Case("S2 lane-local scatter-add", s2,
              (torch.remainder(idx, 128).reshape(1024, 128),
               vals.reshape(1024, 128)), N * 4, REL_OF_MAX,

@@ -218,6 +218,37 @@ def pick_clamp_config(lib, nfreq, ne, device_index):
                         CLAMP_WARPS)
 
 
+def shape_ceiling(lib, kernel, device_index, nfreq=None, ne=None):
+    """The largest NE at ``nfreq`` (or, given ``ne``, the largest NFREQ)
+    that ``kernel``'s picker ("fold": a2e_all_sizes, "clamp": a2e_clamp)
+    admits on the device, by doubling and then bisection over the picker
+    itself: its shared memory grows with both, so the shapes it takes end
+    at one edge. The A2E kernels' limit: one step beyond raises the
+    ValueError that names the shape."""
+    pick = pick_fold_config if kernel == "fold" else pick_clamp_config
+    if (nfreq is None) == (ne is None):
+        raise ValueError("shape_ceiling: give nfreq or ne, not both")
+
+    def admits(x):
+        try:
+            pick(lib, nfreq or x, ne or x, device_index)
+        except ValueError:
+            return False
+        return True
+    lo = 2 if ne is None else 1           # NE >= 2, NFREQ >= 1
+    if not admits(lo):
+        raise _too_large("a2e_all_sizes" if kernel == "fold"
+                         else "a2e_clamp", nfreq or lo, ne or lo,
+                         _smem_cap(lib, device_index))
+    hi = 2 * lo
+    while admits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if admits(mid) else (lo, mid)
+    return lo
+
+
 def _check_cuda(name, t, device, shape):
     if t.device != device:
         raise ValueError("%s is on %s, expected %s" % (name, t.device, device))

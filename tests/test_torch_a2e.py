@@ -251,6 +251,43 @@ def test_clamp_config_choice(monkeypatch, nfreq, ne, want):
     assert lib.queries > n
 
 
+# the A2E kernels' shape ceiling on an H100 (232,448 bytes of shared
+# memory a block) by a2e.cu's sizing formulas: (kernel, NFREQ, NE) with
+# the one given and the largest other that the picker admits
+H100_CEILING = [
+    ("fold", 44, 1791), ("fold", 256, 1416), ("fold", 1000, 253),
+    ("fold", None, (256, 996)), ("fold", None, (32, 1140)),
+    ("clamp", 44, 1794), ("clamp", 256, 1432), ("clamp", 1000, 316),
+    ("clamp", None, (256, 1040)), ("clamp", None, (32, 1188)),
+]
+
+
+@pytest.mark.parametrize("kernel,nfreq,want", H100_CEILING)
+def test_kernel_shape_ceiling_on_h100(monkeypatch, kernel, nfreq, want):
+    """shape_ceiling finds, through the picker, the largest NE at a given
+    NFREQ (or the largest NFREQ at a given NE) that a kernel takes in an
+    H100's shared memory; one step beyond raises the ValueError that
+    names the kernel, the shape and the cap. No configuration of the repo
+    comes near it (NE 128-256 at NFREQ 44-100)."""
+    monkeypatch.setattr(a2e_kernel, "_CONFIG", {})
+    monkeypatch.setattr(a2e_kernel, "_SMEM_CAP", {})
+    lib = _FakeLib(cap=232448)
+    pick = a2e_kernel.pick_fold_config if kernel == "fold" \
+        else a2e_kernel.pick_clamp_config
+    name = "a2e_all_sizes" if kernel == "fold" else "a2e_clamp"
+    if nfreq is None:
+        ne, top = want
+        assert a2e_kernel.shape_ceiling(lib, kernel, 0, ne=ne) == top
+        shape, beyond = (top, ne), (top + 1, ne)
+    else:
+        assert a2e_kernel.shape_ceiling(lib, kernel, 0, nfreq=nfreq) == want
+        shape, beyond = (nfreq, want), (nfreq, want + 1)
+    assert pick(lib, *shape, 0)[2] > 0
+    with pytest.raises(ValueError, match=r"%s: NE=%d with NFREQ=%d .*232448"
+                       % (name, beyond[1], beyond[0])):
+        pick(lib, *beyond, 0)
+
+
 def test_kernel_shape_limits_name_the_shape(monkeypatch):
     """A shape a kernel cannot take raises, naming the kernel, NE, NFREQ
     and the cap; both take NE 64 in 16 KB."""

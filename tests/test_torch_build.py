@@ -98,3 +98,22 @@ def test_failed_build_raises_and_leaves_no_temp_file(fake):
     assert os.listdir(build) == [f for f in os.listdir(build)
                                  if f.startswith("liba_")]
     assert len(os.listdir(build)) == 1
+
+
+def test_changed_header_rebuilds_the_sources_that_include_it(fake):
+    """A source's library is named by the hash of the source and of the
+    csrc/ headers it includes, through other headers: a changed header
+    rebuilds the sources that include it and no other."""
+    csrc, build, built = fake
+    (csrc / "common.cuh").write_text("// shared\n")
+    (csrc / "inner.cuh").write_text('#include "common.cuh"\n')
+    (csrc / "a.cu").write_text('#include <cuda_runtime.h>\n'
+                               '#include "inner.cuh"\n// kernel a\n')
+    for name in ("a", "b"):
+        _build.library(name)
+    assert sorted(built()) == ["a", "b"]
+    (csrc / "common.cuh").write_text("// shared, changed\n")
+    _build._loaded.clear()
+    for name in ("a", "b"):
+        _build.library(name)
+    assert sorted(built()) == ["a", "a", "b"]

@@ -114,6 +114,53 @@ def test_kernel_matches_plain_twin(cuda, tmp_path, ne, nfreq, cells, scale):
     assert torch.equal(tot2, tot)
 
 
+# (kernel, NFREQ, NE): one of the two given, the other the largest that
+# the kernel's picker admits on this card (a2e_kernel.shape_ceiling): NE
+# at NFREQ 1000, NFREQ at NE 256 and at NE 32
+CEILING_CASES = [(k, nf, ne) for k in ("fold", "clamp")
+                 for nf, ne in ((1000, None), (None, 256), (None, 32))]
+
+
+@pytest.mark.parametrize("kernel,nfreq,ne", CEILING_CASES)
+def test_kernel_at_its_shape_ceiling(cuda, tmp_path, kernel, nfreq, ne):
+    """Each A2E kernel at the largest shape it takes in this card's shared
+    memory, found through its picker (the library's own sizing and cap):
+    one size, 300 cells, against the plain twin (1e-4 relative; the clamp
+    kernel on a negative weight and negative absorbed values); one step
+    beyond raises the ValueError that names the kernel, NE, NFREQ and
+    the cap."""
+    lib, index = a2e_kernel._lib(), cuda.index or 0
+    top = a2e_kernel.shape_ceiling(lib, kernel, index, nfreq=nfreq, ne=ne)
+    nfreq, ne, beyond = (nfreq, top, (nfreq, top + 1)) if ne is None \
+        else (top, ne, (top + 1, ne))
+    clamp = kernel == "clamp"
+    sol, freq = gset_solver(str(tmp_path), nfreq=nfreq, nsize=1, ne=ne)
+    rng = np.random.default_rng(ne + nfreq)
+    ab = synthetic_absorbed(rng, sol, freq, 300)
+    if clamp:
+        negate_one_weight(sol)
+        ab = with_negative_entries(rng, ab)
+    stacks = stochastic.get_fused_stacks(sol, cuda, plain=True, clamp=clamp)
+    ab = torch.as_tensor(ab, device=cuda)
+    align = torch.as_tensor(rng.uniform(0, 1, (1, 300)).astype(np.float32),
+                            device=cuda)
+    solve = a2e_kernel.solve_all_sizes_clamp if clamp \
+        else a2e_kernel.solve_all_sizes
+    tot, ptot = solve(stacks, ab, align)
+    tot_p, ptot_p = a2e_kernel.solve_all_sizes_plain(stacks, ab, align)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(tot).all()) and bool(torch.isfinite(ptot).all())
+    assert _max_rel(tot, tot_p) < REL_TOL
+    assert _max_rel(ptot, ptot_p) < REL_TOL
+    pick = a2e_kernel.pick_clamp_config if clamp \
+        else a2e_kernel.pick_fold_config
+    name = "a2e_clamp" if clamp else "a2e_all_sizes"
+    with pytest.raises(ValueError, match=r"%s: NE=%d with NFREQ=%d .*\(%d "
+                       % (name, beyond[1], beyond[0],
+                          a2e_kernel._smem_cap(lib, index))):
+        pick(lib, *beyond, index)
+
+
 def test_wrapper_checks_inputs(cuda, tmp_path):
     sol, freq = gset_solver(str(tmp_path), nfreq=12, nsize=2, ne=16)
     stacks = stochastic.get_fused_stacks(sol, cuda)
@@ -434,6 +481,74 @@ def test_gather_kernel_edges(cuda, rule, layout, tshape, xshape):
         assert torch.equal(got, ref), reps
 
 
+# (layout, lanes, mod): FLAT over a power-of-two M (the probe's 262,144)
+# and not (1000), over 16 cells (33 steps wrap twice) and with no lanes;
+# ROW rows of S2's 128 lanes and of 100 and 33 lanes (not a multiple of
+# 32), mod 128 and 1000
+SCATTER_SHAPES = [
+    (kernels.FLAT, (5000,), 262144), (kernels.FLAT, (5000,), 1000),
+    (kernels.FLAT, (300,), 16), (kernels.FLAT, (0,), 1000),
+    (kernels.ROW, (7, 128), 128), (kernels.ROW, (5, 100), 1000),
+    (kernels.ROW, (3, 33), 128),
+]
+# start indices over all of int32 (negative ones under ADD), or every lane
+# on one cell (a hot spot: under the LCG every chain is the same)
+SCATTER_INDICES = {
+    "int32": lambda shape, rng: rng.integers(-2 ** 31, 2 ** 31 - 1, shape,
+                                             dtype=np.int64).astype(np.int32),
+    "hot": lambda shape, rng: np.full(shape, 12345, np.int32),
+}
+
+
+@pytest.mark.parametrize("pattern", list(SCATTER_INDICES))
+@pytest.mark.parametrize("layout,xshape,mod", SCATTER_SHAPES)
+@pytest.mark.parametrize("rule", [kernels.ADD, kernels.LCG_BEFORE])
+def test_scatter_kernel_edges(cuda, rule, layout, xshape, mod, pattern):
+    """The scatter kernel against its plain version (index_add_, step by
+    step) for 1, 4 and 33 steps, within 1e-5 of the maximum (float32 adds
+    in another order), the same cells non-zero. The kernel writes all of
+    out: nothing is zeroed for it."""
+    rng = np.random.default_rng(sum(xshape) + mod + rule)
+    ix = torch.as_tensor(SCATTER_INDICES[pattern](xshape, rng), device=cuda)
+    v = torch.as_tensor(rng.uniform(0.0, 1.0, xshape).astype(np.float32),
+                        device=cuda)
+    for reps in (1, 4, 33):
+        ref = kernels.scatter_plain(ix, v, rule, layout, mod, reps)
+        n0 = kernels.launches["probe_scatter"]
+        got = kernels.scatter(ix, v, rule, layout, mod, reps)
+        assert kernels.launches["probe_scatter"] == n0 + 1
+        torch.cuda.synchronize()
+        err = common.error(got, ref, common.REL_OF_MAX)
+        assert err <= common.LIMITS[common.REL_OF_MAX], (reps, err)
+        assert int((got != 0).sum()) == int((ref != 0).sum()), reps
+
+
+@pytest.mark.parametrize("nk", [1, 128, 130])
+@pytest.mark.parametrize("ncols,offset", [(128, 0), (100, 0), (128, 1)])
+@pytest.mark.parametrize("mod", [2048, 1000])
+def test_row_gather_kernel_edges(cuda, nk, ncols, offset, mod):
+    """The row-gather kernel against its plain version for 1, 32 and 33
+    steps (one pass of 32 and a second of one step) over all of int32's
+    start indices, within 1e-6 relative: rows of 128 floats read as
+    float4 and rows of 100 (not a multiple of 4) or starting 4 bytes off
+    16 (offset 1) read as scalars."""
+    rng = np.random.default_rng(nk * ncols + mod + offset)
+    flat = torch.as_tensor(rng.random(mod * ncols + 1, np.float32),
+                           device=cuda)
+    t = flat[offset:offset + mod * ncols].view(mod, ncols)
+    r = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, (2, 140),
+                                     dtype=np.int64).astype(np.int32),
+                        device=cuda)
+    for reps in (1, 32, 33):
+        n0 = kernels.launches["probe_row_gather"]
+        got = kernels.row_gather(t, r, reps, nk)
+        assert kernels.launches["probe_row_gather"] == n0 + 1
+        ref = kernels.row_gather_plain(t, r, reps, nk)
+        torch.cuda.synchronize()
+        err = common.error(got, ref, common.REL)
+        assert err <= common.LIMITS[common.REL], (reps, err)
+
+
 def test_probe_wrappers_check_inputs(cuda):
     t = torch.rand(2048, 128, device=cuda)
     ix = torch.randint(0, 2048, (1024, 128), device=cuda,
@@ -449,6 +564,11 @@ def test_probe_wrappers_check_inputs(cuda):
     far = torch.tensor([0, 512 * 512], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="outside"):
         kernels.onehot(far, torch.ones(2, device=cuda), 1, 1, False)
+    v = t[:1024].contiguous()
+    with pytest.raises(ValueError, match="ROW scatter"):
+        kernels.scatter(ix, v, kernels.ADD, kernels.ROW, 10 ** 6, 4)
+    with pytest.raises(ValueError, match="row_gather"):
+        kernels.row_gather(t, ix, 4, 200)
 
 
 def test_pipeline_on_card_matches_cpu(cuda, tmp_path):

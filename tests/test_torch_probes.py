@@ -327,3 +327,101 @@ def test_wrappers_take_plain_path_on_cpu_only():
         kernels.gather(meta, ix.to("meta"), kernels.ADD, kernels.FLAT, 3)
     with pytest.raises(ValueError, match="device"):
         kernels.onehot(ix.to("meta"), meta[:4], 1, 1, False)
+
+
+# ---- the algebra the redesigned kernels rely on (their CUDA forms run
+# only on a card, tests/test_torch_gpu.py)
+
+def scatter_conv(ix, v, mod, reps):
+    """FLAT ADD scatter as the scatter kernel computes it: the tally H
+    deposited once a lane, then out = sum_{i < reps} roll(H, i), i.e.
+    out[c] = sum_i H[(c - i) mod M]."""
+    h = torch.zeros(mod).index_add_(0, torch.remainder(ix.long(), mod), v)
+    out = torch.zeros(mod)
+    for i in range(reps):
+        out += torch.roll(h, i)
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("reps,mod", [(1, 1000), (4, 262144), (4, 1000),
+                                      (33, 1000), (33, 16)])
+def test_s1_convolution_form_matches_plain(seed, reps, mod):
+    """One deposit a lane and a cyclic stencil equal reps deposits a lane
+    (reps 33 over 16 cells wraps twice), for start indices over all of
+    int32: within 1e-5 of the maximum (the adds associate otherwise)."""
+    rng = np.random.default_rng(seed)
+    ix = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, 5000,
+                                      dtype=np.int64).astype(np.int32))
+    v = torch.as_tensor(rng.random(5000, np.float32))
+    ref = kernels.scatter_plain(ix, v, kernels.ADD, kernels.FLAT, mod, reps)
+    _close(scatter_conv(ix, v, mod, reps), ref.numpy())
+
+
+def test_s1_convolution_form_matches_pallas_s1(pg):
+    """The convolution form against the script's S1 kernel (interpret
+    mode) on its recorded inputs: 4 steps over 262,144 cells."""
+    _, records, _ = pg
+    (ix, v), ref = records[[r[0] for r in PG_ROWS].index("S1")]
+    _close(scatter_conv(*_t(ix, v), tpg.CELLS, 4), ref)
+
+
+def row_gather_ahead(t, r, reps, nk):
+    """RG as the row-gather kernel computes it: every row index walked
+    ahead (kernels.row_gather_indices), each row summed, then each
+    column's row sums added in step order."""
+    sums = t[kernels.row_gather_indices(r, reps, nk, t.shape[0])].sum(-1)
+    acc = torch.zeros(nk)
+    for i in range(reps):
+        acc = acc + sums[:, i]
+    return acc[None, :]
+
+
+@pytest.mark.parametrize("nk,ncols,mod,reps", [
+    (1, 128, 2048, 1), (128, 128, 2048, 32), (130, 100, 1000, 33),
+    (128, 100, 2048, 33), (130, 128, 1000, 32)])
+def test_rg_indices_ahead_match_plain(nk, ncols, mod, reps):
+    """The row indices walked ahead give RG's sums (the plain version
+    steps the LCG as it reads), and so does the two-call reference
+    (embedding_bag, then a sum): 1e-6 relative."""
+    rng = np.random.default_rng(nk + ncols + reps)
+    t = torch.as_tensor(rng.random((mod, ncols), np.float32))
+    r = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31 - 1, (2, 140),
+                                     dtype=np.int64).astype(np.int32))
+    ref = kernels.row_gather_plain(t, r, reps, nk).numpy()
+    _close(row_gather_ahead(t, r, reps, nk), ref, of_max=False)
+    _close(kernels.row_gather_two_calls(t, r, reps, nk)(), ref,
+           of_max=False)
+    assert tuple(kernels.row_gather_indices(r, reps, nk, mod).shape) == \
+        (nk, reps)
+
+
+def test_rg_indices_ahead_match_pallas_rg(pg2):
+    """The walked-ahead form and the two-call reference against the
+    script's RG kernel (interpret mode) on its recorded inputs."""
+    _, records, _ = pg2
+    (t2, r), ref = records[[row[0] for row in PG2_ROWS].index("RG")]
+    t2, r = _t(t2, r)
+    _close(row_gather_ahead(t2, r, REPS, tpg2.RG_ROWS), ref, of_max=False)
+    _close(kernels.row_gather_two_calls(t2, r, REPS, tpg2.RG_ROWS)(), ref,
+           of_max=False)
+
+
+def test_span_and_intervals_of_a_call():
+    """A call's span runs from its first device interval's start to its
+    last end, the gaps included (busy time leaves them out); each
+    interval keeps its kernel's name without namespace and arguments."""
+    from types import SimpleNamespace as NS
+
+    def event(name, start_us, end_us):
+        return NS(name=name, time_range=NS(start=start_us, end=end_us))
+
+    call = [event("Memset (Device)", 10.0, 11.0),
+            event("(anonymous namespace)::deposit_add(int const*, "
+                  "float const*, float*, int, probe::FloorMod)", 30.0, 33.0),
+            event("void (anonymous namespace)::row_add<1>(int const*)",
+                  31.0, 32.0)]
+    assert common.span(call) == pytest.approx(23e-6)
+    assert common.intervals(call) == [
+        ("Memset", pytest.approx(1e-6)), ("deposit_add", pytest.approx(3e-6)),
+        ("row_add", pytest.approx(1e-6))]
