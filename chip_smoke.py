@@ -69,11 +69,32 @@ Phases (any failure exits non-zero before the final line):
      map against phase 4's one-device run, one A2E launch per shard; then
      the `rt` verb's path (driver.run) over the same mesh with one packet
      batch per surface element
+ 10. the `rt` verb (cli.main) on BASELINE config 2's octree at full width:
+     a 64^3 root with its central 8^3 block refined and a 64-cell cascade
+     below (266,752 cells), the equilibrium dust at 44 channels, the
+     background packets of phase 4, `cellpackets` 533,504 (2 a cell a
+     channel: 23,474,176 packets a cell pass), a 64x64 map; three runs:
+     (a) `iterations 3`, (b) the same with `ali 1` and `reference 1`, (c)
+     `emweight 1` and `iterations 2`. Each: finite fields, each cell pass's
+     energy balance per channel (signed sums, driver.pass_balance) within
+     0.5%, the stage seconds and each pass's packets/s; (b)'s temperatures
+     within 2% of (a)'s (soc_tpu's bound for iterated runs) on all but
+     1e-4 of the leaf cells, within 5% on every one; then one cell
+     pass of (a)'s last emission in its 4 brightest channels (ALI_CHANNELS;
+     the others zero: their packets die at birth) rerun without and with
+     ALI: tabs_noali within 1e-4 relative or 1e-6 of the maximum of
+     tabs_ali + xab, xab a nonzero, partial share
+ 11. the `pipeline` verb (cli.main) on the same octree with the GSET dust
+     (phase 4's .solver file reused): absorption run -> A2E (one launch a
+     card, every cell, the 576 parent cells' rows zero) -> map: energy
+     balance, emitted.data zero on the parents, the map finite; then the
+     A2E kernel on those absorptions against its plain twin, timed
 The kernels line gives each kernel's launches on its path (phase 4 for the
-A2E kernel, 6 for the clamp kernel, 7 for the probes, 9 for the sharded
-A2E, whose other numbers phase 8 takes over the same six shards), its
-time, its plain version's, its library call's where one exists, and its
-bound: the larger of the bytes it must move over 3.35 TB/s and its
+A2E kernel, and under octree_* its launches, time, plain time and bound
+on phase 11's octree; 6 for the clamp kernel, 7 for the probes, 9 for the
+sharded A2E, whose other numbers phase 8 takes over the same six shards),
+its time, its plain version's, its library call's where one exists, and
+its bound: the larger of the bytes it must move over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s (an H100 SXM's published peaks). The
 last line is a JSON object naming the device.
 """
@@ -102,6 +123,17 @@ PRODUCT_RTOL, PRODUCT_ATOL = 1e-4, 1e-6
 PRODUCT_SHARDS = 6      # phase 9: dp 3 x freq 2 at NFREQ 44
 FULL_BGPACKETS = 999999
 N = 64                  # root grid size: 64^3 cells, soc_example's
+OCTREE = (8, 64, 3)     # phases 10-11: BASELINE config 2's refinement
+OCTREE_CELLS = 266752   # 64^3 + 4,096 + 512
+OCTREE_PARENTS = 576    # 512 refined root cells + the 64-cell cascade
+CELLPACKETS = 533504    # phase 10: 2 packets a cell a channel
+# phase 10, (b) against (a): soc_tpu's own bound for iterated runs, 2%
+# (tests/test_iterations.py, on every cell of an 8^3 model), on all but
+# ITER_SHARE of the leaf cells and ITER_MAX on every one: at 2 packets a
+# cell the coldest, densest cells (3.1-3.6 K on level 2) scatter by up to
+# 2.5% between two iterations of one plain run (profile_phase2 on an H100)
+ITER_RTOL, ITER_SHARE, ITER_MAX = 0.02, 1e-4, 0.05
+ALI_CHANNELS = 4        # phase 10: the ALI rerun's brightest channels
 SOURCES = ("a2e", "probe_gather", "probe_scatter", "probe_onehot")
 PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
     "probe_gather": ("soc_tpu_torch/csrc/probe_gather.cu",
@@ -743,6 +775,223 @@ def product_phase(dev, work, args, report, ref):
              np.abs(bal).max(), card), flush=True)
 
 
+def print_passes(tag, res, card):
+    """Phase 10: each cell pass of an rt run: its seconds, packets/s and
+    energy balance; fails beyond BALANCE_TOL."""
+    from soc_tpu_torch.pipeline import driver
+    for st in res.cell_passes:
+        bal = np.abs(driver.pass_balance(st)).max()
+        print("phase 10: (%s) iteration %d cell pass, %s route: %d packets "
+              "in %d pool(s), %.2f s (%.0f packets/s), energy balance per "
+              "channel (signed sums) max |.| = %.3e (tolerance %.1e) [%s]"
+              % (tag, st["iteration"], st["route"], st["packets"],
+                 st["pools"], st["seconds"], st["packets"] / st["seconds"],
+                 bal, BALANCE_TOL, card), flush=True)
+        if not bal <= BALANCE_TOL:
+            fail("phase 10: (%s) cell pass of iteration %d: energy balance "
+                 "off" % (tag, st["iteration"]))
+
+
+def octree_rt_phase(dev, work, args, report):
+    """Phase 10: the rt verb on the octree at full width, three runs, then
+    one cell pass without and with ALI. Returns the run directories."""
+    import torch
+    from soc_tpu_torch import cli
+    from soc_tpu_torch.config import RunConfig
+    from soc_tpu_torch.example_model import write_model
+    from soc_tpu_torch.pipeline import driver
+    card = report["card"]
+    runs = {"a": ("", 3), "b": ("ali 1\nreference 1\n", 3),
+            "c": ("emweight 1\n", 2)}
+    out = {}
+    for tag, (extra, iters) in runs.items():
+        d = os.path.join(work, "octree_rt_" + tag)
+        ini = write_model(d, N, kind="eqdust", nfreq=44, npix=64,
+                          bgpac=args.bgpackets, map_dx=N / 64.0,
+                          octree=OCTREE, cellpackets=CELLPACKETS,
+                          iterations=iters, extra=extra)
+        results = {}
+        t0 = time.time()
+        rc = cli.main(["rt", ini, "--device", str(dev)], results)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if rc != 0:
+            fail("phase 10: (%s) rt verb returned %d" % (tag, rc))
+        res = out[tag] = results["rt"]
+        if res.grid.cells != OCTREE_CELLS or res.grid.levels != 3:
+            fail("phase 10: (%s) the grid has %d cells on %d levels"
+                 % (tag, res.grid.cells, res.grid.levels))
+        for name in ("absorbed", "temperature", "emitted"):
+            if not np.isfinite(getattr(res, name)).all():
+                fail("phase 10: (%s) %s is not finite" % (tag, name))
+        if not (np.isfinite(res.maps[0]).all() and res.maps[0].max() > 0):
+            fail("phase 10: (%s) the map is not finite with a positive peak"
+                 % tag)
+        if len(res.cell_passes) != iters - 1:
+            fail("phase 10: (%s) %d cell passes for %d iterations"
+                 % (tag, len(res.cell_passes), iters))
+        tm = res.timings
+        print("phase 10: (%s) rt on the octree (%d cells, %s, iterations %d"
+              "): %.2f s: input %.2f, background %.2f (%d packets, %.0f "
+              "packets/s), iterations %.2f, outputs %.2f, maps %.2f; T "
+              "%.2f-%.2f K [%s]"
+              % (tag, res.grid.cells, extra.strip().replace("\n", ", ")
+                 or "plain", iters, wall, tm["input"],
+                 tm["constant_sources"], res.packets,
+                 res.packets / tm["constant_sources"], tm["solve"],
+                 tm["outputs"], tm["maps"], res.temperature.min(),
+                 res.temperature.max(), card), flush=True)
+        print_passes(tag, res, card)
+    leaf = out["a"].grid.dens.cpu().numpy() > 0
+    rel = (np.abs(out["b"].temperature - out["a"].temperature)
+           / out["a"].temperature)[leaf]
+    beyond = int((rel > ITER_RTOL).sum())
+    print("phase 10: (b) ali + reference against (a): temperatures' "
+          "relative difference over the %d leaf cells: max %.3e, 99.9th "
+          "percentile %.3e, %d cells beyond %.0e (at most %.0e of them, "
+          "%d), none beyond %.0e"
+          % (rel.size, rel.max(), np.percentile(rel, 99.9), beyond,
+             ITER_RTOL, ITER_SHARE, int(ITER_SHARE * rel.size), ITER_MAX),
+          flush=True)
+    if beyond > ITER_SHARE * rel.size or not rel.max() <= ITER_MAX:
+        fail("phase 10: (b)'s temperatures differ from (a)'s")
+    report["octree_rt"] = {tag: dict(
+        seconds=r.timings["total"],
+        passes=[(st["route"], st["packets"], st["seconds"])
+                for st in r.cell_passes]) for tag, r in out.items()}
+
+    # one cell pass without and with ALI: the same packets, so the ALI
+    # split must add up to the plain tally. The whole pass with ALI is 44
+    # pools, each paying its own drain tail (about a minute on an H100):
+    # the rerun keeps the brightest channels only
+    res = out["a"]
+    orig = os.getcwd()
+    os.chdir(os.path.join(work, "octree_rt_a"))
+    try:
+        cfg = RunConfig("run.ini").validate()
+    finally:
+        os.chdir(orig)
+    keep = np.zeros(44, np.float32)
+    keep[np.argsort(res.emitted.sum(0))[-ALI_CHANNELS:]] = 1.0
+    print("phase 10: the ALI rerun runs (a)'s emission in its %d brightest "
+          "channels %s, the other %d zero" % (
+              ALI_CHANNELS, np.nonzero(keep)[0].tolist(), 44 - ALI_CHANNELS),
+          flush=True)
+    emitted = torch.as_tensor(res.emitted * keep[None, :], device=dev)
+    tabs = {}
+    for ali in (0, 1):
+        cfg.with_ali = ali
+        intf = torch.zeros((res.grid.cells, 44), device=dev)
+        t, _, _, xab, st = driver.simulate_cell_emission(
+            res.grid, res.medium, cfg, emitted,
+            torch.zeros(res.grid.cells, device=dev), intf, res.seed,
+            per_freq_tally=True, iteration=9)
+        torch.cuda.synchronize()
+        tabs[ali] = (t.cpu().numpy().astype(np.float64), xab)
+        print("phase 10: cell pass %s ALI: %s route, %d packets, %.2f s "
+              "(%.0f packets/s) [%s]"
+              % ("with" if ali else "without", st["route"], st["packets"],
+                 st["seconds"], st["packets"] / st["seconds"], card),
+              flush=True)
+    plain, (t_ali, xab) = tabs[0][0], tabs[1]
+    both = t_ali + xab.astype(np.float64)
+    share = xab.sum() / plain.sum()
+    ok = np.allclose(both, plain, rtol=PRODUCT_RTOL,
+                     atol=PRODUCT_ATOL * np.abs(plain).max())
+    print("phase 10: tabs_ali + xab against tabs_noali: max |diff| / max = "
+          "%.3e, within rtol %.0e or %.0e of the max: %s; xab share of the "
+          "absorbed %.4f" % (np.abs(both - plain).max() / np.abs(plain).max(),
+                             PRODUCT_RTOL, PRODUCT_ATOL, ok, share),
+          flush=True)
+    if not ok or not 0.0 < share < 1.0:
+        fail("phase 10: the ALI split does not add up to the plain pass")
+
+
+def octree_pipeline_phase(dev, work, args, report):
+    """Phase 11: the pipeline verb on the octree with the GSET dust, then
+    the A2E kernel on its absorptions against the plain twin."""
+    import torch
+    from soc_tpu_torch import cli
+    from soc_tpu_torch.example_model import write_model
+    from soc_tpu_torch.solve import a2e_kernel, stochastic
+    from soc_tpu_torch.solve.solver_file import read_solver
+    card = report["card"]
+    sub = os.path.join(work, "octree_pipeline")
+    ini = write_model(sub, N, kind="gset", nfreq=44, nsize=24, npix=64,
+                      bgpac=args.bgpackets, map_dx=N / 64.0, octree=OCTREE)
+    # phase 4's A2E_pre output for the same dust, channels and NE
+    shutil.copy(os.path.join(work, "gs_TST.solver"), sub)
+    results = {}
+    a2e_kernel.launches = a2e_kernel.clamp_launches = 0
+    t0 = time.time()
+    rc = cli.main(["pipeline", ini, "--device", str(dev)], results)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = (a2e_kernel.launches, a2e_kernel.clamp_launches)
+    if rc != 0:
+        fail("phase 11: pipeline verb returned %d" % rc)
+    res_rt, res_map = results["absorption"], results["map"]
+    if launches != (torch.cuda.device_count(), 0):
+        fail("phase 11: A2E launches %s, expected one a card" % (launches,))
+    absorbed = read_cell_frequency_array(os.path.join(sub, "absorbed.data"))
+    emitted = read_cell_frequency_array(os.path.join(sub, "emitted.data"))
+    maps = read_map_file(os.path.join(sub, "map_dir_00.bin"))
+    parents = absorbed[:, 0] < -1e19
+    if absorbed.shape != (OCTREE_CELLS, 44) or \
+            int(parents.sum()) != OCTREE_PARENTS:
+        fail("phase 11: absorbed.data has shape %s with %d parent rows"
+             % (absorbed.shape, int(parents.sum())))
+    if not (np.isfinite(emitted).all() and (emitted[parents] == 0).all()
+            and emitted[~parents].max() > 0):
+        fail("phase 11: emitted.data not finite, or not zero on the parents")
+    if not (np.isfinite(maps).all() and maps.max() > 0):
+        fail("phase 11: the map is not finite with a positive peak")
+    bal = (res_rt.absorbed_photons + res_rt.escaped) / res_rt.injected - 1
+    if np.abs(bal).max() > BALANCE_TOL:
+        fail("phase 11: energy balance off")
+    t_rt = res_rt.timings["constant_sources"]
+    print("phase 11: pipeline on the octree (%d cells, %d parents): "
+          "absorption %.2f s (%d packets, %.0f packets/s), A2E prep %.2f s "
+          "(.solver reused), A2E solve %.2f s, %d A2E launch(es), maps %.2f "
+          "s, total %.2f s; energy balance %.3e; emitted zero on the "
+          "parents [%s]" % (OCTREE_CELLS, OCTREE_PARENTS, t_rt,
+                            res_rt.packets, res_rt.packets / t_rt,
+                            res_map.timings["a2e_prep"],
+                            res_map.timings["a2e"], launches[0],
+                            res_map.timings["maps"], wall, np.abs(bal).max(),
+                            card), flush=True)
+    report["stages_octree"] = dict(absorption_s=t_rt,
+                                   a2e_s=res_map.timings["a2e"],
+                                   maps_s=res_map.timings["maps"],
+                                   total_s=wall, packets=res_rt.packets)
+
+    # the kernel at this shape: the run's absorptions, parent rows zero
+    sol = read_solver(os.path.join(sub, "gs_TST.solver"))
+    stacks = stochastic.get_fused_stacks(sol, dev, plain=True)
+    ab = torch.as_tensor(np.where(parents[:, None], 0.0, absorbed)
+                         .astype(np.float32), device=dev)
+    ms_k, (tot_k, _) = timed(lambda: a2e_kernel.solve_all_sizes(stacks, ab),
+                             3)
+    ms_p, (tot_p, _) = timed(
+        lambda: a2e_kernel.solve_all_sizes_plain(stacks, ab), 1)
+    rel = max_rel(tot_k, tot_p)
+    if rel > REL_TOL:
+        fail("phase 11: the A2E kernel differs from the plain twin (%.3e)"
+             % rel)
+    b_ms, b_by = bound(*a2e_work(OCTREE_CELLS - OCTREE_PARENTS, sol.nsize,
+                                 sol.ne, 44, False, False))
+    report["a2e_all_sizes"].update(
+        octree_launches=launches[0], octree_ms=ms_k, octree_plain_ms=ms_p,
+        octree_bound_ms=b_ms, octree_max_abs_err=float(
+            torch.abs(tot_k - tot_p).max()))
+    print("phase 11: a2e_all_sizes on the octree's absorptions (%d cells, "
+          "%d of them parents with zero rows; bound over the %d leaves): "
+          "kernel %.2f ms, plain %.2f ms, bound %.2f ms (%s), max rel err "
+          "%.3e [%s]" % (OCTREE_CELLS, OCTREE_PARENTS,
+                         OCTREE_CELLS - OCTREE_PARENTS, ms_k, ms_p, b_ms,
+                         b_by, rel, card), flush=True)
+
+
 def probes_phase(dev, report):
     """Phase 7: the three probe modules, each row through its kernel."""
     import torch
@@ -924,6 +1173,13 @@ def main():
         probes_phase(dev, report)
         sharded_a2e_phase(dev, fold_sol, solvers[128][0], freq, rng, report)
         product_phase(dev, work, args, report, ref)
+        t0 = time.time()
+        octree_rt_phase(dev, work, args, report)
+        t1 = time.time()
+        octree_pipeline_phase(dev, work, args, report)
+        print("phase 10: %.2f s; phase 11: %.2f s" % (t1 - t0,
+                                                      time.time() - t1),
+              flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -936,11 +1192,12 @@ def main():
     order = ["a2e_all_sizes", "a2e_clamp", *PROBE_KERNELS, "a2e_sharded"]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    extra = ("shards", "octree_launches", "octree_ms", "octree_plain_ms",
+             "octree_bound_ms", "octree_max_abs_err")
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=sources[name][0],
         replaces=sources[name][1],
-        **{k: report[name][k] for k in keys + ("shards",)
-           if k in report[name]})
+        **{k: report[name][k] for k in keys + extra if k in report[name]})
         for name in order]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

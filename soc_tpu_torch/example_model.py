@@ -1,9 +1,10 @@
 """Synthetic input models for examples, tests and the GPU smoke run.
 
 Writes a complete model directory from a few parameters: a uniform
-density cloud, a dust built from DustEM-format files through the NumPy
-dust compiler (solve/dust_compiler.py), its scattering function, an
-isotropic background and an ini file. Two dust kinds:
+density cloud or an octree-refined one (BASELINE config 2's grid), a
+dust built from DustEM-format files through the NumPy dust compiler
+(solve/dust_compiler.py), its scattering function, an isotropic
+background and an ini file. Two dust kinds:
 
 * ``"gset"``: a stochastically heated dust (GSET container), run through
   the ``pipeline`` verb (absorption run -> A2E -> map);
@@ -24,6 +25,7 @@ from .solve import dust_compiler as dc
 from .solve import solver_prep
 from .solve.grain_model import write_gset_dust
 
+from .grid import encode_link_np
 from .io.cloud import write_hierarchy
 
 GRAIN_LINE = "TST {nsize} plaw-ed 0.0065 3.3 1.0e-7 5.0e-5 -3.5 1.0e-5 5e-6 3.0"
@@ -39,7 +41,7 @@ optical         {dust}
 dsc             tmp.dsc 2500
 background      bg.bin
 bgpackets       {bgpac}
-iterations      1
+iterations      {iterations}
 prefix          tmp
 absorbed        absorbed.data
 emitted         emitted.data
@@ -144,16 +146,54 @@ def with_negative_entries(rng, absorbed, share=0.2):
     return out
 
 
+def octree_cloud(n, block, cascade, depth=3):
+    """(lcells, per-level values) of BASELINE config 2's grid, rebuilt
+    from bench.py's recipe: an n^3 root of densities U(0.5, 1.5) whose
+    central block^3 cells are refined; on each deeper level 8 children a
+    parent with densities 2^level U(0.5, 1.5), of which ``cascade`` evenly
+    spaced cells are refined again, down to ``depth`` levels. bench.py's
+    grid (n 64, block 8, cascade 64, depth 3: 262,144 + 4,096 + 512 =
+    266,752 cells) has these densities times 1000; the ini's `density`
+    scales them."""
+    rng = np.random.default_rng(3)
+    root = rng.uniform(0.5, 1.5, n ** 3).astype(np.float32)
+    lo = (n - block) // 2
+    r = np.arange(lo, lo + block)
+    ii = (r[None, None, :] + n * r[None, :, None]
+          + n * n * r[:, None, None]).ravel()
+    root[ii] = encode_link_np(np.arange(0, 8 * len(ii), 8, dtype=np.int32))
+    values, lcells = [root], [n ** 3]
+    m = len(ii)
+    for lvl in range(1, depth):
+        vals = (2.0 ** lvl * rng.uniform(0.5, 1.5, 8 * m)).astype(np.float32)
+        m_next = 0
+        if lvl < depth - 1:
+            step = 8 * m // cascade
+            sub = np.arange(cascade) * step + min(5, step - 1)
+            vals[sub] = encode_link_np(np.arange(0, 8 * cascade, 8,
+                                                 dtype=np.int32))
+            m_next = cascade
+        values.append(vals)
+        lcells.append(8 * m)
+        m = m_next
+    return lcells, values
+
+
 def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
-                bgpac=None, map_dx=1.0, gl_pc=0.01, extra=""):
+                bgpac=None, map_dx=1.0, gl_pc=0.01, extra="", octree=None,
+                cellpackets=None, iterations=1):
     """Write a model into directory d and return the ini path.
 
-    n      : root grid size (n^3 cells, uniform density)
+    n      : root grid size (n^3 cells)
     kind   : "gset" (stochastic dust, for `pipeline`) or "eqdust" (`rt`)
     nfreq  : frequencies, log-spaced over 0.1-3000 um
     nsize  : grain sizes of the GSET dust
     npix   : map size (default n); bgpac: ini `bgpackets` (default
              8*6*n*n, one packet batch per surface element)
+    octree : None for a uniform density of 1, else (block, cascade,
+             depth) of octree_cloud (BASELINE config 2: n 64, (8, 64, 3))
+    cellpackets, iterations : the ini's `cellpackets` (written when
+             given) and `iterations`
     extra  : more ini lines
     """
     os.makedirs(d, exist_ok=True)
@@ -171,11 +211,16 @@ def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
     else:
         raise ValueError("kind must be 'gset' or 'eqdust'")
     background(freq).astype(np.float32).tofile(os.path.join(d, "bg.bin"))
-    write_hierarchy(os.path.join(d, "tmp.cloud"), n, n, n, [n ** 3],
-                    [np.ones(n ** 3, np.float32)])
+    if octree is None:
+        lcells, values = [n ** 3], [np.ones(n ** 3, np.float32)]
+    else:
+        lcells, values = octree_cloud(n, *octree)
+    write_hierarchy(os.path.join(d, "tmp.cloud"), n, n, n, lcells, values)
+    if cellpackets is not None:
+        extra = "cellpackets     %d\n" % cellpackets + extra
     ini = os.path.join(d, "run.ini")
     with open(ini, "w") as fp:
         fp.write(INI.format(gl=gl_pc, npix=npix or n, map_dx=map_dx,
                             dust=dust_name, bgpac=bgpac or 8 * 6 * n * n,
-                            extra=extra))
+                            iterations=iterations, extra=extra))
     return ini

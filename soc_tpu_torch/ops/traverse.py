@@ -67,6 +67,23 @@ def _anc_write(anc, level, value, mask):
     return torch.where(sel, value[..., None], anc)
 
 
+def stack_from_par(grid, level, ind):
+    """The ancestor stack of (level, ind) cells rebuilt from the PAR array,
+    for lanes born inside a cell anywhere in the hierarchy (cell emission):
+    surface sources get theirs from the leaf descent instead."""
+    anc = torch.zeros((ind.shape[0], max(grid.levels - 1, 1)),
+                      dtype=torch.int64, device=ind.device)
+    par = grid.par.to(torch.int64)
+    for _ in range(grid.levels - 1):
+        up = level > 0
+        parent = par[_gidx(grid, level, ind)]
+        plevel = (level - 1).clamp_min(0)
+        anc = _anc_write(anc, plevel, parent, up)
+        ind = torch.where(up, parent, ind)
+        level = torch.where(up, plevel, level)
+    return anc
+
+
 def _descend_stack(grid, pos, level, ind, anc, active):
     """Walk from a (possibly refined) cell to its leaf, recording the path:
     returns (pos, level, ind, anc). Unrolled (levels-1) times."""

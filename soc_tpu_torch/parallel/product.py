@@ -29,8 +29,9 @@ repeat in the list: its shards then share that device and its stream;
 the tests and the smoke run use this to drive the layout on one card or
 on the CPU.
 
-Not ported here: the other sources, ROI, checkpoints, ALI, splitting and
-mirrors under `devices` (the driver still refuses those keywords), and
+Not ported here: cell emission (`cellpackets` iterations, ALI,
+WITH_REFERENCE, SUBITERATIONS), the other sources, ROI, checkpoints,
+splitting and mirrors under `devices` (the driver still refuses them), and
 soc_tpu's multi-host globalisation.
 """
 

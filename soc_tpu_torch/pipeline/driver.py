@@ -1,16 +1,23 @@
 """End-to-end emission radiative transfer (port of soc_tpu.pipeline.driver
-for the background-heated, single-level slice).
+for background-heated clouds, octrees included, with the dust's
+self-heating).
 
 Phases:
   1. the isotropic background, all frequencies in one mixed-frequency
-     packet pool -> TABS (+ per-frequency absorptions)
-  2. the equilibrium temperature solve and the thermal emission
+     packet pool -> TABS (+ per-frequency absorptions); or TABS read from
+     a `cload` file
+  2. iterations: the dust's own emission re-emitted as cell packets
+     (`cellpackets`, with EMWEI, ALI and the WITH_REFERENCE delta field),
+     the equilibrium temperature solve and the thermal emission; or the
+     SUBITERATIONS hot/cold schedule; or, with `loadtemp`, the emission of
+     a stored temperature field
   3. orthographic maps -> map_dir_XX.bin
-With `devices N` (or an explicit device list) every phase runs over a
-(dp x freq) mesh of devices (parallel/product.py): phase 1 with the
-channels blocked over freq and each channel's budget split over dp;
-phase 2 with the cells split; phase 3 with the map's rows and channels
-split.
+With `devices N` (or an explicit device list) phases 1 and 3 and one
+temperature solve run over a (dp x freq) mesh of devices
+(parallel/product.py): phase 1 with the channels blocked over freq and
+each channel's budget split over dp; the solve with the cells split;
+phase 3 with the map's rows and channels split. Cell emission is not
+ported to the mesh yet and raises there.
 Outputs keep the reference's binary formats. A keyword or input the port
 does not support yet raises NotImplementedError naming it; nothing is
 silently ignored.
@@ -31,7 +38,7 @@ from ..io.fields import (read_background_intensity,
                          write_cell_frequency_array, write_map_file)
 
 from ..grid import Grid
-from ..io.cloud import read_cloud, write_cell_field
+from ..io.cloud import read_cloud, read_hierarchy, write_cell_field
 from ..render import mapping as render_mapping
 from ..solve import equilibrium
 from ..transport.medium import medium_from_optics
@@ -43,11 +50,18 @@ from ..transport.sources import stream_hi_base
 # (the last, long-lived packets) dominates; 2^21 was the fastest of
 # 2^19..2^22 on the 43M-packet soc_example-sized run on an H100
 DEFAULT_LANES = 1 << 21
+EMWEI2_STEP = 100      # EMWEI mode 2's packet quantum (ASOC.py:79)
+HOT_LIMIT = 30.0       # SUBITERATIONS: cells at or above it [K] are hot
+# pass_balance: channels carrying less than this share of the largest
+# channel's weight are held relative to that share
+BALANCE_FLOOR = 1e-12
 
 
 @dataclass
 class RunResult:
     grid: Grid = None
+    medium: object = None               # transport.medium.Medium
+    seed: int = 0                       # the run's RNG seed
     freq: np.ndarray = None
     ctabs: np.ndarray = None            # integrated constant-source heating
     absorbed: np.ndarray = None         # [CELLS, NFREQ] (file scaling applied)
@@ -58,6 +72,7 @@ class RunResult:
     injected: np.ndarray = None         # [NFREQ] photons injected
     absorbed_photons: np.ndarray = None  # [NFREQ] photons absorbed (raw)
     packets: int = 0                   # packets traced in phase 1
+    cell_passes: list = field(default_factory=list)  # one dict a cell pass
     devices: list = None                # the product mesh's devices, or None
     timings: dict = field(default_factory=dict)
 
@@ -76,11 +91,6 @@ def unsupported_features(cfg):
     need(cfg.roi is not None or cfg.file_roi_save or cfg.file_roi_load,
          "roi / roisave / roiload")
     need(cfg.roi_map, "roimap")
-    need(cfg.clpac > 0 and cfg.iterations > 1,
-         "cellpackets > 0 with iterations > 1")
-    need(cfg.with_ali, "ali")
-    need(cfg.with_reference, "reference (WITH_REFERENCE)")
-    need(cfg.has_key("SUBITERATIONS"), "SUBITERATIONS")
     need(len(cfg.file_abundance) > 0, "abundance (WITH_ABU / WITH_MSF)")
     need(cfg.step_weight[0] in (1, 2) and cfg.step_weight[1] > 0,
          "stepweight")
@@ -100,7 +110,6 @@ def unsupported_features(cfg):
     need(cfg.map_interpolation, "mapint (MAP_INTERPOLATION)")
     need(cfg.interpolate, "interpolate")
     need(cfg.y_shear != 0.0, "yshear")
-    need(cfg.level_threshold > 0, "threshold")
     need(cfg.fits, "FITS")
     need(cfg.file_checkpoint, "checkpoint")
     need(cfg.lib_abs or cfg.lib_maps or cfg.file_library,
@@ -110,9 +119,24 @@ def unsupported_features(cfg):
     need(cfg.cr_heating, "CR_HEATING")
     need(cfg.aalg, "polarisation")
     need(cfg.save_intensity > 0, "saveint / dustem")
-    need(cfg.load_temperature, "loadtemp")
-    need(cfg.file_constant_load or cfg.file_constant_save, "cload / csave")
     need(not (cfg.sim_f[0] <= 1.0e8 and cfg.sim_f[1] >= 1.0e17), "simum")
+    return out
+
+
+def cell_emission_features(cfg):
+    """Names of the phase-2 cell-emission features the ini asks for (none
+    of them ported to the `devices` mesh yet)."""
+    out = []
+    if cfg.nosolve:
+        return out
+    if cfg.clpac > 0 and cfg.iterations > 1:
+        out.append("cellpackets with iterations > 1")
+    if cfg.with_ali:
+        out.append("ali")
+    if cfg.with_reference:
+        out.append("reference (WITH_REFERENCE)")
+    if cfg.has_key("SUBITERATIONS"):
+        out.append("SUBITERATIONS")
     return out
 
 
@@ -229,6 +253,200 @@ def simulate_background(grid, medium, cfg, ibg, tabs, intf, seed,
     return tabs, intf, escaped.cpu().numpy(), injected, total
 
 
+def emweight_allocation(emit_col, clpac, lims=(0.0, 1e10), rng=None,
+                        mode=1):
+    """Emission-weighted packets per cell (EMWEI), NumPy, soc_tpu's code.
+    Returns (cell_of_id, weight[CELLS], total_packets).
+
+    mode 1 (ASOC.py:1276-1298): packets ~ the cell's share of the total
+    emission, clipped to lims[:2]; cells below one packet survive Russian
+    roulette with probability EMWEI and carry weight 1/EMWEI; lims[2] > 0
+    afterwards drops every cell whose (post-roulette) EMWEI falls below
+    it (ASOC.py:1770-1772).
+
+    mode 2 (USE_EMWEIGHT==2, ASOC.py:1773-1789): deterministic quotas,
+    packets per cell = EMWEI2_STEP * round(share / EMWEI2_STEP) of the
+    unclipped share, weight = 1/packets.
+    """
+    emit_col = np.asarray(emit_col, np.float64)
+    cells = len(emit_col)
+    raw = clpac * emit_col / max(emit_col.sum(), 1e-32)
+    if mode == 2:
+        counts = (EMWEI2_STEP
+                  * np.round(raw / EMWEI2_STEP)).astype(np.int64)
+        counts = np.maximum(counts, 0)
+        weight = np.zeros(cells, np.float64)
+        m = counts > 0
+        weight[m] = 1.0 / counts[m]
+        cell_of_id = np.repeat(np.arange(cells, dtype=np.int32), counts)
+        return cell_of_id, weight.astype(np.float32), len(cell_of_id)
+    wei = np.clip(raw, lims[0], lims[1])
+    frac = wei < 1.0
+    if rng is None:
+        rng = np.random.default_rng(1234)
+    survive = frac & (rng.random(cells) < wei)
+    eff = np.where(frac, np.where(survive, wei, 0.0), wei)
+    if len(lims) > 2 and lims[2] > 0.0:
+        eff = np.where(eff < lims[2], 0.0, eff)
+    counts = np.where(eff <= 0.0, 0,
+                      np.where(eff < 1.0, 1,
+                               np.floor(eff).astype(np.int64)))
+    weight = np.zeros(cells, np.float64)
+    m = counts > 0
+    weight[m & (eff >= 1.0)] = 1.0 / counts[m & (eff >= 1.0)]
+    weight[m & (eff < 1.0)] = 1.0 / np.maximum(eff[m & (eff < 1.0)], 1e-30)
+    cell_of_id = np.repeat(np.arange(cells, dtype=np.int32), counts)
+    return cell_of_id, weight.astype(np.float32), len(cell_of_id)
+
+
+def _emweight_allocs(emitted_np, cfg, rng, nfreq):
+    """Per-frequency EMWEI allocations, recomputed at every
+    EMWEIGHT_SKIP-th channel and reused in between (ASOC.py:1643,
+    1750-1752): the per-packet weight EMIT_f[cell] * weight keeps the
+    estimator exact whichever column built the counts."""
+    allocs = {}
+    last = None
+    skipn = max(1, int(cfg.emweight_skip))
+    for i in range(nfreq):
+        if last is None or i % skipn == 0:
+            last = emweight_allocation(emitted_np[:, i], int(cfg.clpac),
+                                       lims=cfg.emweight_lim, rng=rng,
+                                       mode=cfg.use_emweight)
+        allocs[i] = last
+    return allocs
+
+
+def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
+                           lanes=DEFAULT_LANES, per_freq_tally=False,
+                           iteration=0):
+    """Phase-2 dust re-emission (SimRAM_CL), one pass.
+
+    emitted : [CELLS, NFREQ] photons/Hz/H per cell (a device tensor; a
+    delta field under WITH_REFERENCE, so weights may be negative).
+    Routes, as soc_tpu's one-device driver takes them:
+      * EMWEI (`emweight`): per-frequency pools over the host's
+        power-of-two-padded id -> cell map, the roulette drawn from a
+        Philox generator keyed by (seed, iteration);
+      * ALI (`ali`): per-frequency pools with the XAB self-absorption
+        tally, max(1, CLPAC // CELLS) packets a cell;
+      * otherwise one mixed-frequency pool over (cell, channel), the
+        same packets a cell: its drain tail is paid once.
+    Packets keep soc_tpu's identity, hi = stream_hi_base("cell",
+    iteration) + channel and k the id within the channel, so every route
+    reproduces each packet's path.
+
+    With per-frequency tallies the pass adds into a [CELLS, NFREQ] tally
+    of its own, then into intf: its absorption per channel is then held
+    in float32 relative to itself, not to the tally it joins.
+
+    Returns (tabs, intf, escaped [NFREQ], xab [CELLS] host array or None,
+    stats): stats holds the pass's route, pools, packets, seconds and,
+    per channel in float64, the weight injected (signed and absolute),
+    escaped and, with per-frequency tallies, absorbed.
+    """
+    t0 = time.time()
+    device = grid.device
+    nfreq = medium.nfreq
+    hi_base = stream_hi_base("cell", iteration)
+    physics = dict(kabs=medium.abs_gl, ksca=medium.sca_gl, csc=medium.csc,
+                   tw=medium.tw)
+    emitted = torch.as_tensor(emitted, device=device)
+    run_intf = intf
+    if per_freq_tally:
+        intf = torch.zeros_like(run_intf)
+    injected = torch.zeros(nfreq, dtype=torch.float64, device=device)
+    inj_abs = torch.zeros_like(injected)
+    escaped = torch.zeros_like(injected)
+    xab = None
+    pools = packets = 0
+    if cfg.use_emweight > 0:
+        route = "emweight"
+        rng = np.random.Generator(np.random.Philox(
+            key=np.uint64([int(seed) & 0xFFFFFFFF, iteration])))
+        allocs = _emweight_allocs(emitted.cpu().numpy(), cfg, rng, nfreq)
+        nlanes = pool_lanes(lanes, int(cfg.clpac))
+        for ifreq in range(nfreq):
+            cell_of_id, weight, total = allocs[ifreq]
+            if total == 0:
+                continue
+            # padded to a power of two (ids beyond total are never drawn)
+            com = np.full(pool_lanes(1 << 30, total), grid.cells - 1,
+                          np.int32)
+            com[:total] = cell_of_id
+            emit = emitted[:, ifreq] * torch.as_tensor(weight, device=device)
+            w = torch.as_tensor(np.bincount(cell_of_id, minlength=grid.cells),
+                                device=device) * emit.double()
+            injected[ifreq] += w.sum()
+            inj_abs[ifreq] += w.abs().sum()
+            params = dict(emit=emit, cell_of_id=torch.as_tensor(
+                com, device=device), ifreq=ifreq, hi_base=hi_base)
+            tabs, intf, esc, _ = transport_run(
+                grid, physics, params, total, tabs, intf, seed,
+                source_kind="cell", nlanes=nlanes,
+                per_freq_tally=per_freq_tally)
+            escaped[ifreq] += esc[ifreq]
+            pools += 1
+            packets += total
+    else:
+        per_cell = max(1, int(cfg.clpac) // grid.cells)
+        per_freq = per_cell * grid.cells
+        if cfg.with_ali:
+            route = "ali"
+            xab = torch.zeros(grid.cells, dtype=torch.float32, device=device)
+            for ifreq in range(nfreq):
+                emit = emitted[:, ifreq] / np.float32(per_cell)
+                w = per_cell * emit.double()
+                injected[ifreq] += w.sum()
+                inj_abs[ifreq] += w.abs().sum()
+                params = dict(emit=emit, per_cell=per_cell, ifreq=ifreq,
+                              hi_base=hi_base)
+                tabs, intf, esc, _, xab = transport_run(
+                    grid, physics, params, per_freq, tabs, intf, seed,
+                    source_kind="cell", nlanes=pool_lanes(lanes, per_freq),
+                    per_freq_tally=per_freq_tally, with_ali=True, xab=xab)
+                escaped[ifreq] += esc[ifreq]
+            pools, packets = nfreq, per_freq * nfreq
+            xab = xab.cpu().numpy()
+        else:
+            route = "mixed"
+            emitw = emitted * np.float32(1.0 / per_cell)
+            w = per_cell * emitw.double()
+            injected += w.sum(0)
+            inj_abs += w.abs().sum(0)
+            total = per_freq * nfreq
+            params = dict(emit=emitw, per_cell=per_cell, per_freq=per_freq,
+                          hi_base=hi_base)
+            tabs, intf, esc, _ = transport_run(
+                grid, physics, params, total, tabs, intf, seed,
+                source_kind="cell", nlanes=pool_lanes(lanes, total),
+                per_freq_tally=per_freq_tally)
+            escaped += esc
+            pools, packets = 1, total
+    escaped = escaped.cpu().numpy()
+    stats = dict(iteration=iteration, route=route, pools=pools,
+                 packets=packets, injected=injected.cpu().numpy(),
+                 injected_abs=inj_abs.cpu().numpy(), escaped=escaped,
+                 absorbed=None)
+    if per_freq_tally:
+        stats["absorbed"] = intf.sum(0, dtype=torch.float64).cpu().numpy()
+        intf = run_intf.add_(intf)
+    stats["seconds"] = time.time() - t0
+    return tabs, intf, escaped, xab, stats
+
+
+def pass_balance(stats):
+    """Per channel, (absorbed + escaped - injected) of a cell pass over
+    its absolute injected weight: signed sums, so that a WITH_REFERENCE
+    delta pass with its negative weights is held too. A channel carrying
+    less than BALANCE_FLOOR of the largest channel's weight is divided by
+    that share instead: its packets' weights sit near float32's denormal
+    range, where deposits round away."""
+    ia = np.asarray(stats["injected_abs"])
+    den = np.maximum(ia, BALANCE_FLOOR * ia.max())
+    err = stats["absorbed"] + stats["escaped"] - stats["injected"]
+    return np.where(den > 0, err / np.where(den > 0, den, 1.0), 0.0)
+
+
 def _product_setup(cfg, nfreq, device, devices=None):
     """The (dp x freq) mesh of the product path, or None for a one-device
     run: over ``devices`` when given, else over the ini's `devices N`
@@ -261,10 +479,6 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     # ---- model input
     t0 = time.time()
     grid = read_cloud(cfg.file_cloud, device, cfg.kdensity, cfg.max_levels)
-    if grid.levels > 1:
-        raise NotImplementedError(
-            "not supported by soc_tpu_torch yet: octree with more than 1 "
-            "level (%d levels in %s)" % (grid.levels, cfg.file_cloud))
     optics = [read_simple_dust(f, cfg.gl) for f in cfg.file_optical]
     freq = optics[0].freq
     cfg.freq = freq
@@ -274,14 +488,39 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     dsc, csc = read_scattering_function(cfg.file_scafunc[0], nfreq, bins)
     medium = medium_from_optics(optics, dsc, csc, device, freq)
     pmesh = _product_setup(cfg, nfreq, device, devices)
-    res.grid, res.freq = grid, freq
+    if pmesh is not None and cell_emission_features(cfg):
+        raise NotImplementedError(
+            "not supported by soc_tpu_torch yet under `devices`: cell "
+            "emission (%s)" % ", ".join(cell_emission_features(cfg)))
+    res.grid, res.medium, res.freq = grid, medium, freq
     res.devices = None if pmesh is None else pmesh.devices
-    seed = int(np.uint32(max(0.0, cfg.seed) * 2**31) + np.uint32(12345))
+    seed = res.seed = int(np.uint32(max(0.0, cfg.seed) * 2**31)
+                          + np.uint32(12345))
     timings["input"] = time.time() - t0
+    gl_cm = cfg.gl * PARSEC
 
     if write_files:
         np.asarray([cfg.bgpac, cfg.pspac, cfg.dfpac, cfg.clpac],
                    np.int32).tofile("packet.info")
+
+    # ---- loadtemp mode (ASOC.py:744-769): the emission of a stored
+    # temperature field, then the maps
+    if cfg.load_temperature and cfg.iterations < 1:
+        _, _, _, _, vals = read_hierarchy(cfg.file_temperature)
+        temperature = torch.as_tensor(np.concatenate(vals), device=device)
+        res.temperature = temperature.cpu().numpy()
+        emitted = _remit_band(cfg, freq, equilibrium.emission(
+            freq, optics[0].abs_gl, temperature, gl_cm))
+        res.emitted = emitted.cpu().numpy()
+        res.ctabs = np.zeros(grid.cells, np.float32)
+        res.escaped = np.zeros(nfreq)
+        res.injected = np.zeros(nfreq)
+        if write_files and cfg.file_emitted:
+            _write_emitted_file(cfg, freq, res.emitted)
+        _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
+                      timings, pmesh)
+        timings["total"] = time.time() - t_start
+        return res
 
     # ---- map-only mode (iterations 0 + an existing emitted file)
     if cfg.iterations < 1 and os.path.exists(cfg.file_emitted):
@@ -317,7 +556,13 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
                            dtype=torch.float32, device=device)
     escaped = np.zeros(nfreq)
     injected = np.zeros(nfreq)
-    if cfg.bgpac > 0 and cfg.file_background:
+    if cfg.file_constant_load:
+        # CLOAD: the constant sources are not simulated; their integrated
+        # heating comes from a previous run's csave file (ASOC.py:1013-1020)
+        tabs = torch.as_tensor(np.fromfile(cfg.file_constant_load,
+                                           np.float32, grid.cells),
+                               device=device)
+    elif cfg.bgpac > 0 and cfg.file_background:
         ibg = read_background_intensity(cfg.file_background, nfreq)
         ibg = ibg * cfg.scale_background
         tabs, intf, esc, inj, npk = simulate_background(
@@ -332,32 +577,23 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     res.ctabs = tabs.cpu().numpy()
     res.escaped = escaped
     res.injected = injected
+    if write_files and cfg.file_constant_save:
+        # CSAVE: bare float32 [CELLS] integrated constant heating
+        res.ctabs.astype(np.float32).tofile(cfg.file_constant_save)
     timings["constant_sources"] = time.time() - t0
 
-    # ---- phase 2: equilibrium temperature + emission (one iteration:
-    # with no cell packets nothing changes between iterations)
+    # ---- phase 2: iterations (T solve + emission, optional self-heating)
     t0 = time.time()
-    gl_cm = cfg.gl * PARSEC
     temperature = None
     emitted = None
     if not cfg.nosolve and cfg.iterations >= 1:
         table = equilibrium.build_temperature_table(
             freq, optics[0].abs_gl, cfg.gl, device)
-        if pmesh is not None:
-            from ..parallel import product
-            temperature = product.solve_temperature(pmesh, grid, table, tabs,
-                                                    gl_cm)
-            emitted = product.emission(pmesh, freq, optics[0].abs_gl,
-                                       temperature, gl_cm)
-        else:
-            temperature = equilibrium.solve_temperature(grid, table, tabs,
-                                                        gl_cm)
-            emitted = equilibrium.emission(freq, optics[0].abs_gl,
-                                           temperature, gl_cm)
-        mask = remit_mask_of(cfg, freq)
-        if not mask.all():
-            emitted = emitted * torch.as_tensor(
-                mask.astype(np.float32), device=device)[None, :]
+        phase2 = _subiterations if cfg.has_key("SUBITERATIONS") \
+            else _iterations
+        temperature, emitted, intf = phase2(
+            cfg, grid, medium, optics, table, tabs, intf, seed, lanes,
+            per_freq_tally, freq, gl_cm, write_files, res, pmesh)
         res.temperature = temperature.cpu().numpy()
         res.emitted = emitted.cpu().numpy()
     timings["solve"] = time.time() - t0
@@ -380,11 +616,218 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     return res
 
 
+def _remit_band(cfg, freq, emitted):
+    """Emission [CELLS, NFREQ] tensor with the channels outside the
+    `remit` band zeroed."""
+    mask = remit_mask_of(cfg, freq)
+    if mask.all():
+        return emitted
+    return emitted * torch.as_tensor(mask.astype(np.float32),
+                                     device=emitted.device)[None, :]
+
+
+def _solve_and_emit(grid, table, heating, gl_cm, freq, abs_gl, cfg, pmesh,
+                    beta=1.0):
+    """Equilibrium temperature of a heating field and its emission (remit
+    band applied), over the mesh when one is given."""
+    if pmesh is not None:
+        from ..parallel import product
+        temperature = product.solve_temperature(pmesh, grid, table, heating,
+                                                gl_cm)
+        emitted = product.emission(pmesh, freq, abs_gl, temperature, gl_cm)
+    else:
+        temperature = equilibrium.solve_temperature(grid, table, heating,
+                                                    gl_cm, beta=beta)
+        emitted = equilibrium.emission(freq, abs_gl, temperature, gl_cm)
+    return temperature, _remit_band(cfg, freq, emitted)
+
+
+def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
+                per_freq_tally, freq, gl_cm, write_files, res, pmesh):
+    """Phase 2's iterations (soc_tpu driver.py:1512-1691): with cell
+    packets each iteration after the first re-emits the previous
+    iteration's emission and solves again on the total heating.
+
+    WITH_REFERENCE (`reference`) simulates only the change in emission
+    since the last iteration and carries the previous tally, ramped by
+    k = iteration / ITERATIONS; `reference AABB` makes k = (iteration +
+    BB) / AA and continues from OEMITTED.save / OTABS.save, which it writes
+    back. ALI (`ali`) divides each cell's absorbed energy by its escape
+    probability beta = clip((XEM - XAB) / XEM, 1e-2, 1), in float64 on
+    the host, with the same k-ramped carry of XAB under the reference
+    field (OXAB.save read, OXAB.save / OXEM.save written); `alibeta`
+    refines beta with the previous iteration's temperature. Returns
+    (temperature, emitted, intf) on the device."""
+    device = grid.device
+    abs_gl = optics[0].abs_gl
+    wr = int(cfg.with_reference)
+    wr_fir, wr_tot = 0, max(1, cfg.iterations)
+    oemitted = otabs = oxab = xab = None
+    if wr > 1:
+        wr_fir = wr % 100
+        wr_tot = max(1, wr // 100)
+        if os.path.exists("OEMITTED.save") and os.path.exists("OTABS.save"):
+            oemitted = torch.as_tensor(np.fromfile(
+                "OEMITTED.save", np.float32).reshape(grid.cells, -1),
+                device=device)
+            otabs = torch.as_tensor(np.fromfile("OTABS.save", np.float32,
+                                                grid.cells), device=device)
+    if cfg.with_ali and wr % 100 > 0 and os.path.exists("OXAB.save"):
+        # continuation of the ALI accounting from a previous run
+        oxab = np.fromfile("OXAB.save", np.float32, grid.cells)
+    tw = medium.tw.cpu().numpy().astype(np.float64)
+    emit_total = ctabs
+    temperature = emitted = None
+    for iteration in range(max(1, cfg.iterations)):
+        beta = 1.0
+        k = ((iteration + wr_fir) / float(wr_tot)) if wr > 1 \
+            else (iteration / float(max(1, cfg.iterations)))
+        if cfg.clpac > 0 and emitted is not None:
+            # delta_sim: this iteration simulates only the change in
+            # emission (decided before oemitted is reassigned below)
+            delta_sim = bool(wr) and oemitted is not None
+            if delta_sim:
+                oemitted = oemitted * np.float32(k)
+                otabs = otabs * np.float32(k)
+                sim_emit = emitted - oemitted
+            else:
+                sim_emit = emitted
+            tabs_it = torch.zeros(grid.cells, dtype=torch.float32,
+                                  device=device)
+            tabs_it, intf, _, xab, stats = simulate_cell_emission(
+                grid, medium, cfg, sim_emit, tabs_it, intf, seed, lanes,
+                per_freq_tally, iteration=iteration)
+            res.cell_passes.append(stats)
+            if delta_sim:
+                tabs_it = tabs_it + otabs
+            if wr:
+                otabs = tabs_it
+                oemitted = emitted
+            emit_total = tabs_it + ctabs
+            if cfg.with_ali and xab is not None:
+                # escape probability beta = (XEM - XAB) / XEM per cell; under
+                # WITH_REFERENCE the pass covered only the delta field, so
+                # the full-field XAB takes the same k-ramped carry as OTABS
+                xem = emitted.cpu().numpy().astype(np.float64) @ tw
+                if oxab is not None and delta_sim:
+                    oxab = oxab * np.float32(k)
+                    xab = xab + oxab
+                if wr:
+                    oxab = xab
+                beta_np = np.clip((xem - xab) / np.maximum(xem, 1e-30),
+                                  1e-2, 1.0)
+                beta_np[xem <= 0] = 1.0
+                beta = torch.as_tensor(beta_np.astype(np.float32),
+                                       device=device)
+        t_prev = temperature
+        temperature, emitted = _solve_and_emit(
+            grid, table, emit_total, gl_cm, freq, abs_gl, cfg, pmesh, beta)
+        if cfg.has_key("alibeta") and cfg.with_ali and t_prev is not None \
+                and torch.is_tensor(beta):
+            # the beta(T, tau) refinement with the previous iteration's
+            # temperature (the reference ships it disabled; opt-in here)
+            from ..solve.ali import refine_beta
+            beta2 = refine_beta(beta.cpu().numpy(),
+                                temperature.cpu().numpy(), freq,
+                                medium.abs_gl.cpu().numpy(),
+                                grid.dens.cpu().numpy(),
+                                t_old=t_prev.cpu().numpy())
+            temperature, emitted = _solve_and_emit(
+                grid, table, emit_total, gl_cm, freq, abs_gl, cfg, pmesh,
+                torch.as_tensor(beta2, device=device))
+        if cfg.clpac <= 0:
+            break   # nothing changes between iterations without CLPAC
+    if write_files and wr > 1 and oemitted is not None:
+        oemitted.cpu().numpy().astype(np.float32).tofile("OEMITTED.save")
+        otabs.cpu().numpy().astype(np.float32).tofile("OTABS.save")
+    if write_files and cfg.with_ali and xab is not None:
+        np.asarray(xab, np.float32).tofile("OXAB.save")
+        (emitted.cpu().numpy().astype(np.float64) @ tw).astype(
+            np.float32).tofile("OXEM.save")
+    return temperature, emitted, intf
+
+
+def _subiterations(cfg, grid, medium, optics, table, ctabs, intf, seed,
+                   lanes, per_freq_tally, freq, gl_cm, write_files, res,
+                   pmesh):
+    """SUBITERATIONS: hot/cold cells with the reference field
+    (soc_tpu driver.py:1773-1871, ASOC.py:2261-2420). Over
+    max(4, ITERATIONS) rounds:
+      0        : all cells, no reference
+      1        : the cold cells only -> PTABS (T not solved)
+      2..N-2   : the hot cells only, reference ramp k = (it-2)/(N-3);
+                 heating = TABS + OTABS + PTABS
+      N-1      : all cells again (the reference keeps hot cells only)
+    A cell is hot at T >= HOT_LIMIT, or where the `externalmask` file
+    (int32 per cell) is positive. Returns (temperature, emitted, intf)."""
+    device = grid.device
+    iters = max(4, cfg.iterations)
+    external = None
+    if cfg.file_external_mask:
+        external = np.fromfile(cfg.file_external_mask, np.int32,
+                               grid.cells) > 0
+    zeros = torch.zeros(grid.cells, dtype=torch.float32, device=device)
+    oemitted = torch.zeros((grid.cells, len(freq)), dtype=torch.float32,
+                           device=device)
+    otabs = ptabs = zeros
+    temperature = emitted = None
+    told = np.zeros(grid.cells, np.float32)
+    for iteration in range(iters):
+        k = np.float32(np.clip((iteration - 2.0) / max(1.0, iters - 3.0),
+                               0.0, 1.0))
+        hot = external if external is not None else told >= HOT_LIMIT
+        solve_t = iteration != 1
+        use_ptabs = iteration >= 2 and iteration != iters - 1
+        if iteration == 0:
+            ignore = np.zeros(grid.cells, bool)
+        elif iteration == 1:
+            ignore = hot           # simulate the cold cells once -> PTABS
+        elif iteration == iters - 1:
+            # the final full round: the cold cells leave the reference
+            oemitted = torch.where(torch.as_tensor(~hot, device=device)
+                                   [:, None], 0.0, oemitted)
+            ignore = np.zeros(grid.cells, bool)
+        else:
+            ignore = ~hot
+        if iteration <= 2:
+            oemitted = oemitted * 0
+            otabs = otabs * 0
+        oemitted = oemitted * k
+        otabs = otabs * k
+
+        if emitted is not None:
+            sim_emit = torch.where(torch.as_tensor(ignore, device=device)
+                                   [:, None], 0.0, emitted - oemitted)
+            tabs_it, intf, _, _, stats = simulate_cell_emission(
+                grid, medium, cfg, sim_emit, zeros.clone(), intf, seed,
+                lanes, per_freq_tally, iteration=iteration)
+            res.cell_passes.append(stats)
+            if iteration == 1:
+                ptabs = tabs_it
+            else:
+                tabs_it = tabs_it + otabs
+                otabs = tabs_it
+                oemitted = emitted
+                emit_total = tabs_it + ptabs + ctabs if use_ptabs \
+                    else tabs_it + ctabs
+        else:
+            emit_total = ctabs
+        if solve_t:
+            temperature, emitted = _solve_and_emit(
+                grid, table, emit_total, gl_cm, freq, optics[0].abs_gl, cfg,
+                pmesh)
+            told = temperature.cpu().numpy()
+    return temperature, emitted, intf
+
+
 def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
                   timings, pmesh=None):
     """Phase 3: orthographic frequency-fused maps, map_dir_XX.bin.
 
     emitted: [CELLS, NFREQ] host array or device tensor (or None).
+    With `threshold L` the maps take no emission from cells on levels
+    below L: they still absorb along the line of sight
+    (kernel_ASOC_map.c:825-839).
     With ``pmesh`` the map's rows and channels are split over the mesh
     when NY divides by dp and the selected channels by freq (soc_tpu's
     conditions, driver.py:2063-2068 there, less those on keywords the
@@ -395,6 +838,10 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
     if cfg.nomap or emitted is None:
         timings["maps"] = time.time() - t0
         return
+    if cfg.level_threshold > 0:
+        lev = equilibrium.cell_levels(grid)
+        emitted = torch.where((lev < cfg.level_threshold)[:, None], 0.0,
+                              torch.as_tensor(emitted, device=device))
     fsel = map_freq_mask(cfg, freq)
     if not fsel.any():
         timings["maps"] = time.time() - t0

@@ -1,5 +1,6 @@
 """Photon-packet propagation: the hot loop (port of
-soc_tpu.transport.propagate, mixed-frequency background form).
+soc_tpu.transport.propagate: the mixed-frequency pool, with the ALI
+self-absorption tally).
 
 A fixed pool of packet lanes is stepped in eager PyTorch. Each *march*
 step advances every live lane by one event (a cell-boundary crossing or the
@@ -23,6 +24,12 @@ dump slot, does not make every dead lane's atomic add on the card wait on
 the same address. On the card ``index_add_`` adds with atomics in an order
 that changes from run to run: tallies of two runs with the same seed agree
 to rounding there, and bit for bit on the CPU.
+
+With ALI (``with_ali``) a deposit into the cell that emitted the packet
+(``e_cell``, -1 for packets from other sources) goes to the ``xab`` tally
+instead of ``tabs``: soc_tpu sends it out of bounds in the one and into
+range in the other; here both tallies take the add at the same index, the
+one of them 0.0.
 
 Physics per step (kernel_ASOC.c semantics):
   * step to the next cell boundary; tau_abs = ds*n*k_abs, tau_sca = ds*n*k_sca
@@ -64,6 +71,7 @@ class PacketBatch:
     hi: torch.Tensor           # [N] int64-held uint32 stream id, high word
     counter: torch.Tensor      # [N] int64 RNG draw counter
     scatterings: torch.Tensor  # [N] int64
+    e_cell: torch.Tensor       # [N] int64 emitting cell (ALI), -1 otherwise
     anc: torch.Tensor = None   # [N, max(levels-1, 1)] ancestor stack
 
     @property
@@ -116,6 +124,7 @@ def make_dead(n, levels, device):
         ind=torch.full((n,), -1, dtype=torch.int64, device=device),
         photons=torch.zeros(n, dtype=torch.float32, device=device),
         ifreq=zi, stream=zi, hi=zi, counter=zi, scatterings=zi,
+        e_cell=torch.full((n,), -1, dtype=torch.int64, device=device),
         anc=torch.zeros((n, max(levels - 1, 1)), dtype=torch.int64,
                         device=device))
 
@@ -123,7 +132,8 @@ def make_dead(n, levels, device):
 @dataclass
 class PoolState:
     """Per-lane loop state besides the packets, plus the tallies
-    (tabs [CELLS], intf [CELLS*NFREQ] flat, updated in place)."""
+    (tabs [CELLS], intf [CELLS*NFREQ] flat and, with ALI, xab [CELLS],
+    updated in place)."""
 
     b: PacketBatch
     pending: torch.Tensor      # [N] bool: frozen at a scattering point
@@ -134,6 +144,7 @@ class PoolState:
     intf: torch.Tensor
     absd: torch.Tensor         # () float32 total deposited
     spare_cell: torch.Tensor   # [N] lane % CELLS: where inactive lanes add 0
+    xab: torch.Tensor = None   # [CELLS] self-absorption tally (ALI) or None
 
 
 class StepKit:
@@ -144,7 +155,7 @@ class StepKit:
     cross sections are gathered once per refill (``lane_const_of``)
     rather than once per step."""
 
-    def __init__(self, grid, physics, seed, per_freq_tally):
+    def __init__(self, grid, physics, seed, per_freq_tally, with_ali=False):
         csc = physics["csc"]
         if csc.ndim != 2 or physics["kabs"].ndim != 1:
             raise NotImplementedError(
@@ -154,6 +165,7 @@ class StepKit:
         self.physics = physics
         self.seed = int(seed)
         self.per_freq_tally = per_freq_tally
+        self.with_ali = with_ali
         self.bins = csc.shape[-1]
         self.nfreq = csc.shape[0]
 
@@ -222,7 +234,15 @@ class StepKit:
                             b.photons * tau_abs * (1.0 - 0.5 * tau_abs))
         didx = torch.where(active, gidx, st.spare_cell)
         dep = torch.where(active, delta, 0.0)
-        st.tabs.index_add_(0, didx, dep * tw * ADHOC)
+        wdep = dep * tw * ADHOC
+        if self.with_ali:
+            # self-absorption: the deposit into the packet's own emitting
+            # cell goes to xab; both tallies add at didx
+            selfc = active & (gidx == b.e_cell)
+            st.tabs.index_add_(0, didx, torch.where(selfc, 0.0, wdep))
+            st.xab.index_add_(0, didx, torch.where(selfc, wdep, 0.0))
+        else:
+            st.tabs.index_add_(0, didx, wdep)
         if self.per_freq_tally:
             st.intf.index_add_(0, didx * self.nfreq + b.ifreq, dep)
         st.absd = st.absd + dep.sum()
@@ -259,9 +279,9 @@ class StepKit:
                        scatterings=scat, anc=anc)
 
 
-def new_pool(nlanes, grid, tabs, intf):
-    """A pool of dead lanes adding into tabs [CELLS] and intf
-    [CELLS, NFREQ] (in place)."""
+def new_pool(nlanes, grid, tabs, intf, xab=None):
+    """A pool of dead lanes adding into tabs [CELLS], intf [CELLS, NFREQ]
+    and xab [CELLS] (or None) in place."""
     device = grid.device
     zf = torch.zeros(nlanes, dtype=torch.float32, device=device)
     return PoolState(
@@ -270,7 +290,7 @@ def new_pool(nlanes, grid, tabs, intf):
         free_path=zf, tau=zf, esc_pending=zf, tabs=tabs, intf=intf.view(-1),
         absd=torch.zeros((), dtype=torch.float32, device=device),
         spare_cell=torch.remainder(
-            torch.arange(nlanes, device=device), grid.cells))
+            torch.arange(nlanes, device=device), grid.cells), xab=xab)
 
 
 def _refill(kit, st, gen, params, next_id, total):
@@ -297,6 +317,7 @@ def _refill(kit, st, gen, params, next_id, total):
         hi=torch.where(can, nb.hi, b.hi),
         counter=torch.where(can, nb.counter, b.counter),
         scatterings=torch.where(can, 0, b.scatterings),
+        e_cell=torch.where(can, nb.e_cell, b.e_cell),
         anc=torch.where(canl, nb.anc, b.anc) if grid.levels > 1 else b.anc)
     fp_new = kit.draw_birth_fp(nb.stream, nb.hi)
     st.free_path = torch.where(can, fp_new, st.free_path)
@@ -315,7 +336,7 @@ def pool_lanes(nlanes, per_freq):
 
 def transport_run(grid, physics, source_params, total_packets, tabs, intf,
                   seed, source_kind="bg", nlanes=1 << 17,
-                  per_freq_tally=False):
+                  per_freq_tally=False, with_ali=False, xab=None):
     """Drain ``total_packets`` packets through the grid with lane refill.
 
     physics : dict of device tensors 'kabs', 'ksca', 'tw' [NFREQ] and
@@ -325,13 +346,16 @@ def transport_run(grid, physics, source_params, total_packets, tabs, intf,
     tabs : [CELLS] integrated tally; intf : [CELLS, NFREQ] per-frequency
         tally (or any placeholder when per_freq_tally is False); both are
         added to in place
+    with_ali : route deposits into a packet's own emitting cell to xab
+        [CELLS] (added to in place; zeros when None) instead of tabs
 
     Returns (tabs, intf, escaped [NFREQ] float64, absorbed scalar) on the
-    device; escaped is per frequency.
+    device, then xab when with_ali; escaped is per frequency.
     """
     return drain(transport_steps(grid, physics, source_params,
                                  total_packets, tabs, intf, seed,
-                                 source_kind, nlanes, per_freq_tally))
+                                 source_kind, nlanes, per_freq_tally,
+                                 with_ali, xab))
 
 
 def drain(steps):
@@ -345,17 +369,19 @@ def drain(steps):
 
 def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
                     seed, source_kind="bg", nlanes=1 << 17,
-                    per_freq_tally=False):
+                    per_freq_tally=False, with_ali=False, xab=None):
     """transport_run as a generator: it yields after each refill body (a
     refill, a service step and REFILL_PERIOD march steps queued on the
     device) and returns transport_run's result, so one host thread can
     step the pools of several devices in turn (ProductMesh.map_steps)."""
     from .sources import GENERATORS
     gen = GENERATORS[source_kind]
-    kit = StepKit(grid, physics, seed, per_freq_tally)
+    kit = StepKit(grid, physics, seed, per_freq_tally, with_ali)
     nfreq = kit.nfreq
     device = grid.device
-    st = new_pool(nlanes, grid, tabs, intf)
+    if with_ali and xab is None:
+        xab = torch.zeros(grid.cells, dtype=torch.float32, device=device)
+    st = new_pool(nlanes, grid, tabs, intf, xab if with_ali else None)
     # escaped weight per frequency, spread over ESC_SPREAD slots per bin
     # (slot = lane % ESC_SPREAD) so the card's atomic adds do not all wait
     # on NFREQ addresses; float64, so the order of the additions cannot
@@ -389,4 +415,5 @@ def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
     # final flush: lanes that died in the last block
     esc_w.index_add_(0, st.b.ifreq * ESC_SPREAD + esc_slot,
                      st.esc_pending.double())
-    return tabs, intf, esc_w.view(nfreq, ESC_SPREAD).sum(1), st.absd
+    out = (tabs, intf, esc_w.view(nfreq, ESC_SPREAD).sum(1), st.absd)
+    return out + (xab,) if with_ali else out

@@ -1,5 +1,5 @@
-"""Packet source generation: the isotropic background (port of the
-background part of soc_tpu.transport.sources).
+"""Packet source generation: the isotropic background and the dust's own
+emission (port of those parts of soc_tpu.transport.sources).
 
 A generator maps local packet ids (0..total-1 within one transport run) to
 initial packet states. Every packet owns the RNG stream ``(hi, k)``: ``k``
@@ -10,7 +10,9 @@ and frequencies and independent of lane chunking.
 Background weights follow the reference (SimRAM_PB SOURCE==1): packets are
 stratified over the 2(NX NY + NX NZ + NY NZ) boundary elements (element =
 k % AREA), enter with cosine-law directions, and carry
-photons = I_bg(f) * pi / (PLANCK * f * packets_per_element).
+photons = I_bg(f) * pi / (PLANCK * f * packets_per_element). Cell emission
+(SimRAM_CL): a uniform position inside the emitting cell, an isotropic
+direction, photons = EMIT[cell] / packets_per_cell.
 
 RNG counter layout per packet: counters 0 and 1 are burned by the source,
 counter 2 word 0 is the birth free path, propagation consumes 3, 4, ...
@@ -21,7 +23,7 @@ import math
 import numpy as np
 import torch
 
-from ..constants import PEPS
+from ..constants import DEPS, PEPS
 
 from ..ops import traverse
 from .. import rng as socrng
@@ -42,20 +44,26 @@ def stream_hi_base(phase, iteration=0):
 
 
 def packet_identity(ids_local, params):
-    """Map local packet ids (int64 tensor) to (k, ifreq, hi) for a
-    mixed-frequency run: ids count through the frequencies in turn.
+    """Map local packet ids (int64 tensor) to (k, ifreq, hi).
 
-    params: 'per_freq' packets per frequency, 'hi_base' the
-    phase/iteration tag (hi = hi_base + ifreq) and 'k0' (default 0) the
-    within-frequency index of each frequency's first packet, so that a
-    pool can run a slice [k0, k0 + per_freq) of every channel's budget
-    (the dp shards of product.run_freqs). k and hi are 32-bit words held
-    in int64 and masked, as in soc_tpu_torch.rng; ids are int64, so a run
-    of any size needs no chunking to keep them in 32 bits.
+    params: 'hi_base' the phase/iteration tag (hi = hi_base + ifreq) and
+    'k0' (default 0) the within-frequency index of local id 0; then
+    either 'ifreq', one channel for the whole run (k = k0 + id), or
+    'per_freq' packets per frequency, the ids counting through the
+    frequencies in turn (a mixed-frequency run; with k0 a pool runs the
+    slice [k0, k0 + per_freq) of every channel's budget, as the dp shards
+    of product.run_freqs do). k and hi are 32-bit words held in int64 and
+    masked, as in soc_tpu_torch.rng; ids are int64, so a run of any size
+    needs no chunking to keep them in 32 bits.
     """
-    pf = int(params["per_freq"])
-    ifreq = ids_local // pf
-    k = (ids_local - ifreq * pf + int(params.get("k0", 0))) & socrng.MASK32
+    k0 = int(params.get("k0", 0))
+    if params.get("ifreq") is not None:
+        k = (ids_local + k0) & socrng.MASK32
+        ifreq = torch.full_like(ids_local, int(params["ifreq"]))
+    else:
+        pf = int(params["per_freq"])
+        ifreq = ids_local // pf
+        k = (ids_local - ifreq * pf + k0) & socrng.MASK32
     hi = (ifreq + int(params["hi_base"])) & socrng.MASK32
     return k, ifreq, hi
 
@@ -73,7 +81,8 @@ def _finish(grid, pos_global, dir, photons, ifreq, stream, hi):
         pos=pos, dir=dir, level=level, ind=ind,
         photons=photons.to(torch.float32), ifreq=ifreq, stream=stream,
         hi=hi, counter=torch.full_like(stream, BIRTH_COUNTER),
-        scatterings=torch.zeros_like(ind), anc=anc)
+        scatterings=torch.zeros_like(ind), e_cell=torch.full_like(ind, -1),
+        anc=anc)
 
 
 def gen_background(grid, ids_local, seed, params):
@@ -140,4 +149,69 @@ def background_entry_at(nx, ny, nz, elem, stream, hi, seed):
     return pos, _unit(dir)
 
 
-GENERATORS = {"bg": gen_background}
+def _uniforms(seed, stream, hi):
+    """The six source uniforms of a packet: counter 0 (four words) and
+    counter 1 (two), as soc_tpu draws them."""
+    u1, u2, u3, u4 = socrng.uniform4(seed, stream, torch.zeros_like(stream),
+                                     hi)
+    u5, u6 = socrng.uniform2(seed, stream, torch.ones_like(stream), hi)
+    return u1, u2, u3, u4, u5, u6
+
+
+def _isotropic_dir(u1, u2):
+    cos_theta = 2.0 * u1 - 1.0
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    phi = 2.0 * math.pi * u2
+    d = torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+                     cos_theta], -1)
+    # the reference's DEPS clamp: an exact-zero component would divide to
+    # ds = -inf in boundary_step
+    d = torch.where(torch.abs(d) < DEPS, DEPS, d)
+    return _unit(d)
+
+
+def gen_cell(grid, ids_local, seed, params):
+    """Re-emission packets; params: 'emit' [CELLS] (one channel) or
+    [CELLS, NFREQ] (a mixed pool, gathered once at birth), the photon
+    weight of one packet of each cell; either 'per_cell' (uniform packets
+    a cell) or 'cell_of_id' [>= packets] (EMWEI: the host's map from
+    within-channel id to cell); plus the packet_identity keys."""
+    stream, ifreq, hi = packet_identity(ids_local, params)
+    if "cell_of_id" in params:
+        com = params["cell_of_id"]
+        cell = com[stream.clamp(0, com.shape[0] - 1)].to(torch.int64)
+    else:
+        cell = stream // int(params["per_cell"])
+    cell = cell.clamp(0, grid.cells - 1)
+    u1, u2, u3, u4, u5, _ = _uniforms(seed, stream, hi)
+    # (level, level-local index) of the global cell id
+    off = grid.off.to(torch.int64)
+    lev = torch.zeros_like(cell)
+    for lvl in range(1, grid.levels):
+        lev = torch.where(cell >= off[lvl], lvl, lev)
+    loc = cell - off[lev]
+
+    # level-local birth corner: the root cell's (x, y, z), or below the
+    # root the cell's corner in its octet
+    rx = torch.remainder(loc, grid.nx)
+    ry = torch.remainder(loc // grid.nx, grid.ny)
+    rz = loc // (grid.nx * grid.ny)
+    if grid.levels > 1:
+        sid = torch.remainder(loc, 8)
+        root = lev == 0
+        rx = torch.where(root, rx, torch.remainder(sid, 2))
+        ry = torch.where(root, ry, torch.remainder(sid // 2, 2))
+        rz = torch.where(root, rz, sid // 4)
+    pos = torch.stack([rx.to(torch.float32) + u1, ry.to(torch.float32) + u2,
+                       rz.to(torch.float32) + u3], -1)
+    emit = params["emit"]
+    photons = emit[cell, ifreq] if emit.ndim == 2 else emit[cell]
+    return PacketBatch(
+        pos=pos, dir=_isotropic_dir(u4, u5), level=lev, ind=loc,
+        photons=photons.to(torch.float32), ifreq=ifreq, stream=stream,
+        hi=hi, counter=torch.full_like(stream, BIRTH_COUNTER),
+        scatterings=torch.zeros_like(loc), e_cell=cell,
+        anc=traverse.stack_from_par(grid, lev, loc))
+
+
+GENERATORS = {"bg": gen_background, "cell": gen_cell}

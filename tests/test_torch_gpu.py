@@ -599,3 +599,60 @@ def test_pipeline_on_card_matches_cpu(cuda, tmp_path):
         close = np.isclose(a, b, rtol=1e-4, atol=1e-7 * np.abs(b).max())
         assert close.mean() > 0.99
     assert os.path.exists(tmp_path / "gpu" / "map_dir_00.bin")
+
+
+def _close_on_card(got, ref):
+    """The card against the CPU (see test_pipeline_on_card_matches_cpu):
+    totals per channel at 2e-3, 99% of the entries at 1e-4."""
+    tot = ref.reshape(-1, ref.shape[-1]).sum(0)
+    np.testing.assert_allclose(got.reshape(-1, got.shape[-1]).sum(0), tot,
+                               rtol=2e-3, atol=1e-12 * np.abs(tot).max())
+    close = np.isclose(got, ref, rtol=1e-4, atol=1e-7 * np.abs(ref).max())
+    assert close.mean() > 0.99
+
+
+def test_octree_rt_phase2_on_card_matches_cpu(cuda, tmp_path):
+    """`rt` on a 3-level octree with cell packets, `ali 1` and `reference
+    1` (iterations 3: two ALI passes of per-channel pools with the XAB
+    tally, delta fields with negative weights) on the card against the
+    same run on the CPU; each cell pass balances per channel."""
+    kw = dict(kind="eqdust", nfreq=8, octree=(2, 8, 3), cellpackets=1280,
+              iterations=3, extra="ali 1\nreference 1\n")
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("gpu", cuda)):
+        ini = write_model(str(tmp_path / name), 8, **kw)
+        out[name] = driver.run(ini, device=dev, lanes=1 << 12)
+    rc, rg = out["cpu"], out["gpu"]
+    assert [s["route"] for s in rg.cell_passes] == ["ali", "ali"]
+    for st in rg.cell_passes:
+        assert np.abs(driver.pass_balance(st)).max() < 1e-4
+    np.testing.assert_allclose(rg.temperature, rc.temperature, rtol=1e-4)
+    for a, b in ((rg.absorbed, rc.absorbed), (rg.emitted, rc.emitted),
+                 (rg.maps[0], rc.maps[0])):
+        _close_on_card(a, b)
+    assert os.path.exists(tmp_path / "gpu" / "OXAB.save")
+
+
+def test_octree_pipeline_on_card(cuda, tmp_path):
+    """The `pipeline` verb on a 3-level octree: one A2E launch a card over
+    every cell, the parent cells' emission zero, against the CPU run."""
+    kw = dict(kind="gset", nfreq=16, nsize=6, octree=(2, 8, 3),
+              extra="nenumber 32\n")
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("gpu", cuda)):
+        ini = write_model(str(tmp_path / name), 8, **kw)
+        n0 = a2e_kernel.launches
+        res_rt, emitted, res_map = full.run_pipeline(ini, device=dev,
+                                                     lanes=1 << 12)
+        assert a2e_kernel.launches - n0 == \
+            (torch.cuda.device_count() if dev.type == "cuda" else 0)
+        out[name] = (res_rt, emitted, res_map.maps[0])
+    (rc, ec, mc), (rg, eg, mg) = out["cpu"], out["gpu"]
+    parents = rg.absorbed[:, 0] < -1e19
+    assert rg.grid.levels == 3 and parents.sum() == 16
+    assert (eg[parents] == 0).all() and eg[~parents].max() > 0
+    bal = (rg.absorbed_photons + rg.escaped) / rg.injected - 1
+    assert np.abs(bal).max() < 1e-4
+    for a, b in ((rg.absorbed[~parents], rc.absorbed[~parents]), (eg, ec),
+                 (mg, mc)):
+        _close_on_card(a, b)

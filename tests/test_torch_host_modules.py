@@ -1,6 +1,6 @@
 """The port's own copies of soc_tpu's host modules (constants, config,
 io.dust, io.fields, solve.solver_file, solve.grain_model, solve.solver_prep,
-solve.dust_compiler) against their originals on the same inputs.
+solve.dust_compiler, solve.ali) against their originals on the same inputs.
 
 Tolerance: none. The copies are the same NumPy code, so every result is
 held bit for bit (NaNs compared as equal) and every file byte for byte.
@@ -17,6 +17,7 @@ from soc_tpu import config as jconfig
 from soc_tpu import constants as jconst
 from soc_tpu.io import dust as jdust
 from soc_tpu.io import fields as jfields
+from soc_tpu.solve import ali as jali
 from soc_tpu.solve import dust_compiler as jdc
 from soc_tpu.solve import grain_model as jgm
 from soc_tpu.solve import solver_file as jsf
@@ -27,6 +28,7 @@ from soc_tpu_torch import constants as tconst
 from soc_tpu_torch import example_model
 from soc_tpu_torch.io import dust as tdust
 from soc_tpu_torch.io import fields as tfields
+from soc_tpu_torch.solve import ali as tali
 from soc_tpu_torch.solve import dust_compiler as tdc
 from soc_tpu_torch.solve import grain_model as tgm
 from soc_tpu_torch.solve import solver_file as tsf
@@ -207,3 +209,24 @@ def test_field_files_byte_equal(tmp_path):
     rng.random(NFREQ, np.float32).tofile(bg)
     assert_same(jfields.read_background_intensity(str(bg), NFREQ),
                 tfields.read_background_intensity(str(bg), NFREQ))
+
+
+def test_ali_bit_equal():
+    """The ALI escape-probability table, its lookup and the beta
+    refinement on the models' frequencies and absorption curve."""
+    rng = np.random.default_rng(9)
+    freq = example_model.frequencies(NFREQ)
+    kabs = np.geomspace(1e-3, 2.0, NFREQ)[::-1].astype(np.float32)
+    tau = rng.uniform(0.0, 150.0, 200)
+    assert_same(jali.escape_probability(tau), tali.escape_probability(tau))
+    jt, tt = jali.beta_table(freq, kabs), tali.beta_table(freq, kabs)
+    assert_same(jt, tt)
+    temp = rng.uniform(3.0, 2000.0, 200).astype(np.float32)
+    assert_same(jali.beta_lookup(jt, temp, tau),
+                tali.beta_lookup(tt, temp, tau))
+    beta0 = rng.uniform(0.0, 1.2, 200).astype(np.float32)
+    dens = rng.uniform(-1.0, 80.0, 200).astype(np.float32)
+    told = (temp * rng.uniform(0.8, 1.2, 200)).astype(np.float32)
+    for t_old in (None, told):
+        assert_same(jali.refine_beta(beta0, temp, freq, kabs, dens, t_old),
+                    tali.refine_beta(beta0, temp, freq, kabs, dens, t_old))

@@ -128,6 +128,7 @@ def _to_torch(st, cells):
         hi=torch.as_tensor(_i64(b.hi)),
         counter=torch.as_tensor(_i64(b.counter)),
         scatterings=torch.as_tensor(_i64(b.scatterings)),
+        e_cell=torch.as_tensor(_i64(b.e_cell)),
         anc=torch.as_tensor(_i64(st[11])))
     tabs = np.asarray(st[4], np.float32)
     intf = np.asarray(st[5], np.float32).reshape(-1)
