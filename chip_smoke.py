@@ -89,9 +89,32 @@ Phases (any failure exits non-zero before the final line):
      card, every cell, the 576 parent cells' rows zero) -> map: energy
      balance, emitted.data zero on the parents, the map finite; then the
      A2E kernel on those absorptions against its plain twin, timed
+ 12. the constant sources on the same octree, each source one
+     mixed-frequency pool: (a) the `rt` verb with the equilibrium dust,
+     BASELINE config 2 whole: the background with `split 4` and two point
+     sources, one inside the refined block and one outside the cloud
+     with PS_METHOD 4 (the illumination cone): each source's packets,
+     seconds and packets/s, the clones served (none fails), the energy
+     balance per channel ((absorbed + escaped + born outside) / launched,
+     within 0.5%), the point sources' share of the absorbed energy, and
+     the refined leaves' absorbed energy from the split background
+     against phase 10 (a)'s split-free background (the same packets'
+     streams) within five times the spread of 64 cell groups'
+     differences; (b) the `pipeline` verb with the GSET dust (phase 4's
+     .solver reused): the split background, the weighted Healpix sky
+     (`hpbgw`), a diffuse field and `saveint 2`: the balance per
+     channel, the (I, Ix, Iy, Iz) intensity file finite with I equal to
+     the absorbed file times PLANCK f gl_cm / (ABS_f FACTOR) (1e-5
+     relative), the parents' emission zero, one A2E launch a card, then
+     a2e_all_sizes on these absorptions against its plain twin, timed;
+     (c) the `rt` verb with two dusts and `abundance` (MSF on, one
+     scattering function a dust), `simum` selecting about half of the
+     channels, without and with `optishalf`: the masked channels absorb
+     nothing, the balance per selected channel, and the temperatures of
+     the two runs within 1% (bfloat16 keeps 8 bits)
 The kernels line gives each kernel's launches on its path (phase 4 for the
 A2E kernel, and under octree_* its launches, time, plain time and bound
-on phase 11's octree; 6 for the clamp kernel, 7 for the probes, 9 for the
+on phase 11's octree, under sources_* on phase 12 (b)'s; 6 for the clamp kernel, 7 for the probes, 9 for the
 sharded A2E, whose other numbers phase 8 takes over the same six shards),
 its time, its plain version's, its library call's where one exists, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -113,6 +136,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.time()
 REL_TOL = 1e-4          # kernel vs plain twin, relative, see phase 3
 CLAMP_EFFECT = 10 * REL_TOL   # least change the clamp must make, phase 6
 BALANCE_TOL = 5e-3      # (absorbed + escaped) / injected - 1, per frequency
@@ -134,6 +158,17 @@ CELLPACKETS = 533504    # phase 10: 2 packets a cell a channel
 # 2.5% between two iterations of one plain run (profile_phase2 on an H100)
 ITER_RTOL, ITER_SHARE, ITER_MAX = 0.02, 1e-4, 0.05
 ALI_CHANNELS = 4        # phase 10: the ALI rerun's brightest channels
+SPLIT = 4               # phase 12: `split 4`: at most 15 clones a packet
+PSPACKETS = 50000       # phase 12 (a): packets a point source and channel
+# phase 12 (a): (x, y, z, share of the background's power) in root cells:
+# one inside the refined block (root cells 28-35), one above the cloud
+POINT_SOURCES = ((32.13, 31.87, 32.29, 0.2), (30.7, 33.2, 104.0, 1.0))
+PS_METHOD = 4           # phase 12 (a): the external source's cone
+SKY_NSIDE = 16          # phase 12 (b): the Healpix sky's resolution
+DIFFUSE_SHARE = 0.5     # phase 12 (b): the diffuse field's power share
+SPLIT_SIGMAS = 5.0      # phase 12 (a): the refined cells' statistical bound
+SIMUM = (1.0, 200.0)    # phase 12 (c): the simulated band [um], 22 of 44
+OPTISHALF_TOL = 0.01    # phase 12 (c): T with and without optishalf
 SOURCES = ("a2e", "probe_gather", "probe_scatter", "probe_onehot")
 PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
     "probe_gather": ("soc_tpu_torch/csrc/probe_gather.cu",
@@ -794,7 +829,8 @@ def print_passes(tag, res, card):
 
 def octree_rt_phase(dev, work, args, report):
     """Phase 10: the rt verb on the octree at full width, three runs, then
-    one cell pass without and with ALI. Returns the run directories."""
+    one cell pass without and with ALI. Returns the three runs' RunResults
+    by tag."""
     import torch
     from soc_tpu_torch import cli
     from soc_tpu_torch.config import RunConfig
@@ -905,6 +941,7 @@ def octree_rt_phase(dev, work, args, report):
           flush=True)
     if not ok or not 0.0 < share < 1.0:
         fail("phase 10: the ALI split does not add up to the plain pass")
+    return out
 
 
 def octree_pipeline_phase(dev, work, args, report):
@@ -990,6 +1027,244 @@ def octree_pipeline_phase(dev, work, args, report):
           "%.3e [%s]" % (OCTREE_CELLS, OCTREE_PARENTS,
                          OCTREE_CELLS - OCTREE_PARENTS, ms_k, ms_p, b_ms,
                          b_by, rel, card), flush=True)
+
+
+def source_balance(tag, res, card):
+    """Phase 12: each phase-1 source's packets, seconds and clones, and the
+    run's energy balance per channel, (absorbed + escaped + born outside)
+    / launched - 1, over the channels that launched anything; fails
+    beyond BALANCE_TOL. Returns the balance."""
+    for st in res.source_passes:
+        print("phase 12: (%s) %s: %d packets in %d pool(s), %.2f s (%.0f "
+              "packets/s), %d clones served, absorbed energy %.4e [%s]"
+              % (tag, st["source"], st["packets"], st["pools"],
+                 st["seconds"], st["packets"] / max(st["seconds"], 1e-9),
+                 st["clones"], st["absorbed_energy"], card), flush=True)
+    on = res.launched > 0
+    bal = np.zeros_like(res.launched)
+    bal[on] = (res.absorbed_photons + res.escaped + res.missed)[on] \
+        / res.launched[on] - 1
+    print("phase 12: (%s) energy balance per channel over %d channels, "
+          "(absorbed + escaped + born outside) / launched - 1: max |.| = "
+          "%.3e (tolerance %.1e); born outside %.3e of the launched weight"
+          % (tag, int(on.sum()), np.abs(bal).max(), BALANCE_TOL,
+             res.missed.sum() / res.launched.sum()), flush=True)
+    if not np.abs(bal).max() <= BALANCE_TOL:
+        fail("phase 12: (%s) energy balance off" % tag)
+    return bal
+
+
+def sources_phase(dev, work, args, report, plain_bg):
+    """Phase 12: the constant sources on the octree; ``plain_bg`` is
+    phase 10 (a)'s run (its background without splitting)."""
+    import torch
+    from soc_tpu_torch import cli
+    from soc_tpu_torch.constants import FACTOR, PARSEC, PLANCK
+    from soc_tpu_torch.example_model import write_model
+    from soc_tpu_torch.solve import a2e_kernel, equilibrium, stochastic
+    from soc_tpu_torch.solve.solver_file import read_solver
+    card = report["card"]
+    common = dict(npix=64, bgpac=args.bgpackets, map_dx=N / 64.0,
+                  octree=OCTREE)
+
+    # (a) config 2 whole: split background + two point sources, rt
+    d = os.path.join(work, "sources_rt")
+    ini = write_model(d, N, kind="eqdust", nfreq=44,
+                      point_sources=POINT_SOURCES, ps_method=PS_METHOD,
+                      pspackets=PSPACKETS, split=SPLIT, **common)
+    results = {}
+    t0 = time.time()
+    rc = cli.main(["rt", ini, "--device", str(dev)], results)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if rc != 0:
+        fail("phase 12: (a) rt verb returned %d" % rc)
+    res = results["rt"]
+    for name in ("absorbed", "temperature", "emitted"):
+        if not np.isfinite(getattr(res, name)).all():
+            fail("phase 12: (a) %s is not finite" % name)
+    if not (np.isfinite(res.maps[0]).all() and res.maps[0].max() > 0):
+        fail("phase 12: (a) the map is not finite with a positive peak")
+    passes = {st["source"]: st for st in res.source_passes}
+    if sorted(passes) != ["bg", "ps"]:
+        fail("phase 12: (a) sources run: %s" % sorted(passes))
+    tm = res.timings
+    print("phase 12: (a) rt on the octree with the split background and %d "
+          "point sources (PS_METHOD %d): %.2f s: input %.2f, constant "
+          "sources %.2f (%d packets), solve %.2f, maps %.2f; T %.2f-%.2f K "
+          "[%s]" % (len(POINT_SOURCES), PS_METHOD, wall, tm["input"],
+                    tm["constant_sources"], res.packets, tm["solve"],
+                    tm["maps"], res.temperature.min(),
+                    res.temperature.max(), card), flush=True)
+    source_balance("a", res, card)
+    bg, ps = passes["bg"], passes["ps"]
+    if bg["clones"] < 1:
+        fail("phase 12: (a) the split background served no clone")
+    inj_bg = np.abs(bg["launched"] / bg["injected"] - 1).max()
+    share = ps["absorbed_energy"] / float(res.ctabs.astype(np.float64).sum())
+    print("phase 12: (a) background launched against its injected weight: "
+          "max |.| = %.3e; point sources' share of the absorbed energy %.4f"
+          % (inj_bg, share), flush=True)
+    if inj_bg > 1e-6 or not 0.0 < share < 1.0:
+        fail("phase 12: (a) the sources' weights are off")
+    # the refined leaves' absorption from the background, with and
+    # without splitting: the same packet streams, so the difference is
+    # the clones' sampling noise; its bound is taken from the spread of
+    # the differences over 64 groups of cells
+    lev = equilibrium.cell_levels(res.grid).cpu().numpy()
+    leaf = res.grid.dens.cpu().numpy() > 0
+    refined = np.nonzero((lev > 0) & leaf)[0]
+    diff = bg["tabs"][refined].astype(np.float64) \
+        - plain_bg.ctabs[refined].astype(np.float64)
+    groups = np.array([g.sum() for g in np.array_split(diff, 64)])
+    sigma = np.sqrt(np.sum(groups ** 2))
+    ref = plain_bg.ctabs[refined].astype(np.float64).sum()
+    print("phase 12: (a) the %d refined leaves' absorbed energy from the "
+          "background, split against phase 10 (a)'s unsplit: %.6e against "
+          "%.6e, difference %.3e of it; bound %.1f sigma = %.3e of it "
+          "(sigma from 64 groups of cells)"
+          % (len(refined), ref + diff.sum(), ref, diff.sum() / ref,
+             SPLIT_SIGMAS, SPLIT_SIGMAS * sigma / ref), flush=True)
+    if not abs(diff.sum()) <= SPLIT_SIGMAS * sigma:
+        fail("phase 12: (a) the split background's refined cells disagree "
+             "with the unsplit run beyond the statistical bound")
+    report["sources_rt"] = dict(
+        seconds=wall, clones=bg["clones"],
+        passes={k: (v["packets"], v["seconds"]) for k, v in passes.items()})
+
+    # (b) the pipeline with the split background, the weighted sky, a
+    # diffuse field and saveint 2
+    sub = os.path.join(work, "sources_pipeline")
+    ini = write_model(sub, N, kind="gset", nfreq=44, nsize=24,
+                      hpbg=SKY_NSIDE, hpbg_weighted=True,
+                      diffuse=DIFFUSE_SHARE, dfpackets=2 * OCTREE_CELLS,
+                      split=SPLIT, saveint=2, **common)
+    shutil.copy(os.path.join(work, "gs_TST.solver"), sub)
+    results = {}
+    a2e_kernel.launches = a2e_kernel.clamp_launches = 0
+    t0 = time.time()
+    rc = cli.main(["pipeline", ini, "--device", str(dev)], results)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = (a2e_kernel.launches, a2e_kernel.clamp_launches)
+    if rc != 0:
+        fail("phase 12: (b) pipeline verb returned %d" % rc)
+    if launches != (torch.cuda.device_count(), 0):
+        fail("phase 12: (b) A2E launches %s, expected one a card"
+             % (launches,))
+    res_rt, res_map = results["absorption"], results["map"]
+    passes = {st["source"]: st for st in res_rt.source_passes}
+    if sorted(passes) != ["bg", "diffuse", "hpbg"]:
+        fail("phase 12: (b) sources run: %s" % sorted(passes))
+    source_balance("b", res_rt, card)
+    if passes["bg"]["clones"] < 1 or passes["hpbg"]["clones"] < 1:
+        fail("phase 12: (b) a split source served no clone")
+    absorbed = read_cell_frequency_array(os.path.join(sub, "absorbed.data"))
+    emitted = read_cell_frequency_array(os.path.join(sub, "emitted.data"))
+    maps = read_map_file(os.path.join(sub, "map_dir_00.bin"))
+    with open(os.path.join(sub, "ISRF.DAT"), "rb") as fp:
+        shape = tuple(np.fromfile(fp, np.int32, 3))
+        inten = np.fromfile(fp, np.float32)
+    parents = absorbed[:, 0] < -1e19
+    if shape != (OCTREE_CELLS, 44, 4) or inten.size != np.prod(shape) \
+            or not np.isfinite(inten).all():
+        fail("phase 12: (b) the intensity file has shape %s and is not "
+             "finite" % (shape,))
+    inten = inten.reshape(shape)
+    # I = (PLANCK f / ABS_f) 8^level INT / DENS and absorbed = FACTOR /
+    # gl_cm 8^level INT / DENS: their ratio is PLANCK f gl_cm / (ABS_f
+    # FACTOR) on every leaf
+    gl_cm = 0.01 * PARSEC
+    absf = res_rt.medium.abs_gl.cpu().numpy().astype(np.float64)
+    ratio = PLANCK * res_rt.freq * gl_cm / (absf * FACTOR)
+    live = ~parents[:, None] & (absorbed > 1e-30 * absorbed.max())
+    got = inten[:, :, 0].astype(np.float64) / np.where(live, absorbed, 1.0)
+    irel = np.abs(got / ratio[None, :] - 1)[live].max()
+    if not irel <= 1e-5:
+        fail("phase 12: (b) the intensity's I is not the absorbed file's "
+             "scaling (%.3e)" % irel)
+    if not (np.isfinite(emitted).all() and (emitted[parents] == 0).all()
+            and emitted[~parents].max() > 0):
+        fail("phase 12: (b) emitted.data not finite, or not zero on the "
+             "parents")
+    if not (np.isfinite(maps).all() and maps.max() > 0):
+        fail("phase 12: (b) the map is not finite with a positive peak")
+    t_rt = res_rt.timings["constant_sources"]
+    print("phase 12: (b) pipeline on the octree with the split background, "
+          "the weighted sky (nside %d), a diffuse field and saveint 2: "
+          "absorption %.2f s (%d packets, %.0f packets/s), A2E solve %.2f "
+          "s, %d A2E launch(es), maps %.2f s, total %.2f s; intensity I "
+          "against the absorbed file's scaling %.3e; emitted zero on the "
+          "parents [%s]" % (SKY_NSIDE, t_rt, res_rt.packets,
+                            res_rt.packets / t_rt, res_map.timings["a2e"],
+                            launches[0], res_map.timings["maps"], wall, irel,
+                            card), flush=True)
+    sol = read_solver(os.path.join(sub, "gs_TST.solver"))
+    stacks = stochastic.get_fused_stacks(sol, dev, plain=True)
+    ab = torch.as_tensor(np.where(parents[:, None], 0.0, absorbed)
+                         .astype(np.float32), device=dev)
+    ms_k, (tot_k, _) = timed(lambda: a2e_kernel.solve_all_sizes(stacks, ab),
+                             3)
+    ms_p, (tot_p, _) = timed(
+        lambda: a2e_kernel.solve_all_sizes_plain(stacks, ab), 1)
+    rel = max_rel(tot_k, tot_p)
+    if rel > REL_TOL:
+        fail("phase 12: (b) the A2E kernel differs from the plain twin "
+             "(%.3e)" % rel)
+    b_ms, b_by = bound(*a2e_work(OCTREE_CELLS - OCTREE_PARENTS, sol.nsize,
+                                 sol.ne, 44, False, False))
+    report["a2e_all_sizes"].update(
+        sources_launches=launches[0], sources_ms=ms_k,
+        sources_plain_ms=ms_p, sources_bound_ms=b_ms,
+        sources_max_abs_err=float(torch.abs(tot_k - tot_p).max()))
+    print("phase 12: (b) a2e_all_sizes on these absorptions (%d cells): "
+          "kernel %.2f ms, plain %.2f ms, bound %.2f ms (%s), max rel err "
+          "%.3e [%s]" % (OCTREE_CELLS, ms_k, ms_p, b_ms, b_by, rel, card),
+          flush=True)
+    report["sources_pipeline"] = dict(
+        seconds=wall, absorption_s=t_rt, packets=res_rt.packets,
+        passes={k: (v["packets"], v["seconds"], v["clones"])
+                for k, v in passes.items()})
+
+    # (c) two dusts with per-cell abundances and MSF, half the channels
+    temps = {}
+    for half in (False, True):
+        d = os.path.join(work, "sources_abu_%d" % half)
+        ini = write_model(d, N, kind="eqdust", nfreq=44, abundance=True,
+                          simum=SIMUM, optishalf=half, **common)
+        results = {}
+        t0 = time.time()
+        rc = cli.main(["rt", ini, "--device", str(dev)], results)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if rc != 0:
+            fail("phase 12: (c) rt verb returned %d" % rc)
+        res = results["rt"]
+        masked = res.launched == 0
+        if not (np.isfinite(res.temperature).all()
+                and np.isfinite(res.maps[0]).all()):
+            fail("phase 12: (c) the temperatures or the map are not finite")
+        if masked.sum() < 10 or (~masked).sum() < 10 \
+                or (res.absorbed_photons[masked] != 0).any() \
+                or (res.absorbed[:, masked] > 0).any():
+            fail("phase 12: (c) a channel outside `simum` absorbed energy, "
+                 "or the band is not about half the channels")
+        tag = "c, optishalf" if half else "c"
+        source_balance(tag, res, card)
+        print("phase 12: (%s) rt with two dusts, abundances and MSF over %d "
+              "of 44 channels: %.2f s (%d packets, constant sources %.2f "
+              "s), T %.2f-%.2f K [%s]"
+              % (tag, int((~masked).sum()), wall, res.packets,
+                 res.timings["constant_sources"], res.temperature.min(),
+                 res.temperature.max(), card), flush=True)
+        temps[half] = res.temperature
+    trel = np.abs(temps[True] / temps[False] - 1).max()
+    print("phase 12: (c) optishalf against float32 cross sections: "
+          "temperatures' largest relative difference %.3e (bound %.0e)"
+          % (trel, OPTISHALF_TOL), flush=True)
+    if not trel <= OPTISHALF_TOL:
+        fail("phase 12: (c) optishalf moves the temperatures too far")
+    report["sources_abu"] = dict(optishalf_rel=trel)
 
 
 def probes_phase(dev, report):
@@ -1174,12 +1449,14 @@ def main():
         sharded_a2e_phase(dev, fold_sol, solvers[128][0], freq, rng, report)
         product_phase(dev, work, args, report, ref)
         t0 = time.time()
-        octree_rt_phase(dev, work, args, report)
+        plain = octree_rt_phase(dev, work, args, report)
         t1 = time.time()
         octree_pipeline_phase(dev, work, args, report)
-        print("phase 10: %.2f s; phase 11: %.2f s" % (t1 - t0,
-                                                      time.time() - t1),
-              flush=True)
+        t2 = time.time()
+        sources_phase(dev, work, args, report, plain["a"])
+        print("phase 10: %.2f s; phase 11: %.2f s; phase 12: %.2f s; the "
+              "smoke so far %.2f s" % (t1 - t0, t2 - t1, time.time() - t2,
+                                       time.time() - T_START), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1193,7 +1470,9 @@ def main():
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     extra = ("shards", "octree_launches", "octree_ms", "octree_plain_ms",
-             "octree_bound_ms", "octree_max_abs_err")
+             "octree_bound_ms", "octree_max_abs_err", "sources_launches",
+             "sources_ms", "sources_plain_ms", "sources_bound_ms",
+             "sources_max_abs_err")
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=sources[name][0],
         replaces=sources[name][1],

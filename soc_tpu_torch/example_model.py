@@ -4,7 +4,11 @@ Writes a complete model directory from a few parameters: a uniform
 density cloud or an octree-refined one (BASELINE config 2's grid), a
 dust built from DustEM-format files through the NumPy dust compiler
 (solve/dust_compiler.py), its scattering function, an isotropic
-background and an ini file. Two dust kinds:
+background and an ini file; optionally point sources, a Healpix sky, a
+diffuse emission field and a second dust with per-cell abundances (each
+sized as a share of the background's power, so every source matters),
+and the `split`, `simum`, `saveint` and `optishalf` lines. Two dust
+kinds:
 
 * ``"gset"``: a stochastically heated dust (GSET container), run through
   the ``pipeline`` verb (absorption run -> A2E -> map);
@@ -19,7 +23,7 @@ import os
 
 import numpy as np
 
-from .constants import FACTOR, PLANCK, planck_intensity, um2f
+from .constants import FACTOR, PARSEC, PLANCK, planck_intensity, um2f
 from .io.dust import write_simple_dust
 from .solve import dust_compiler as dc
 from .solve import solver_prep
@@ -27,8 +31,11 @@ from .solve.grain_model import write_gset_dust
 
 from .grid import encode_link_np
 from .io.cloud import write_hierarchy
+from .render import healpix as hp
 
 GRAIN_LINE = "TST {nsize} plaw-ed 0.0065 3.3 1.0e-7 5.0e-5 -3.5 1.0e-5 5e-6 3.0"
+# the second dust of `abundance` models: small grains only
+GRAIN_LINE2 = "TST {nsize} plaw-ed 0.004 3.3 1.0e-7 1.0e-6 -3.0 1.0e-5 5e-6 3.0"
 
 INI = """\
 gridlength      {gl}
@@ -100,10 +107,10 @@ def background(freq):
     return 1.0e-14 * planck_intensity(freq, 7500.0)
 
 
-def _compiled_dust(d, nfreq, nsize):
+def _compiled_dust(d, nfreq, nsize, line=GRAIN_LINE):
     um = np.logspace(np.log10(0.1), np.log10(3000.0), nfreq)
     lam, qf, gf, cf = _dustem_files(d, um)
-    return dc.compile_dust(GRAIN_LINE.format(nsize=nsize), lam, qf, gf, cf)
+    return dc.compile_dust(line.format(nsize=nsize), lam, qf, gf, cf)
 
 
 def gset_solver(d, nfreq=44, nsize=24, ne=128):
@@ -179,9 +186,89 @@ def octree_cloud(n, block, cascade, depth=3):
     return lcells, values
 
 
+def _write_dust(d, kind, dust, freq, gl_pc, stem, dsc_name):
+    """The dust file of kind 'gset' (gs_<STEM>.dust) or 'eqdust'
+    (<stem>.dust) and its scattering file; returns the dust file's
+    name."""
+    dsc, csc = dc.tabulated_scattering_function(dust, freq, bins=2500)
+    dc.write_scattering_file(os.path.join(d, dsc_name), dsc, csc)
+    if kind == "gset":
+        name = "gs_%s.dust" % stem.upper()
+        write_gset_dust(os.path.join(d, name), dc.to_gset(dust))
+    elif kind == "eqdust":
+        name = "%s.dust" % stem
+        write_simple_dust(os.path.join(d, name),
+                          dc.effective_optics(dust, freq, gl_pc), gl_pc)
+    else:
+        raise ValueError("kind must be 'gset' or 'eqdust'")
+    return name
+
+
+def _cell_levels(lcells):
+    return np.repeat(np.arange(len(lcells)), lcells)
+
+
+def write_point_sources(d, freq, gl_pc, area, sources, method=None,
+                        packets=None):
+    """Point-source luminosity files ps_<k>.bin and their ini lines.
+    sources: (x, y, z, share) in root-cell coordinates; each radiates the
+    background's spectrum at ``share`` of the power the background sends
+    into the cloud (pi I_bg over the model's surface of ``area`` cells)."""
+    lum = np.pi * background(freq) * area * (gl_pc * PARSEC) ** 2
+    lines = []
+    for k, (x, y, z, share) in enumerate(sources):
+        name = "ps_%d.bin" % k
+        (share * lum).astype(np.float32).tofile(os.path.join(d, name))
+        lines.append("pointsource     %r %r %r %s\n" % (float(x), float(y),
+                                                        float(z), name))
+    if packets is not None:
+        lines.append("pspackets       %d\n" % packets)
+    if method is not None:
+        lines.append("psmethod        %d\n" % method)
+    return "".join(lines)
+
+
+def write_sky(d, freq, nside, weighted=False, path="sky.bin"):
+    """A Healpix sky [NFREQ, 12 nside^2] (RING order): the background's
+    spectrum times exp(2 cos theta) / its mean over the sky, so half the
+    sky is several times brighter than the other; returns its ini line,
+    `hpbg` or, for weighted pixel selection, `hpbgw` (which names the
+    file too: the keywords match by prefix)."""
+    theta, _ = hp.pix2ang_ring_np(nside, np.arange(12 * nside * nside))
+    pattern = np.exp(2.0 * np.cos(theta.astype(np.float64)))
+    pattern /= pattern.mean()
+    sky = background(freq)[:, None] * pattern[None, :]
+    sky.astype(np.float32).tofile(os.path.join(d, path))
+    return "%-15s %s\n" % ("hpbgw" if weighted else "hpbg", path)
+
+
+def write_diffuse(d, freq, gl_pc, area, lcells, share=0.5, nf=None,
+                  packets=None, path="diffuse.bin"):
+    """A diffuse emission field [CELLS, NF'] (photons/Hz/cm^3 a cell, the
+    highest NF' channels when nf < NFREQ): cells times U(0.5, 1.5), the
+    whole field giving ``share`` of the background's photons a channel
+    after the driver's 8^-level weighting; returns its ini lines."""
+    rng = np.random.default_rng(7)
+    cells = int(np.sum(lcells))
+    nf = len(freq) if nf is None else nf
+    bg = np.pi * area * background(freq) / (PLANCK * freq)
+    vol = np.sum(8.0 ** -_cell_levels(lcells))
+    per = share * bg / (vol * gl_pc * PARSEC)
+    field = rng.uniform(0.5, 1.5, cells)[:, None] * per[None, -nf:]
+    with open(os.path.join(d, path), "wb") as fp:
+        np.asarray([cells, nf], np.int32).tofile(fp)
+        field.astype(np.float32).tofile(fp)
+    return "diffuse         %s\n" % path + (
+        "diffpackets     %d\n" % packets if packets is not None else "")
+
+
 def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
                 bgpac=None, map_dx=1.0, gl_pc=0.01, extra="", octree=None,
-                cellpackets=None, iterations=1):
+                cellpackets=None, iterations=1, point_sources=None,
+                ps_method=None, pspackets=None, hpbg=None,
+                hpbg_weighted=False, diffuse=None, dfpackets=None,
+                abundance=False, split=None, simum=None, saveint=None,
+                optishalf=False):
     """Write a model into directory d and return the ini path.
 
     n      : root grid size (n^3 cells)
@@ -194,33 +281,65 @@ def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
              depth) of octree_cloud (BASELINE config 2: n 64, (8, 64, 3))
     cellpackets, iterations : the ini's `cellpackets` (written when
              given) and `iterations`
+    point_sources : (x, y, z, share) tuples (write_point_sources), with
+             `psmethod` ps_method and `pspackets` pspackets when given
+    hpbg   : a Healpix sky of this nside (write_sky), `hpbgw` with
+             hpbg_weighted
+    diffuse : the share of a diffuse field (write_diffuse), with
+             `diffpackets` dfpackets when given
+    abundance : a second dust (small grains) with its own scattering
+             file (so MSF is on) and per-cell abundance files of both
+             dusts, U(0.5, 1.5) and U(0, 2)
+    split, saveint : the `split N` and `saveint N` lines; simum: the
+             (um_lo, um_hi) band of `simum`; optishalf: its line
     extra  : more ini lines
     """
     os.makedirs(d, exist_ok=True)
     freq = frequencies(nfreq)
     dust = _compiled_dust(d, nfreq, nsize)
-    dsc, csc = dc.tabulated_scattering_function(dust, freq, bins=2500)
-    dc.write_scattering_file(os.path.join(d, "tmp.dsc"), dsc, csc)
-    if kind == "gset":
-        dust_name = "gs_TST.dust"
-        write_gset_dust(os.path.join(d, dust_name), dc.to_gset(dust))
-    elif kind == "eqdust":
-        dust_name = "tst.dust"
-        write_simple_dust(os.path.join(d, dust_name),
-                          dc.effective_optics(dust, freq, gl_pc), gl_pc)
-    else:
-        raise ValueError("kind must be 'gset' or 'eqdust'")
+    dust_name = _write_dust(d, kind, dust, freq, gl_pc, "tst", "tmp.dsc")
     background(freq).astype(np.float32).tofile(os.path.join(d, "bg.bin"))
     if octree is None:
         lcells, values = [n ** 3], [np.ones(n ** 3, np.float32)]
     else:
         lcells, values = octree_cloud(n, *octree)
     write_hierarchy(os.path.join(d, "tmp.cloud"), n, n, n, lcells, values)
+    cells = int(np.sum(lcells))
+    area = 6 * n * n
+    lines = []
     if cellpackets is not None:
-        extra = "cellpackets     %d\n" % cellpackets + extra
+        lines.append("cellpackets     %d\n" % cellpackets)
+    if point_sources:
+        lines.append(write_point_sources(d, freq, gl_pc, area,
+                                         point_sources, ps_method,
+                                         pspackets))
+    if hpbg:
+        lines.append(write_sky(d, freq, hpbg, hpbg_weighted))
+    if diffuse:
+        lines.append(write_diffuse(d, freq, gl_pc, area, lcells, diffuse,
+                                   packets=dfpackets))
+    if abundance:
+        dust2 = _compiled_dust(d, nfreq, nsize, GRAIN_LINE2)
+        name2 = _write_dust(d, kind, dust2, freq, gl_pc, "tst2", "tst2.dsc")
+        rng = np.random.default_rng(5)
+        for k, (lo, hi) in enumerate(((0.5, 1.5), (0.0, 2.0))):
+            rng.uniform(lo, hi, cells).astype(np.float32).tofile(
+                os.path.join(d, "abu%d.bin" % k))
+        lines.append("optical         %s\ndsc             tst2.dsc 2500\n"
+                     "abundance       abu0.bin\nabundance       abu1.bin\n"
+                     % name2)
+    if split is not None:
+        lines.append("split           %d\n" % split)
+    if simum is not None:
+        lines.append("simum           %r %r\n" % tuple(map(float, simum)))
+    if saveint is not None:
+        lines.append("saveint         %d\n" % saveint)
+    if optishalf:
+        lines.append("optishalf\n")
     ini = os.path.join(d, "run.ini")
     with open(ini, "w") as fp:
         fp.write(INI.format(gl=gl_pc, npix=npix or n, map_dx=map_dx,
                             dust=dust_name, bgpac=bgpac or 8 * 6 * n * n,
-                            iterations=iterations, extra=extra))
+                            iterations=iterations,
+                            extra="".join(lines) + extra))
     return ini

@@ -1,11 +1,17 @@
 """End-to-end emission radiative transfer (port of soc_tpu.pipeline.driver
-for background-heated clouds, octrees included, with the dust's
+for clouds heated by constant sources, octrees included, with the dust's
 self-heating).
 
 Phases:
-  1. the isotropic background, all frequencies in one mixed-frequency
-     packet pool -> TABS (+ per-frequency absorptions); or TABS read from
-     a `cload` file
+  1. the constant sources, each in one mixed-frequency packet pool over
+     the simulated channels (`simum`): the isotropic background (`split`
+     on refined clouds), the Healpix sky (`hpbg`, `hpbgw`), point sources
+     (`pointsource`, PS_METHOD 0-5) and the diffuse emission (`diffuse`)
+     -> TABS (+ per-frequency absorptions, or with `saveint 2` the
+     (I, Ix, Iy, Iz) tally); or TABS read from a `cload` file. With
+     `abundance` (WITH_ABU, and MSF with a dsc file a dust) every
+     transport pass takes per-cell cross sections, in bfloat16 under
+     `optishalf`
   2. iterations: the dust's own emission re-emitted as cell packets
      (`cellpackets`, with EMWEI, ALI and the WITH_REFERENCE delta field),
      the equilibrium temperature solve and the thermal emission; or the
@@ -16,8 +22,9 @@ With `devices N` (or an explicit device list) phases 1 and 3 and one
 temperature solve run over a (dp x freq) mesh of devices
 (parallel/product.py): phase 1 with the channels blocked over freq and
 each channel's budget split over dp; the solve with the cells split;
-phase 3 with the map's rows and channels split. Cell emission is not
-ported to the mesh yet and raises there.
+phase 3 with the map's rows and channels split. Cell emission and the
+keywords of mesh_refused_features are not ported to the mesh yet and
+raise there.
 Outputs keep the reference's binary formats. A keyword or input the port
 does not support yet raises NotImplementedError naming it; nothing is
 silently ignored.
@@ -42,6 +49,7 @@ from ..io.cloud import read_cloud, read_hierarchy, write_cell_field
 from ..render import mapping as render_mapping
 from ..solve import equilibrium
 from ..transport.medium import medium_from_optics
+from ..transport import sources
 from ..transport.propagate import pool_lanes, transport_run
 from ..transport.sources import stream_hi_base
 
@@ -68,10 +76,14 @@ class RunResult:
     temperature: np.ndarray = None      # [CELLS]
     emitted: np.ndarray = None          # [CELLS, NFREQ]
     maps: dict = field(default_factory=dict)       # idir -> [NF, NY, NX]
+    intensity: np.ndarray = None        # saveint's [CELLS, NFREQ(, 4)]
     escaped: np.ndarray = None          # [NFREQ] photons that left the volume
     injected: np.ndarray = None         # [NFREQ] photons injected
     absorbed_photons: np.ndarray = None  # [NFREQ] photons absorbed (raw)
+    launched: np.ndarray = None         # [NFREQ] phase 1's packet weights
+    missed: np.ndarray = None           # [NFREQ] of those born outside
     packets: int = 0                   # packets traced in phase 1
+    source_passes: list = field(default_factory=list)  # a dict a source
     cell_passes: list = field(default_factory=list)  # one dict a cell pass
     devices: list = None                # the product mesh's devices, or None
     timings: dict = field(default_factory=dict)
@@ -85,22 +97,16 @@ def unsupported_features(cfg):
         if cond:
             out.append(name)
 
-    need(cfg.file_hpbg, "hpbg (Healpix background)")
-    need(cfg.no_ps > 0, "pointsource")
-    need(cfg.file_diffuse, "diffuse")
     need(cfg.roi is not None or cfg.file_roi_save or cfg.file_roi_load,
          "roi / roisave / roiload")
     need(cfg.roi_map, "roimap")
-    need(len(cfg.file_abundance) > 0, "abundance (WITH_ABU / WITH_MSF)")
     need(cfg.step_weight[0] in (1, 2) and cfg.step_weight[1] > 0,
          "stepweight")
     need(cfg.dir_weight[0] >= 0 and abs(cfg.dir_weight[1]) > 1e-6,
          "direweight")
     need(cfg.mirror, "mirror")
-    need(cfg.do_split, "split")
     need(cfg.n_domains, "domains")
     need(cfg.mmap_absorbed, "mmapabs")
-    need(cfg.optishalf, "optishalf")
     need(cfg.polmap or cfg.polstat or cfg.b_files, "polmap / polstat")
     need(cfg.file_savetau, "savetau")
     need(cfg.file_pssavetau, "pssavetau")
@@ -118,8 +124,6 @@ def unsupported_features(cfg):
     need(cfg.abs_thin > 1, "absthin")
     need(cfg.cr_heating, "CR_HEATING")
     need(cfg.aalg, "polarisation")
-    need(cfg.save_intensity > 0, "saveint / dustem")
-    need(not (cfg.sim_f[0] <= 1.0e8 and cfg.sim_f[1] >= 1.0e17), "simum")
     return out
 
 
@@ -137,6 +141,26 @@ def cell_emission_features(cfg):
         out.append("reference (WITH_REFERENCE)")
     if cfg.has_key("SUBITERATIONS"):
         out.append("SUBITERATIONS")
+    return out
+
+
+def mesh_refused_features(cfg):
+    """Names of the keywords ported for one device but not to the
+    `devices` mesh yet (besides cell emission: cell_emission_features)."""
+    out = []
+
+    def need(cond, name):
+        if cond:
+            out.append(name)
+
+    need(cfg.do_split, "split")
+    need(cfg.no_ps > 0, "pointsource")
+    need(cfg.file_hpbg, "hpbg (Healpix background)")
+    need(cfg.file_diffuse, "diffuse")
+    need(len(cfg.file_abundance) > 0, "abundance (WITH_ABU / WITH_MSF)")
+    need(cfg.optishalf, "optishalf")
+    need(cfg.save_intensity > 0, "saveint / dustem")
+    need(not (cfg.sim_f[0] <= 1.0e8 and cfg.sim_f[1] >= 1.0e17), "simum")
     return out
 
 
@@ -220,14 +244,81 @@ def _write_emitted_file(cfg, freq, emitted):
                                np.asarray(emitted)[:, mask])
 
 
+def _physics(medium, physics_extra=None):
+    """The transport's physics dict: the medium's tables, plus the
+    per-cell tables of `abundance` when given."""
+    out = dict(kabs=medium.abs_gl, ksca=medium.sca_gl, csc=medium.csc,
+               tw=medium.tw)
+    if physics_extra:
+        out.update(physics_extra)
+    return out
+
+
+def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
+                 seed, lanes, per_freq_tally, physics_extra=None,
+                 split_max=0):
+    """One phase-1 source as one mixed-frequency pool over the channels
+    ``sel``, counts[j] packets in channel sel[j] (channels with none are
+    left out): soc_tpu runs a pool a channel here, and the packet
+    identities (hi = stream_hi_base(phase) + channel, k the id within the
+    channel) are the same, so the pool traces the same packets with one
+    drain tail. Returns (tabs, intf, stats): the source's route, packets,
+    seconds, clones and, per channel in float64, the weights escaped,
+    launched and born outside the grid, and its absorbed energy (the sum
+    and the per-cell tally it added, a host array)."""
+    t0 = time.time()
+    device = grid.device
+    nfreq = medium.nfreq
+    sel = np.asarray(sel, np.int64)
+    counts = np.broadcast_to(np.asarray(counts, np.int64), sel.shape)
+    keep = counts > 0
+    sel, counts = sel[keep], counts[keep]
+    total = int(counts.sum())
+    zero = np.zeros(nfreq)
+    stats = dict(source=phase, route="mixed", pools=0, packets=total,
+                 clones=0,
+                 seconds=0.0, escaped=zero, launched=zero,
+                 missed=zero, absorbed_energy=0.0, tabs=None)
+    if total == 0:
+        return tabs, intf, stats
+    params = dict(params, hi_base=stream_hi_base(phase),
+                  sel=torch.as_tensor(sel, device=device))
+    if (counts == counts[0]).all() and "cell_of_id" not in params:
+        params["per_freq"] = int(counts[0])
+    else:
+        params["starts"] = torch.as_tensor(
+            np.concatenate([[0], np.cumsum(counts)]), device=device)
+    tabs0 = tabs.clone()
+    out = transport_run(
+        grid, _physics(medium, physics_extra), params, total, tabs, intf,
+        seed, source_kind=kind, nlanes=pool_lanes(lanes, total),
+        per_freq_tally=per_freq_tally, split_max=split_max, births=True)
+    tabs, intf, esc = out[:3]
+    delta = tabs - tabs0
+    stats.update(pools=1, clones=int(out[4]) if split_max > 0 else 0,
+                 escaped=esc.cpu().numpy(), launched=out[-2].cpu().numpy(),
+                 missed=out[-1].cpu().numpy(),
+                 absorbed_energy=float(delta.sum(dtype=torch.float64)),
+                 tabs=delta.cpu().numpy(), seconds=time.time() - t0)
+    return tabs, intf, stats
+
+
+def split_max_of(cfg, grid):
+    """In-flight splitting applies only on refined (multi-level) clouds
+    (SimBgSplit/SimHpSplit, kernel_ASOC.c:2121-3554)."""
+    return int(cfg.do_split) if grid.levels > 1 else 0
+
+
 def simulate_background(grid, medium, cfg, ibg, tabs, intf, seed,
                         lanes=DEFAULT_LANES, per_freq_tally=False,
-                        pmesh=None):
-    """Phase-1 isotropic background over all frequencies, in one mixed
-    pool; with ``pmesh`` (`devices N`) over the mesh, one pool per shard
-    (product.run_freqs), intf then the mesh's slabs. The reference
-    sends 8*AREA*BATCH packets per frequency; the same normalisation keeps
-    the tallies comparable. Returns
+                        pmesh=None, sel=None, physics_extra=None,
+                        split_max=0, passes=None):
+    """Phase-1 isotropic background over the channels ``sel`` (all by
+    default), in one mixed pool; with ``pmesh`` (`devices N`) over the
+    mesh, one pool per shard (product.run_freqs), intf then the mesh's
+    slabs. The reference sends 8*AREA*BATCH packets per frequency; the
+    same normalisation keeps the tallies comparable. The pass's stats
+    (_source_pass) go to ``passes`` when given. Returns
     (tabs, intf, escaped[NF], injected[NF], packets)."""
     area = int(grid.area)
     batch = max(1, int(round(cfg.bgpac / (8.0 * area))))
@@ -235,22 +326,229 @@ def simulate_background(grid, medium, cfg, ibg, tabs, intf, seed,
     wbg = np.pi / (PLANCK * 8.0 * batch)
     bg_photons = (np.asarray(ibg, np.float64) * wbg
                   / np.asarray(cfg.freq, np.float64)).astype(np.float32)
-    total = per_freq * medium.nfreq
+    nfreq = medium.nfreq
     injected = np.float64(per_freq) * np.asarray(bg_photons, np.float64)
     if pmesh is not None:
         from ..parallel import product
         tabs, intf, escaped = product.run_freqs(
             pmesh, grid, medium, "bg", bg_photons, per_freq, tabs, intf,
             seed, lanes, per_freq_tally)
-        return tabs, intf, escaped, injected, total
-    physics = dict(kabs=medium.abs_gl, ksca=medium.sca_gl, csc=medium.csc,
-                   tw=medium.tw)
-    params = dict(photons=torch.as_tensor(bg_photons, device=grid.device),
-                  per_freq=per_freq, hi_base=stream_hi_base("bg"))
-    tabs, intf, escaped, _ = transport_run(
-        grid, physics, params, total, tabs, intf, seed, source_kind="bg",
-        nlanes=pool_lanes(lanes, total), per_freq_tally=per_freq_tally)
-    return tabs, intf, escaped.cpu().numpy(), injected, total
+        return tabs, intf, escaped, injected, per_freq * nfreq
+    sel = np.arange(nfreq) if sel is None else np.asarray(sel)
+    injected = _only(injected, sel)
+    params = dict(photons=torch.as_tensor(bg_photons, device=grid.device))
+    tabs, intf, st = _source_pass(
+        grid, medium, "bg", "bg", params, per_freq, sel, tabs, intf, seed,
+        lanes, per_freq_tally, physics_extra, split_max)
+    st["injected"] = injected
+    if passes is not None:
+        passes.append(st)
+    return tabs, intf, st["escaped"], injected, st["packets"]
+
+
+def _only(values, sel):
+    """values [NFREQ] with the channels outside sel zeroed."""
+    out = np.zeros_like(values)
+    out[sel] = values[sel]
+    return out
+
+
+def simulate_hpbg(grid, medium, cfg, hpbg, tabs, intf, seed,
+                  lanes=DEFAULT_LANES, per_freq_tally=False, weighted=False,
+                  sel=None, physics_extra=None, split_max=0, passes=None):
+    """Phase-1 Healpix-sky background (SimRAM_HP), soc_tpu's
+    simulate_hpbg in one mixed pool over the channels ``sel``.
+
+    hpbg : [NFREQ, NPIX] sky intensities; photons a packet =
+    (pi AREA / (PLANCK BGPAC)) / freq * HPBG[pix] (ASOC.py:1050-1063);
+    ``weighted`` (`hpbgw`) draws pixels with probability ~ HPBG clipped
+    to 1e-3..1e4 of its mean and corrects the weights by
+    (1/NPIX) / p(pixel). Returns (tabs, intf, escaped[NF], injected[NF])
+    and appends its stats to ``passes``."""
+    area = grid.area
+    per_freq = max(1, int(cfg.bgpac))
+    wbg = np.pi * area / (PLANCK * per_freq)
+    nfreq = medium.nfreq
+    freq = np.asarray(cfg.freq, np.float64)
+    sel = np.arange(nfreq) if sel is None else np.asarray(sel)
+    npx = hpbg.shape[1]
+    table = np.zeros((nfreq, npx), np.float32)
+    injected = np.zeros(nfreq)
+    cdf = None
+    if weighted:
+        # channel f's float32 cdf at 2 f + cdf_f in float64 (exact), so
+        # one sorted search serves every lane in its own channel
+        cdf = np.repeat(2.0 * np.arange(nfreq), npx).reshape(nfreq, npx)
+    for i in sel:
+        vals = np.asarray(hpbg[i], np.float64) * (wbg / freq[i])
+        if weighted:
+            p = vals / max(vals.mean(), 1e-300)
+            p = np.clip(p, 1e-3, 1e4)
+            p /= p.sum()
+            w = (1.0 / npx) / p                  # packet weight correction
+            c = np.cumsum(p)
+            c[-1] = 1.00001
+            table[i] = (vals * w).astype(np.float32)
+            cdf[i] += c.astype(np.float32)
+            injected[i] = np.sum(p * (vals * w))
+        else:
+            table[i] = vals.astype(np.float32)
+            injected[i] = float(np.asarray(hpbg[i], np.float64).mean()
+                                * (wbg / freq[i]))
+    device = grid.device
+    params = dict(hpbg=torch.as_tensor(table, device=device))
+    if weighted:
+        params["cdf"] = torch.as_tensor(cdf.reshape(-1), device=device)
+    tabs, intf, st = _source_pass(
+        grid, medium, "hpbg", "hpbg", params, per_freq, sel, tabs, intf,
+        seed, lanes, per_freq_tally, physics_extra, split_max)
+    st["injected"] = injected * per_freq
+    if passes is not None:
+        passes.append(st)
+    return tabs, intf, st["escaped"], st["injected"]
+
+
+def point_source_tables(grid, cfg):
+    """The PS_METHOD's host tables for gen_point_source (NumPy)."""
+    if cfg.ps_method == 2:
+        nside, side, area = sources.analyse_external_point_sources(
+            grid, cfg.ps_pos)
+        return dict(xps_nside=nside, xps_side=side, xps_area=area)
+    if cfg.ps_method == 3:
+        bins3, prob3 = sources.healpix_visibility(grid, cfg.ps_pos)
+        return dict(ps3_pix=bins3, ps3_p=prob3)
+    if cfg.ps_method in (4, 5):
+        side, cone = sources.illumination_cones(grid, cfg.ps_pos)
+        return dict(cone_side=side, cone_cos=cone)
+    if cfg.ps_method == 1:
+        return dict(halfspace=1)
+    return {}
+
+
+def simulate_point_sources(grid, medium, cfg, lps, tabs, intf, seed,
+                           lanes=DEFAULT_LANES, per_freq_tally=False,
+                           sel=None, physics_extra=None, passes=None):
+    """Phase-1 point sources (soc_tpu's simulate_point_sources) in one
+    mixed pool over the channels ``sel``: PSPAC packets a source and a
+    channel, photons = L / (PLANCK PSPAC (GL PARSEC)^2) / freq, the
+    PS_METHOD's tables for external sources. Returns
+    (tabs, intf, escaped[NF], injected[NF]) and appends its stats to
+    ``passes``."""
+    nfreq = medium.nfreq
+    if cfg.no_ps < 1 or cfg.pspac < 1:
+        return tabs, intf, np.zeros(nfreq), np.zeros(nfreq)
+    pspac = max(1, cfg.pspac)
+    wps = 1.0 / (PLANCK * pspac * (cfg.gl * PARSEC) ** 2)
+    freq = np.asarray(cfg.freq, np.float64)
+    ps_photons = (np.asarray(lps, np.float64) * wps
+                  / freq[None, :]).astype(np.float32)    # [NO_PS, NFREQ]
+    sel = np.arange(nfreq) if sel is None else np.asarray(sel)
+    device = grid.device
+    params = dict(ps_pos=torch.as_tensor(np.asarray(cfg.ps_pos, np.float32),
+                                         device=device),
+                  photons=torch.as_tensor(ps_photons, device=device))
+    for k, v in point_source_tables(grid, cfg).items():
+        params[k] = v if k == "halfspace" else torch.as_tensor(
+            v, device=device)
+    tabs, intf, st = _source_pass(
+        grid, medium, "ps", "ps", params, pspac * cfg.no_ps, sel, tabs,
+        intf, seed, lanes, per_freq_tally, physics_extra)
+    st["injected"] = _only(
+        np.sum(np.asarray(ps_photons, np.float64), axis=0) * pspac, sel)
+    if passes is not None:
+        passes.append(st)
+    return tabs, intf, st["escaped"], st["injected"]
+
+
+def read_diffuse_field(path, cells):
+    """Read the diffuse-emission file: int32 [CELLS, NF'] header + float32
+    payload, photons/Hz/cm^3 per cell (mmap_diffuserad,
+    ASOC_aux.py:839-868). NF' may be smaller than NFREQ; the stored values
+    are then the highest frequencies."""
+    with open(path, "rb") as fp:
+        c, nf = np.fromfile(fp, np.int32, 2)
+        if c != cells:
+            raise ValueError("%s: %d cells != model %d" % (path, c, cells))
+        data = np.fromfile(fp, np.float32).reshape(int(c), int(nf))
+    return data
+
+
+def simulate_diffuse(grid, medium, cfg, diffuserad, tabs, intf, seed,
+                     lanes=DEFAULT_LANES, per_freq_tally=False, sel=None,
+                     physics_extra=None, passes=None):
+    """Phase-1 diffuse volume emission (SimRAM_CL SOURCE==2, ASOC.py:
+    1250-1272), soc_tpu's simulate_diffuse in one mixed pool.
+
+    diffuserad : [CELLS, NF'] photons/Hz/cm^3, aligned on the highest
+    frequencies. A cell's photon load is DIFFUSERAD * K_DIFFUSE *
+    GL*PARSEC / 8^level (the cell-volume weighting); DFPAC (else CLPAC)
+    // CELLS packets a cell, or with `emweight` soc_tpu's phase-1 EMWEI
+    allocation (clip and roulette, a Philox generator keyed by the seed,
+    one allocation every EMWEIGHT_SKIP-th simulated channel), the
+    channels' id -> cell maps end to end. Returns
+    (tabs, intf, escaped[NF], injected[NF]) and appends its stats to
+    ``passes``."""
+    nfreq = medium.nfreq
+    cells = grid.cells
+    nf_d = diffuserad.shape[1]
+    dfpac = cfg.dfpac if cfg.dfpac > 0 else cfg.clpac
+    per_cell = max(1, int(dfpac) // cells)
+    per_freq = per_cell * cells
+    lev = equilibrium.cell_levels(grid).cpu().numpy()
+    coeff = (cfg.k_diffuse * cfg.gl * PARSEC / 8.0 ** lev).astype(np.float64)
+    injected = np.zeros(nfreq)
+    use_ew = cfg.use_emweight > 0
+    cols_np = {}               # float64 columns kept only for EMWEI
+    emit = np.zeros((cells, nfreq), np.float32)
+    mask = np.zeros(nfreq, bool)
+    for ifreq in range(nfreq):
+        dr_ind = ifreq + (nf_d - nfreq)     # highest frequencies stored
+        if dr_ind < 0:
+            continue
+        col = np.asarray(diffuserad[:, dr_ind], np.float64) * coeff
+        if use_ew:
+            cols_np[ifreq] = col
+        emit[:, ifreq] = (col / per_cell).astype(np.float32)
+        injected[ifreq] = col.sum()
+        mask[ifreq] = True
+    if sel is not None:
+        mask &= np.isin(np.arange(nfreq), sel)
+    injected[~mask] = 0.0
+    sel = np.nonzero(mask)[0]
+    device = grid.device
+    params = dict(per_cell=per_cell)
+    counts = per_freq
+    if use_ew:
+        # EMWEI on the diffuse source (ASOC.py:1277-1292: clip and
+        # roulette only, budget DFPAC, EMWEIGHT_SKIP reuse over the
+        # simulated channels)
+        rng = np.random.Generator(np.random.Philox(
+            key=np.uint64([int(seed) & 0xFFFFFFFF, 0xD1FF])))
+        last = None
+        skipn = max(1, int(cfg.emweight_skip))
+        maps, counts = [], []
+        for kth, i in enumerate(sel):
+            if last is None or kth % skipn == 0:
+                last = emweight_allocation(
+                    cols_np[i], int(dfpac), lims=cfg.emweight_lim[:2],
+                    rng=rng)
+            cell_of_id, weight, total = last
+            emit[:, i] = (cols_np[i] * weight).astype(np.float32)
+            maps.append(cell_of_id)
+            counts.append(total)
+        params = dict(cell_of_id=torch.as_tensor(
+            np.concatenate(maps) if maps else np.zeros(1, np.int32),
+            device=device))
+    params["emit"] = torch.as_tensor(emit, device=device)
+    tabs, intf, st = _source_pass(
+        grid, medium, "cell", "diffuse", params, counts, sel, tabs, intf,
+        seed, lanes, per_freq_tally, physics_extra)
+    if use_ew:
+        st["route"] = "emweight"
+    st["injected"] = injected
+    if passes is not None:
+        passes.append(st)
+    return tabs, intf, st["escaped"], injected
 
 
 def emweight_allocation(emit_col, clpac, lims=(0.0, 1e10), rng=None,
@@ -318,7 +616,7 @@ def _emweight_allocs(emitted_np, cfg, rng, nfreq):
 
 def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
                            lanes=DEFAULT_LANES, per_freq_tally=False,
-                           iteration=0):
+                           iteration=0, physics_extra=None):
     """Phase-2 dust re-emission (SimRAM_CL), one pass.
 
     emitted : [CELLS, NFREQ] photons/Hz/H per cell (a device tensor; a
@@ -348,8 +646,7 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
     device = grid.device
     nfreq = medium.nfreq
     hi_base = stream_hi_base("cell", iteration)
-    physics = dict(kabs=medium.abs_gl, ksca=medium.sca_gl, csc=medium.csc,
-                   tw=medium.tw)
+    physics = _physics(medium, physics_extra)
     emitted = torch.as_tensor(emitted, device=device)
     run_intf = intf
     if per_freq_tally:
@@ -428,7 +725,8 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
                  injected_abs=inj_abs.cpu().numpy(), escaped=escaped,
                  absorbed=None)
     if per_freq_tally:
-        stats["absorbed"] = intf.sum(0, dtype=torch.float64).cpu().numpy()
+        stats["absorbed"] = _absorbed_of(intf).sum(
+            0, dtype=torch.float64).cpu().numpy()
         intf = run_intf.add_(intf)
     stats["seconds"] = time.time() - t0
     return tabs, intf, escaped, xab, stats
@@ -485,20 +783,30 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     cfg.nfreq = len(freq)
     nfreq = len(freq)
     bins = cfg.dsc_bins if cfg.dsc_bins > 0 else 2500
-    dsc, csc = read_scattering_function(cfg.file_scafunc[0], nfreq, bins)
+    abu = read_abundances(cfg, grid.cells, len(optics))
+    # MSF takes one scattering function a dust; otherwise only the first
+    # file is read
+    scafuncs = [read_scattering_function(f, nfreq, bins)
+                for f in (cfg.file_scafunc if abu is not None
+                          else cfg.file_scafunc[:1])]
+    dsc, csc = scafuncs[0]
     medium = medium_from_optics(optics, dsc, csc, device, freq)
     pmesh = _product_setup(cfg, nfreq, device, devices)
     if pmesh is not None and cell_emission_features(cfg):
         raise NotImplementedError(
             "not supported by soc_tpu_torch yet under `devices`: cell "
             "emission (%s)" % ", ".join(cell_emission_features(cfg)))
+    if pmesh is not None and mesh_refused_features(cfg):
+        raise NotImplementedError(
+            "not supported by soc_tpu_torch yet under `devices`: %s"
+            % ", ".join(mesh_refused_features(cfg)))
+    physics_extra = abundance_physics(cfg, optics, scafuncs, abu, device)
     res.grid, res.medium, res.freq = grid, medium, freq
     res.devices = None if pmesh is None else pmesh.devices
     seed = res.seed = int(np.uint32(max(0.0, cfg.seed) * 2**31)
                           + np.uint32(12345))
     timings["input"] = time.time() - t0
     gl_cm = cfg.gl * PARSEC
-
     if write_files:
         np.asarray([cfg.bgpac, cfg.pspac, cfg.dfpac, cfg.clpac],
                    np.int32).tofile("packet.info")
@@ -517,6 +825,8 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
         res.injected = np.zeros(nfreq)
         if write_files and cfg.file_emitted:
             _write_emitted_file(cfg, freq, res.emitted)
+        # as soc_tpu, the loadtemp and map-only modes render with the
+        # medium's extinction, not WITH_ABU's per-cell one
         _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
                       timings, pmesh)
         timings["total"] = time.time() - t_start
@@ -544,39 +854,80 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
         timings["total"] = time.time() - t_start
         return res
 
-    # ---- phase 1: the isotropic background
+    # ---- phase 1: the constant sources
     t0 = time.time()
-    per_freq_tally = not cfg.noabsorbed
+    per_freq_tally = (not cfg.noabsorbed) or cfg.save_intensity > 0
     tabs = torch.zeros(grid.cells, dtype=torch.float32, device=device)
     if pmesh is not None and per_freq_tally:
         # dp-partial per-frequency slabs, one per shard on its device
         intf = pmesh.zeros_intf(grid.cells)
     else:
-        intf = torch.zeros((grid.cells, nfreq) if per_freq_tally else (1, 1),
-                           dtype=torch.float32, device=device)
+        shape = (1, 1)
+        if cfg.save_intensity == 2:
+            shape = (grid.cells, nfreq, 4)      # (I, Ix, Iy, Iz)
+        elif per_freq_tally:
+            shape = (grid.cells, nfreq)
+        intf = torch.zeros(shape, dtype=torch.float32, device=device)
+    # `simum`: only the channels inside the band are simulated
+    sel = np.nonzero((freq >= cfg.sim_f[0]) & (freq <= cfg.sim_f[1]))[0]
     escaped = np.zeros(nfreq)
     injected = np.zeros(nfreq)
+    packets = 0
+    kw = dict(sel=sel, physics_extra=physics_extra,
+              passes=res.source_passes)
+    split_max = split_max_of(cfg, grid)
     if cfg.file_constant_load:
         # CLOAD: the constant sources are not simulated; their integrated
         # heating comes from a previous run's csave file (ASOC.py:1013-1020)
         tabs = torch.as_tensor(np.fromfile(cfg.file_constant_load,
                                            np.float32, grid.cells),
                                device=device)
-    elif cfg.bgpac > 0 and cfg.file_background:
-        ibg = read_background_intensity(cfg.file_background, nfreq)
-        ibg = ibg * cfg.scale_background
-        tabs, intf, esc, inj, npk = simulate_background(
-            grid, medium, cfg, ibg, tabs, intf, seed, lanes, per_freq_tally,
-            pmesh)
-        escaped += esc
-        injected += inj
-        res.packets = npk
+    else:
+        if cfg.bgpac > 0 and cfg.file_background:
+            ibg = read_background_intensity(cfg.file_background, nfreq)
+            ibg = ibg * cfg.scale_background
+            tabs, intf, esc, inj, packets = simulate_background(
+                grid, medium, cfg, ibg, tabs, intf, seed, lanes,
+                per_freq_tally, pmesh, split_max=split_max, **kw)
+            escaped += esc
+            injected += inj
+        if cfg.bgpac > 0 and cfg.file_hpbg:
+            hpbg = np.fromfile(cfg.file_hpbg, np.float32).reshape(nfreq, -1)
+            hpbg = hpbg * cfg.scale_background
+            tabs, intf, esc, inj = simulate_hpbg(
+                grid, medium, cfg, hpbg, tabs, intf, seed + 3, lanes,
+                per_freq_tally, cfg.has_key("hpbgw"), split_max=split_max,
+                **kw)
+            escaped += esc
+            injected += inj
+        if cfg.no_ps > 0 and cfg.pspac > 0:
+            lps = np.zeros((cfg.no_ps, nfreq), np.float32)
+            for i, f in enumerate(cfg.file_pointsource):
+                lps[i] = np.fromfile(f, np.float32, nfreq) * cfg.ps_scale[i]
+            tabs, intf, esc, inj = simulate_point_sources(
+                grid, medium, cfg, lps, tabs, intf, seed, lanes,
+                per_freq_tally, **kw)
+            escaped += esc
+            injected += inj
+        if cfg.file_diffuse and (cfg.dfpac > 0 or cfg.clpac > 0):
+            diffuserad = read_diffuse_field(cfg.file_diffuse, grid.cells)
+            tabs, intf, esc, inj = simulate_diffuse(
+                grid, medium, cfg, diffuserad, tabs, intf, seed + 5, lanes,
+                per_freq_tally, **kw)
+            escaped += esc
+            injected += inj
     if pmesh is not None and per_freq_tally:
         intf = pmesh.reduce_intf(intf, device)
     _sync(device)
+    # traced in phase 1 (over the mesh: the background's own count)
+    res.packets = sum(st["packets"] for st in res.source_passes) \
+        if res.source_passes else packets
     res.ctabs = tabs.cpu().numpy()
     res.escaped = escaped
     res.injected = injected
+    if res.source_passes:
+        res.launched = sum(st["launched"] for st in res.source_passes)
+        res.missed = sum(st["missed"] for st in res.source_passes)
     if write_files and cfg.file_constant_save:
         # CSAVE: bare float32 [CELLS] integrated constant heating
         res.ctabs.astype(np.float32).tofile(cfg.file_constant_save)
@@ -593,7 +944,8 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
             else _iterations
         temperature, emitted, intf = phase2(
             cfg, grid, medium, optics, table, tabs, intf, seed, lanes,
-            per_freq_tally, freq, gl_cm, write_files, res, pmesh)
+            per_freq_tally, freq, gl_cm, write_files, res, pmesh,
+            physics_extra)
         res.temperature = temperature.cpu().numpy()
         res.emitted = emitted.cpu().numpy()
     timings["solve"] = time.time() - t0
@@ -601,19 +953,118 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     # ---- outputs (reference end-of-run scaling)
     t0 = time.time()
     if per_freq_tally:
-        res.absorbed_photons = intf.sum(0, dtype=torch.float64).cpu().numpy()
-        res.absorbed = _scaled_absorbed(grid, intf, gl_cm, cfg.nnn_limit)
-        if write_files and cfg.file_absorbed:
-            write_cell_frequency_array(cfg.file_absorbed, res.absorbed)
+        absorbed = _absorbed_of(intf)
+        res.absorbed_photons = absorbed.sum(
+            0, dtype=torch.float64).cpu().numpy()
+        if cfg.save_intensity > 0:
+            res.intensity = _intensity(grid, medium, freq, intf)
+            if write_files:
+                _write_intensity(cfg.file_intensity, res.intensity)
+        if not cfg.noabsorbed:
+            res.absorbed = _scaled_absorbed(grid, absorbed, gl_cm,
+                                            cfg.nnn_limit)
+            if write_files and cfg.file_absorbed:
+                write_cell_frequency_array(cfg.file_absorbed, res.absorbed)
     if write_files and temperature is not None and cfg.file_temperature:
         write_cell_field(cfg.file_temperature, grid, res.temperature)
     if write_files and emitted is not None and cfg.file_emitted:
         _write_emitted_file(cfg, freq, res.emitted)
+    ext_cells = None
+    if abu is not None:
+        abs_d = np.stack([np.asarray(o.abs_gl) for o in optics])
+        sca_d = np.stack([np.asarray(o.sca_gl) for o in optics])
+        ext_cells = (abu @ (abs_d + sca_d)).astype(np.float32)
     timings["outputs"] = time.time() - t0
     _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
-                  timings, pmesh)
+                  timings, pmesh, ext_cells)
     timings["total"] = time.time() - t_start
     return res
+
+
+def _absorbed_of(intf):
+    """The absorption tally [CELLS, NFREQ] of a per-frequency tally: the
+    I component of saveint 2's (I, Ix, Iy, Iz) tally."""
+    return intf[..., 0] if intf.ndim == 3 else intf
+
+
+def _intensity(grid, medium, freq, intf):
+    """The intensity output for DustEM coupling (SAVE_INTENSITY,
+    ASOC.py:1496-1505, 2733-2760), host NumPy as soc_tpu computes it:
+    I[cell, f] = (PLANCK FREQ / ABS_f) 8^level INT / DENS, zero on cells
+    of no density; saveint 2's direction moments (Ix, Iy, Iz) divided by
+    the total intensity."""
+    lev = equilibrium.cell_levels(grid).cpu().numpy()
+    dens = grid.dens.cpu().numpy()
+    absf = medium.abs_gl.cpu().numpy().astype(np.float64)
+    coeff = (PLANCK * np.asarray(freq, np.float64)[None, :]
+             / np.maximum(absf, 1e-300)[None, :] * (8.0 ** lev)[:, None])
+    raw = intf.cpu().numpy()
+    if raw.ndim == 3:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            intensity = (coeff[:, :, None] * raw
+                         / np.maximum(dens, 1e-35)[:, None, None])
+        intensity[dens <= 0.0] = 0.0
+        for k in (1, 2, 3):
+            intensity[:, :, k] /= intensity[:, :, 0] + 1e-33
+    else:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            intensity = coeff * raw / np.maximum(dens, 1e-35)[:, None]
+        intensity[dens <= 0.0] = 0.0
+    return intensity.astype(np.float32)
+
+
+def _write_intensity(path, intensity):
+    """The intensity file: [CELLS, NFREQ] as absorbed.data, or saveint 2's
+    int32 [CELLS, NFREQ, 4] header and float32 payload."""
+    if intensity.ndim == 2:
+        write_cell_frequency_array(path, intensity)
+        return
+    with open(path, "wb") as fp:
+        np.asarray(intensity.shape, np.int32).tofile(fp)
+        intensity.tofile(fp)
+
+
+def read_abundances(cfg, cells, ndust):
+    """[CELLS, NDUST] float32 abundances of `abundance` (a file a dust;
+    a missing or '#' entry keeps 1), or None for a single dust or without
+    the keyword (soc_tpu's WITH_ABU condition)."""
+    if ndust < 2 or not cfg.file_abundance:
+        return None
+    abu = np.ones((cells, ndust), np.float32)
+    for d, path in enumerate(cfg.file_abundance[:ndust]):
+        if path and not path.startswith("#"):
+            abu[:, d] = np.fromfile(path, np.float32, cells)
+    return abu
+
+
+def abundance_physics(cfg, optics, scafuncs, abu, device):
+    """The transport's per-cell tables of WITH_ABU (ASOC.py:1146-1175):
+    opt_abs / opt_sca [CELLS, NFREQ] = ABU @ the dusts' cross sections,
+    each column formed as soc_tpu forms it (a float32 matmul, no TF32),
+    stored bfloat16 under `optishalf`; with one scattering function a
+    dust, MSF's msf_csc [NDUST, NFREQ, BINS], msf_abu and msf_sca
+    [NFREQ, NDUST]. None without abundances."""
+    if abu is None:
+        return None
+    abs_d = np.stack([np.asarray(o.abs_gl, np.float32) for o in optics])
+    sca_d = np.stack([np.asarray(o.sca_gl, np.float32) for o in optics])
+    abu_t = torch.as_tensor(abu, device=device)
+    dtype = torch.bfloat16 if cfg.optishalf else torch.float32
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = dict(opt_abs=(abu_t @ torch.as_tensor(abs_d, device=device)
+                            ).to(dtype),
+                   opt_sca=(abu_t @ torch.as_tensor(sca_d, device=device)
+                            ).to(dtype))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if len(scafuncs) == len(optics):
+        out.update(msf_csc=torch.as_tensor(
+            np.stack([c for _, c in scafuncs]).astype(np.float32),
+            device=device), msf_abu=abu_t,
+            msf_sca=torch.as_tensor(sca_d.T.copy(), device=device))
+    return out
 
 
 def _remit_band(cfg, freq, emitted):
@@ -643,7 +1094,8 @@ def _solve_and_emit(grid, table, heating, gl_cm, freq, abs_gl, cfg, pmesh,
 
 
 def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
-                per_freq_tally, freq, gl_cm, write_files, res, pmesh):
+                per_freq_tally, freq, gl_cm, write_files, res, pmesh,
+                physics_extra=None):
     """Phase 2's iterations (soc_tpu driver.py:1512-1691): with cell
     packets each iteration after the first re-emits the previous
     iteration's emission and solves again on the total heating.
@@ -696,7 +1148,8 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
                                   device=device)
             tabs_it, intf, _, xab, stats = simulate_cell_emission(
                 grid, medium, cfg, sim_emit, tabs_it, intf, seed, lanes,
-                per_freq_tally, iteration=iteration)
+                per_freq_tally, iteration=iteration,
+                physics_extra=physics_extra)
             res.cell_passes.append(stats)
             if delta_sim:
                 tabs_it = tabs_it + otabs
@@ -749,7 +1202,7 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
 
 def _subiterations(cfg, grid, medium, optics, table, ctabs, intf, seed,
                    lanes, per_freq_tally, freq, gl_cm, write_files, res,
-                   pmesh):
+                   pmesh, physics_extra=None):
     """SUBITERATIONS: hot/cold cells with the reference field
     (soc_tpu driver.py:1773-1871, ASOC.py:2261-2420). Over
     max(4, ITERATIONS) rounds:
@@ -800,7 +1253,8 @@ def _subiterations(cfg, grid, medium, optics, table, ctabs, intf, seed,
                                    [:, None], 0.0, emitted - oemitted)
             tabs_it, intf, _, _, stats = simulate_cell_emission(
                 grid, medium, cfg, sim_emit, zeros.clone(), intf, seed,
-                lanes, per_freq_tally, iteration=iteration)
+                lanes, per_freq_tally, iteration=iteration,
+                physics_extra=physics_extra)
             res.cell_passes.append(stats)
             if iteration == 1:
                 ptabs = tabs_it
@@ -821,10 +1275,12 @@ def _subiterations(cfg, grid, medium, optics, table, ctabs, intf, seed,
 
 
 def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
-                  timings, pmesh=None):
+                  timings, pmesh=None, ext_cells=None):
     """Phase 3: orthographic frequency-fused maps, map_dir_XX.bin.
 
-    emitted: [CELLS, NFREQ] host array or device tensor (or None).
+    emitted: [CELLS, NFREQ] host array or device tensor (or None);
+    ext_cells: WITH_ABU's per-cell extinction [CELLS, NFREQ] (host), or
+    None for the medium's.
     With `threshold L` the maps take no emission from cells on levels
     below L: they still absorb along the line of sight
     (kernel_ASOC_map.c:825-839).
@@ -860,9 +1316,13 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
     scale = torch.as_tensor((kk * freq_s).astype(np.float32), device=device)
     sel_idx = torch.as_tensor(np.nonzero(fsel)[0], device=device)
     emit_map = emitted[:, sel_idx].to(torch.float32) * scale[None, :]
-    ext_gl = torch.as_tensor(
-        (medium.abs_gl.cpu().numpy() + medium.sca_gl.cpu().numpy())[fsel],
-        device=device)
+    if ext_cells is not None:
+        # WITH_ABU: each cell's own extinction [CELLS, NF]
+        ext_gl = torch.as_tensor(ext_cells[:, fsel], device=device)
+    else:
+        ext_gl = torch.as_tensor(
+            (medium.abs_gl.cpu().numpy()
+             + medium.sca_gl.cpu().numpy())[fsel], device=device)
     for idir in range(len(cfg.obs_theta)):
         odir, ra, de = render_mapping.observer_basis(cfg.obs_theta[idir],
                                                      cfg.obs_phi[idir])

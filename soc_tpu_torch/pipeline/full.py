@@ -94,6 +94,19 @@ def build_components(cfg, freq, ne=128):
     return comps
 
 
+def read_abundances(cfg, cells, ndust):
+    """[CELLS, NDUST] abundances for the emission stage (soc_tpu's
+    full.read_abundances: a file a dust, '#' keeps 1), or None without
+    the `abundance` keyword."""
+    if not cfg.file_abundance:
+        return None
+    abu = np.ones((cells, ndust), np.float32)
+    for d, path in enumerate(cfg.file_abundance):
+        if path and not path.startswith("#"):
+            abu[:, d] = np.fromfile(path, np.float32, cells)
+    return abu
+
+
 def _simple_dust_substitutes(cfg):
     """The RT and map stages need simple-dust optics: swap every gset dust
     for its <name>_simple.dust ('gs_' prefix dropped), generating the file
@@ -178,7 +191,8 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, devices):
     valid = absorbed[:, 0] > -1e19
     abs_clean = np.where(valid[:, None], absorbed, 0.0).astype(np.float32)
     t0 = time.time()
-    emitted = mabu.solve_emission_multi(comps, abs_clean, device,
+    abu = read_abundances(cfg, absorbed.shape[0], len(comps))
+    emitted = mabu.solve_emission_multi(comps, abs_clean, device, abu=abu,
                                         devices=res_rt.devices)
     t_a2e = time.time() - t0
     emitted[~valid] = 0.0

@@ -63,7 +63,8 @@ def render_ortho(grid, emit_map, ext_gl, odir, ra, de, centre, map_dx,
     """Orthographic multi-frequency map.
 
     emit_map : [CELLS, NF] emission pre-scaled by KK*freq (Jy/sr out)
-    ext_gl   : [NF] extinction (abs+sca) / unit density / GL
+    ext_gl   : [NF] extinction (abs+sca) / unit density / GL, or
+               [CELLS, NF] each cell's own (WITH_ABU)
     odir, ra, de : float32 [3] host arrays from observer_basis
     row0, nrows : render only map rows [row0, row0 + nrows) (all by
         default); NY is then nrows in the outputs
@@ -101,7 +102,7 @@ def render_ortho(grid, emit_map, ext_gl, odir, ra, de, centre, map_dx,
     tau = torch.zeros((npixels, nf), dtype=torch.float32, device=device)
     phot = torch.zeros_like(tau)
     colden = torch.zeros(npixels, dtype=torch.float32, device=device)
-    ext_row = ext_gl[None, :]
+    ext_row = ext_gl[None, :] if ext_gl.ndim == 1 else None
 
     for it in range(max_steps):
         if it % CHECK_EVERY == 0 and not bool((ind >= 0).any().item()):
@@ -116,7 +117,7 @@ def render_ortho(grid, emit_map, ext_gl, odir, ra, de, centre, map_dx,
         npos = traverse.failed_step_nudge(npos, step_dir, failed)
         w = torch.where(active, ds, 0.0)
         wd = (w * dens)[:, None]
-        dtau = wd * ext_row
+        dtau = wd * (ext_gl[gidx, :] if ext_row is None else ext_row)
         attw = torch.where(dtau < 1.0e-3, 1.0 - 0.5 * dtau,
                            (1.0 - torch.exp(-dtau))
                            / torch.clamp_min(dtau, 1e-30))

@@ -103,3 +103,16 @@ def step_uniforms(seed, stream, counter, hi):
     u_bin = (b1 >> 16).to(torch.float32) * (1.0 / 65536.0)
     u_phi = (b1 & 0xFFFF).to(torch.float32) * (1.0 / 65536.0)
     return u_fp, u_bin, u_phi
+
+
+def step_uniforms4(seed, stream, counter, hi):
+    """step_uniforms plus a fourth draw (the WITH_MSF species roulette)
+    from a second evaluation at the odd slot; the first three values are
+    step_uniforms' own."""
+    c1 = _slot(counter)
+    b0, b1 = threefry2x32(seed, hi, stream, c1)
+    b2, _ = threefry2x32(seed, hi, stream, (c1 + 1) & MASK32)
+    u_fp = _bits_to_unit(b0)
+    u_bin = (b1 >> 16).to(torch.float32) * (1.0 / 65536.0)
+    u_phi = (b1 & 0xFFFF).to(torch.float32) * (1.0 / 65536.0)
+    return u_fp, u_bin, u_phi, _bits_to_unit(b2)

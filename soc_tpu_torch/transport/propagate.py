@@ -1,6 +1,7 @@
 """Photon-packet propagation: the hot loop (port of
 soc_tpu.transport.propagate: the mixed-frequency pool, with the ALI
-self-absorption tally).
+self-absorption tally, in-flight packet splitting, per-cell cross sections
+(WITH_ABU, MSF) and the (I, Ix, Iy, Iz) intensity tally).
 
 A fixed pool of packet lanes is stepped in eager PyTorch. Each *march*
 step advances every live lane by one event (a cell-boundary crossing or the
@@ -30,6 +31,16 @@ With ALI (``with_ali``) a deposit into the cell that emitted the packet
 instead of ``tabs``: soc_tpu sends it out of bounds in the one and into
 range in the other; here both tallies take the add at the same index, the
 one of them 0.0.
+
+Splitting (``split_max``, refined clouds only): a packet that descends
+into a finer level halves its weight and posts its state as a clone
+request; at most one request per lane is in flight, and the next refill
+body serves requests into dead lanes before it draws fresh packets. The
+clone keeps the donor's (stream, hi), draws from the counter block
+64 * path (path: the split-path bits, a 32-bit word that wraps as soc_tpu's
+uint32 does) and re-samples its entry point over the crossed octet face.
+Whether a packet splits depends on how many lanes are dead at each refill,
+so split runs reproduce soc_tpu's only at the same lane count.
 
 Physics per step (kernel_ASOC.c semantics):
   * step to the next cell boundary; tau_abs = ds*n*k_abs, tau_sca = ds*n*k_sca
@@ -129,6 +140,124 @@ def make_dead(n, levels, device):
                         device=device))
 
 
+SPLIT_CAP = 26      # path * 64 must stay in 32 bits (soc_tpu's cap)
+_SPLIT_FIELDS = ("pos", "dir", "level", "ind", "photons", "ifreq", "stream",
+                 "hi", "path", "depth", "face", "anc")
+
+
+def init_split_state(nlanes, levels, device):
+    """Fresh per-lane split bookkeeping: each lane's clone request (the
+    state it posted, its split path and depth, the crossed face), the
+    lane's own depth and path, the pending flags and the clones served."""
+    zi = torch.zeros(nlanes, dtype=torch.int64, device=device)
+    z3 = torch.zeros((nlanes, 3), dtype=torch.float32, device=device)
+    return dict(anc=torch.zeros((nlanes, max(levels - 1, 1)),
+                                dtype=torch.int64, device=device),
+                pos=z3, dir=z3, level=zi, ind=zi,
+                photons=torch.zeros(nlanes, dtype=torch.float32,
+                                    device=device),
+                ifreq=zi, stream=zi, hi=zi, path=zi, depth=zi, face=zi,
+                lane_depth=zi, lane_path=zi,
+                pending=torch.zeros(nlanes, dtype=torch.bool, device=device),
+                clones=torch.zeros((), dtype=torch.int64, device=device))
+
+
+def post_clones(sp, is_link, pos, level, ind, anc, photons, b, split_max):
+    """The march's split: a lane descending into a finer level (is_link)
+    with no request in flight and depth left halves its weight and posts
+    its new state as a clone request. Updates sp in place; returns the
+    lanes' photons."""
+    want = is_link & ~sp["pending"] & (sp["lane_depth"] < split_max)
+    photons = torch.where(want, 0.5 * photons, photons)
+    depth_new = sp["lane_depth"] + want.to(torch.int64)
+    # crossing axis: the octet coordinate closest to a face
+    face = torch.argmin(torch.minimum(pos, 2.0 - pos), dim=1)
+    bit = torch.bitwise_left_shift(torch.ones_like(depth_new),
+                                   (depth_new - 1).clamp(0, 31))
+    new = dict(pos=pos, dir=b.dir, level=level, ind=ind, photons=photons,
+               ifreq=b.ifreq, stream=b.stream, hi=b.hi,
+               path=(sp["lane_path"] | bit) & socrng.MASK32,
+               depth=depth_new, face=face, anc=anc)
+    for k in _SPLIT_FIELDS:
+        w = want if new[k].ndim == 1 else want[:, None]
+        sp[k] = torch.where(w, new[k], sp[k])
+    sp["pending"] = sp["pending"] | want
+    sp["lane_depth"] = depth_new
+    return photons
+
+
+def serve_clones(seed, st):
+    """Serve pending clone requests into dead lanes, the k-th dead lane
+    (in lane order) taking the k-th request. The request-to-lane map is a
+    stable partition, pending lanes first, built by one scatter with
+    every index in range (soc_tpu drops the non-pending lanes out of
+    bounds). Updates st and st.sp in place."""
+    b, sp = st.b, st.sp
+    nlanes = b.lanes
+    dead = b.ind < 0
+    di = dead.to(torch.int64)
+    drank = torch.cumsum(di, 0) - di
+    pend = sp["pending"]
+    pi = pend.to(torch.int64)
+    prank = torch.cumsum(pi, 0) - pi
+    n_pend = pi.sum()
+    n_dead = di.sum()
+    lanes = torch.arange(nlanes, device=b.ind.device)
+    slot = torch.where(pend, prank, n_pend + lanes - prank)
+    donor_map = torch.empty_like(lanes).scatter_(0, slot, lanes)
+    adopt = dead & (drank < n_pend)
+    donor = donor_map[drank.clamp(0, nlanes - 1)]
+
+    def take(k):
+        return sp[k][donor]
+
+    stream, hi, dpos, dlevel, dind = (take("stream"), take("hi"),
+                                      take("pos"), take("level"),
+                                      take("ind"))
+    cbase = (take("path") * 64) & socrng.MASK32
+    # re-sample the clone's entry point over the crossed octet face
+    # (tangential coordinates uniform in [PEPS, 2 - PEPS]) from the
+    # clone's own counter block
+    u1, u2 = socrng.uniform2(seed, stream, cbase, hi)
+    axis = take("face")
+    span = 2.0 - 2.0 * PEPS
+    t1 = PEPS + span * u1
+    t2 = PEPS + span * u2
+    jpos = torch.stack([torch.where(axis == 0, dpos[:, 0], t1),
+                        torch.where(axis == 1, dpos[:, 1],
+                                    torch.where(axis == 0, t1, t2)),
+                        torch.where(axis == 2, dpos[:, 2], t2)], 1)
+    # below the root only: at level 0 keep the exact position
+    deep = dlevel > 0
+    jpos = torch.where(deep[:, None], jpos, dpos)
+    # the sub-cell index within the same octet
+    jind = torch.where(deep, dind - traverse._suboct(dpos)
+                       + traverse._suboct(jpos), dind)
+    al = adopt[:, None]
+    st.b = PacketBatch(
+        pos=torch.where(al, jpos, b.pos),
+        dir=torch.where(al, take("dir"), b.dir),
+        level=torch.where(adopt, dlevel, b.level),
+        ind=torch.where(adopt, jind, b.ind),
+        photons=torch.where(adopt, take("photons"), b.photons),
+        ifreq=torch.where(adopt, take("ifreq"), b.ifreq),
+        stream=torch.where(adopt, stream, b.stream),
+        hi=torch.where(adopt, hi, b.hi),
+        counter=torch.where(adopt, (cbase + 3) & socrng.MASK32, b.counter),
+        scatterings=torch.where(adopt, 0, b.scatterings),
+        e_cell=torch.where(adopt, -1, b.e_cell),
+        anc=torch.where(al, take("anc"), b.anc))
+    # the clone's birth free path, from slot cbase + 2
+    fp_u = socrng.uniform1(seed, stream, (cbase + 2) & socrng.MASK32, hi)
+    st.free_path = torch.where(adopt, -torch.log(fp_u), st.free_path)
+    st.tau = torch.where(adopt, 0.0, st.tau)
+    st.pending = st.pending & ~adopt
+    sp["lane_depth"] = torch.where(adopt, take("depth"), sp["lane_depth"])
+    sp["lane_path"] = torch.where(adopt, take("path"), sp["lane_path"])
+    sp["pending"] = pend & ~(prank < n_dead)
+    sp["clones"] = sp["clones"] + adopt.sum()
+
+
 @dataclass
 class PoolState:
     """Per-lane loop state besides the packets, plus the tallies
@@ -145,17 +274,25 @@ class PoolState:
     absd: torch.Tensor         # () float32 total deposited
     spare_cell: torch.Tensor   # [N] lane % CELLS: where inactive lanes add 0
     xab: torch.Tensor = None   # [CELLS] self-absorption tally (ALI) or None
+    sp: dict = None            # split state (init_split_state) or None
 
 
 class StepKit:
     """The march/service physics of transport_run over a PoolState.
 
     physics: dict with 'kabs', 'ksca', 'tw' [NFREQ] and 'csc'
-    [NFREQ, BINS]. Packets keep their frequency for life, so the per-lane
-    cross sections are gathered once per refill (``lane_const_of``)
-    rather than once per step."""
+    [NFREQ, BINS]; optionally, for per-cell abundances (WITH_ABU),
+    'opt_abs' and 'opt_sca' [CELLS, NFREQ] (float32 or bfloat16, widened
+    for the math: optishalf) in place of kabs and ksca, and for one
+    scattering function a species (MSF) 'msf_csc' [NDUST, NFREQ, BINS],
+    'msf_abu' [CELLS, NDUST] and 'msf_sca' [NFREQ, NDUST]. Packets keep
+    their frequency for life, so the per-lane constants are gathered once
+    per refill (``lane_const_of``) rather than once per step.
+    ncomp: 1 for a per-frequency tally of deposits, 4 for the (I, Ix, Iy,
+    Iz) tally of saveint 2 (deposit times (1, direction))."""
 
-    def __init__(self, grid, physics, seed, per_freq_tally, with_ali=False):
+    def __init__(self, grid, physics, seed, per_freq_tally, with_ali=False,
+                 split_max=0, ncomp=1):
         csc = physics["csc"]
         if csc.ndim != 2 or physics["kabs"].ndim != 1:
             raise NotImplementedError(
@@ -168,6 +305,11 @@ class StepKit:
         self.with_ali = with_ali
         self.bins = csc.shape[-1]
         self.nfreq = csc.shape[0]
+        self.ncomp = ncomp
+        self.opt = physics.get("opt_abs")
+        self.msf = "msf_csc" in physics
+        # soc_tpu caps the depth so that path * 64 stays in 32 bits
+        self.split_max = min(int(split_max), SPLIT_CAP)
 
     def lane_const_of(self, b):
         p = self.physics
@@ -183,10 +325,27 @@ class StepKit:
         phase-function lookup and the deflection for every frozen lane."""
         b = st.b
         act = st.pending & (b.ind >= 0)
-        u_fp, u_bin, u_phi = socrng.step_uniforms(self.seed, b.stream,
-                                                  b.counter, b.hi)
-        cos_theta = _csc_lookup(self.physics["csc"], b.ifreq, u_bin,
-                                self.bins)
+        if self.msf:
+            # WITH_MSF: the scattering species with probability
+            # ABU[cell, d] * SCA_d / sum (kernel_ASOC.c:786-795), then
+            # that species' phase function
+            u_fp, u_bin, u_phi, u_sp = socrng.step_uniforms4(
+                self.seed, b.stream, b.counter, b.hi)
+            p = self.physics
+            gidx = traverse._gidx(self.grid, b.level, b.ind.clamp_min(0))
+            cdf = torch.cumsum(p["msf_abu"][gidx] * p["msf_sca"][b.ifreq],
+                               1)
+            r = 0.99999 * u_sp * cdf[:, -1]
+            species = (cdf < r[:, None]).sum(1).clamp(
+                0, p["msf_csc"].shape[0] - 1)
+            bin_idx = (u_bin * self.bins).to(torch.int64).clamp(
+                0, self.bins - 1)
+            cos_theta = p["msf_csc"][species, b.ifreq, bin_idx]
+        else:
+            u_fp, u_bin, u_phi = socrng.step_uniforms(self.seed, b.stream,
+                                                      b.counter, b.hi)
+            cos_theta = _csc_lookup(self.physics["csc"], b.ifreq, u_bin,
+                                    self.bins)
         new_dir = _deflect(b.dir, cos_theta, (2.0 * math.pi) * u_phi)
         fp_next = -torch.log(u_fp)
         st.b = replace(b, dir=torch.where(act[..., None], new_dir, b.dir),
@@ -211,6 +370,11 @@ class StepKit:
             is_link = active & (dens <= 0.0)
             active = active & ~is_link
         kabs, ksca, tw = lane_c
+        if self.opt is not None:
+            # WITH_ABU: the cell's own cross sections at the lane's channel
+            oidx = gidx * self.nfreq + b.ifreq
+            kabs = self.opt.view(-1)[oidx].to(torch.float32)
+            ksca = self.physics["opt_sca"].view(-1)[oidx].to(torch.float32)
 
         # ---- geometric step to next boundary
         ds_local, pos_boundary = traverse.boundary_step(b.pos, b.dir)
@@ -243,7 +407,14 @@ class StepKit:
             st.xab.index_add_(0, didx, torch.where(selfc, wdep, 0.0))
         else:
             st.tabs.index_add_(0, didx, wdep)
-        if self.per_freq_tally:
+        if self.per_freq_tally and self.ncomp == 4:
+            # saveint 2: (I, Ix, Iy, Iz), the deposit times (1, direction)
+            w4 = torch.cat([torch.ones_like(dep)[:, None], b.dir], 1) \
+                * dep[:, None]
+            cidx = ((didx * self.nfreq + b.ifreq) * 4)[:, None] \
+                + torch.arange(4, device=dep.device)
+            st.intf.index_add_(0, cidx.reshape(-1), w4.reshape(-1))
+        elif self.per_freq_tally:
             st.intf.index_add_(0, didx * self.nfreq + b.ifreq, dep)
         st.absd = st.absd + dep.sum()
         photons = torch.where(active, b.photons * att, b.photons)
@@ -264,6 +435,9 @@ class StepKit:
         if grid.levels > 1:
             pos, level, ind, anc = traverse.descend_one(
                 grid, pos, level, ind, anc, dens, is_link)
+            if self.split_max > 0:
+                photons = post_clones(st.sp, is_link, pos, level, ind, anc,
+                                      photons, b, self.split_max)
 
         scat = b.scatterings + scatter_now.to(torch.int64)
         overscattered = scatter_now & (scat > MAX_SCATTERINGS)
@@ -279,9 +453,10 @@ class StepKit:
                        scatterings=scat, anc=anc)
 
 
-def new_pool(nlanes, grid, tabs, intf, xab=None):
+def new_pool(nlanes, grid, tabs, intf, xab=None, split=False):
     """A pool of dead lanes adding into tabs [CELLS], intf [CELLS, NFREQ]
-    and xab [CELLS] (or None) in place."""
+    (or [CELLS, NFREQ, 4]) and xab [CELLS] (or None) in place; with
+    ``split`` it carries the split state."""
     device = grid.device
     zf = torch.zeros(nlanes, dtype=torch.float32, device=device)
     return PoolState(
@@ -290,12 +465,16 @@ def new_pool(nlanes, grid, tabs, intf, xab=None):
         free_path=zf, tau=zf, esc_pending=zf, tabs=tabs, intf=intf.view(-1),
         absd=torch.zeros((), dtype=torch.float32, device=device),
         spare_cell=torch.remainder(
-            torch.arange(nlanes, device=device), grid.cells), xab=xab)
+            torch.arange(nlanes, device=device), grid.cells), xab=xab,
+        sp=init_split_state(nlanes, grid.levels, device) if split else None)
 
 
-def _refill(kit, st, gen, params, next_id, total):
+def _refill(kit, st, gen, params, next_id, total, births=None):
     """Refill dead lanes from the remaining budget (exclusive prefix sum
-    over dead lanes). Returns the count of packets started, on device."""
+    over dead lanes). With ``births`` (launched, missed, slot) the new
+    packets' weights, and those of packets born outside the grid (a point
+    source's misses, which never enter), are added per frequency.
+    Returns the count of packets started, on device."""
     grid = kit.grid
     b = st.b
     dead = b.ind < 0
@@ -323,6 +502,15 @@ def _refill(kit, st, gen, params, next_id, total):
     st.free_path = torch.where(can, fp_new, st.free_path)
     st.pending = st.pending & ~can
     st.tau = torch.where(can, 0.0, st.tau)
+    if st.sp is not None:
+        st.sp["lane_depth"] = torch.where(can, 0, st.sp["lane_depth"])
+        st.sp["lane_path"] = torch.where(can, 0, st.sp["lane_path"])
+    if births is not None:
+        launched, missed, slot = births
+        at = nb.ifreq * ESC_SPREAD + slot
+        w = torch.where(can, nb.photons, 0.0).double()
+        launched.index_add_(0, at, w)
+        missed.index_add_(0, at, torch.where(nb.ind < 0, w, 0.0))
     return can.sum()
 
 
@@ -336,26 +524,34 @@ def pool_lanes(nlanes, per_freq):
 
 def transport_run(grid, physics, source_params, total_packets, tabs, intf,
                   seed, source_kind="bg", nlanes=1 << 17,
-                  per_freq_tally=False, with_ali=False, xab=None):
+                  per_freq_tally=False, with_ali=False, xab=None,
+                  split_max=0, births=False):
     """Drain ``total_packets`` packets through the grid with lane refill.
 
     physics : dict of device tensors 'kabs', 'ksca', 'tw' [NFREQ] and
-        'csc' [NFREQ, BINS] (the mixed-frequency pool)
+        'csc' [NFREQ, BINS] (the mixed-frequency pool), optionally the
+        per-cell tables of StepKit
     source_params : generator parameters (see sources.packet_identity),
-        with 'photons' a [NFREQ] tensor
+        with the source's weights a tensor over the frequencies
     tabs : [CELLS] integrated tally; intf : [CELLS, NFREQ] per-frequency
-        tally (or any placeholder when per_freq_tally is False); both are
-        added to in place
+        tally, or [CELLS, NFREQ, 4] for the (I, Ix, Iy, Iz) tally (any
+        placeholder when per_freq_tally is False); both are added to in
+        place
     with_ali : route deposits into a packet's own emitting cell to xab
         [CELLS] (added to in place; zeros when None) instead of tabs
+    split_max : in-flight splitting at refinement boundaries, at most
+        split_max (capped at 26) splits a packet; 0 turns it off
+    births : also count the weights launched and born outside the grid
 
     Returns (tabs, intf, escaped [NFREQ] float64, absorbed scalar) on the
-    device, then xab when with_ali; escaped is per frequency.
+    device, then xab when with_ali, the clones served (int64 scalar) when
+    split_max > 0, and (launched, missed) [NFREQ] float64 with births;
+    escaped is per frequency.
     """
     return drain(transport_steps(grid, physics, source_params,
                                  total_packets, tabs, intf, seed,
                                  source_kind, nlanes, per_freq_tally,
-                                 with_ali, xab))
+                                 with_ali, xab, split_max, births))
 
 
 def drain(steps):
@@ -369,19 +565,25 @@ def drain(steps):
 
 def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
                     seed, source_kind="bg", nlanes=1 << 17,
-                    per_freq_tally=False, with_ali=False, xab=None):
-    """transport_run as a generator: it yields after each refill body (a
-    refill, a service step and REFILL_PERIOD march steps queued on the
-    device) and returns transport_run's result, so one host thread can
-    step the pools of several devices in turn (ProductMesh.map_steps)."""
+                    per_freq_tally=False, with_ali=False, xab=None,
+                    split_max=0, births=False):
+    """transport_run as a generator: it yields after each refill body (the
+    escape flush, the clone service, a refill, a service step and
+    REFILL_PERIOD march steps queued on the device, in soc_tpu's order)
+    and returns transport_run's result, so one host thread can step the
+    pools of several devices in turn (ProductMesh.map_steps)."""
     from .sources import GENERATORS
     gen = GENERATORS[source_kind]
-    kit = StepKit(grid, physics, seed, per_freq_tally, with_ali)
+    ncomp = intf.shape[2] if per_freq_tally and intf.ndim == 3 else 1
+    kit = StepKit(grid, physics, seed, per_freq_tally, with_ali, split_max,
+                  ncomp)
     nfreq = kit.nfreq
     device = grid.device
     if with_ali and xab is None:
         xab = torch.zeros(grid.cells, dtype=torch.float32, device=device)
-    st = new_pool(nlanes, grid, tabs, intf, xab if with_ali else None)
+    split = split_max > 0
+    st = new_pool(nlanes, grid, tabs, intf, xab if with_ali else None,
+                  split)
     # escaped weight per frequency, spread over ESC_SPREAD slots per bin
     # (slot = lane % ESC_SPREAD) so the card's atomic adds do not all wait
     # on NFREQ addresses; float64, so the order of the additions cannot
@@ -390,13 +592,20 @@ def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
                         device=device)
     esc_slot = torch.remainder(torch.arange(nlanes, device=device),
                                ESC_SPREAD)
+    birth_w = None
+    if births:
+        birth_w = (torch.zeros_like(esc_w), torch.zeros_like(esc_w),
+                   esc_slot)
     next_id = torch.zeros((), dtype=torch.int64, device=device)
     total = int(total_packets)
     body = 0
     while True:
         if body % CHECK_EVERY == 0 and body > 0:
-            more = bool(((st.b.ind >= 0).any() | (next_id < total)).item())
-            if not more:
+            more = (st.b.ind >= 0).any() | (next_id < total)
+            if split:
+                # a pool whose ids are all issued may still hold requests
+                more = more | st.sp["pending"].any()
+            if not bool(more.item()):
                 break
         body += 1
         # ---- flush the escaped weight of dead lanes per frequency
@@ -404,9 +613,12 @@ def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
         esc_w.index_add_(0, st.b.ifreq * ESC_SPREAD + esc_slot,
                          torch.where(dead, st.esc_pending, 0.0).double())
         st.esc_pending = torch.where(dead, 0.0, st.esc_pending)
+        # ---- pending clones go into dead lanes before fresh packets
+        if split:
+            serve_clones(kit.seed, st)
 
         next_id = next_id + _refill(kit, st, gen, source_params, next_id,
-                                    total)
+                                    total, birth_w)
         lane_c = kit.lane_const_of(st.b)
         kit.service(st)
         for _ in range(REFILL_PERIOD):
@@ -416,4 +628,11 @@ def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
     esc_w.index_add_(0, st.b.ifreq * ESC_SPREAD + esc_slot,
                      st.esc_pending.double())
     out = (tabs, intf, esc_w.view(nfreq, ESC_SPREAD).sum(1), st.absd)
-    return out + (xab,) if with_ali else out
+    if with_ali:
+        out = out + (xab,)
+    if split:
+        out = out + (st.sp["clones"],)
+    if births:
+        out = out + tuple(w.view(nfreq, ESC_SPREAD).sum(1)
+                          for w in birth_w[:2])
+    return out

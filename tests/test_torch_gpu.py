@@ -656,3 +656,140 @@ def test_octree_pipeline_on_card(cuda, tmp_path):
     for a, b in ((rg.absorbed[~parents], rc.absorbed[~parents]), (eg, ec),
                  (mg, mc)):
         _close_on_card(a, b)
+
+
+SOURCES = [(3.1, 2.9, 3.2, 0.3), (2.8, 3.3, 14.0, 1.0)]
+
+
+def _rt_cpu_and_card(cuda, tmp_path, n=6, **kw):
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("gpu", cuda)):
+        ini = write_model(str(tmp_path / name), n, kind="eqdust", nfreq=6,
+                          **kw)
+        out[name] = driver.run(ini, device=dev, lanes=1 << 12)
+    return out["cpu"], out["gpu"]
+
+
+def _hold_sources(rc, rg, rtol_t=1e-4):
+    """A phase-1 run on the card against the CPU: the same packets, the
+    atomics in another order (see test_pipeline_on_card_matches_cpu)."""
+    assert [s["source"] for s in rg.source_passes] == \
+        [s["source"] for s in rc.source_passes]
+    on = rg.launched > 0
+    bal = (rg.absorbed_photons + rg.escaped + rg.missed)[on] \
+        / rg.launched[on] - 1
+    assert np.abs(bal).max() < 1e-5
+    np.testing.assert_allclose(rg.launched, rc.launched, rtol=1e-6)
+    np.testing.assert_allclose(rg.temperature, rc.temperature, rtol=rtol_t)
+    for a, b in ((rg.absorbed, rc.absorbed), (rg.maps[0], rc.maps[0])):
+        _close_on_card(a, b)
+
+
+@pytest.mark.parametrize("method", [0, 1, 2, 3, 4, 5])
+def test_point_sources_on_card_match_cpu(cuda, tmp_path, method):
+    """An internal and an external point source, each PS_METHOD."""
+    rc, rg = _rt_cpu_and_card(cuda, tmp_path, point_sources=SOURCES,
+                              ps_method=method, pspackets=3000)
+    _hold_sources(rc, rg)
+    np.testing.assert_allclose(rg.missed, rc.missed, rtol=1e-4,
+                               atol=1e-6 * rc.launched.max())
+
+
+def test_sky_diffuse_simum_saveint_on_card_match_cpu(cuda, tmp_path):
+    """The weighted Healpix sky (the per-lane search of each channel's
+    cdf), the diffuse field, `simum` over half the channels and the
+    (I, Ix, Iy, Iz) tally of `saveint 2`."""
+    rc, rg = _rt_cpu_and_card(cuda, tmp_path, hpbg=4, hpbg_weighted=True,
+                              diffuse=0.5, dfpackets=4 * 216,
+                              simum=(1.0, 300.0), saveint=2)
+    _hold_sources(rc, rg)
+    masked = rg.launched == 0
+    assert masked.any() and (rg.absorbed_photons[masked] == 0).all()
+    assert rg.intensity.shape == (216, 6, 4)
+    _close_on_card(rg.intensity[..., 0], rc.intensity[..., 0])
+    assert np.isfinite(rg.intensity).all()
+
+
+@pytest.mark.parametrize("mode", ["saveint 1", "dustem"])
+def test_intensity_modes_on_card_match_cpu(cuda, tmp_path, mode):
+    """saveint 1 and dustem (no absorbed file): the [CELLS, NFREQ]
+    intensity on the card against the CPU's."""
+    rc, rg = _rt_cpu_and_card(cuda, tmp_path, point_sources=SOURCES,
+                              pspackets=2000, extra=mode + "\n")
+    assert rg.intensity.shape == (216, 6)
+    assert (rg.absorbed is None) == (mode == "dustem")
+    _close_on_card(rg.intensity, rc.intensity)
+    np.testing.assert_allclose(rg.temperature, rc.temperature, rtol=1e-4)
+
+
+@pytest.mark.parametrize("half", [False, True])
+def test_abundance_on_card_matches_cpu(cuda, tmp_path, half):
+    """Two dusts with per-cell abundances and MSF, with and without
+    optishalf (the per-cell tables a cuBLAS product on the card, TF32
+    off): the runs as above."""
+    rc, rg = _rt_cpu_and_card(cuda, tmp_path, abundance=True,
+                              optishalf=half, point_sources=SOURCES,
+                              pspackets=2000)
+    _hold_sources(rc, rg)
+
+
+def test_split_on_card_matches_cpu(cuda, tmp_path):
+    """Splitting on the card (serve_clones' request map a stable
+    partition, no index out of range): on a 3-level octree, the split
+    background and sky at the same lane count as the CPU run. A packet
+    whose path an ulp diverges can shift other lanes' splits, so the
+    clones are held to 2% and the temperatures to 2%."""
+    rc, rg = _rt_cpu_and_card(cuda, tmp_path, n=8, octree=(2, 8, 3),
+                              hpbg=4, hpbg_weighted=True, split=4)
+    for sc, sg in zip(rc.source_passes, rg.source_passes):
+        assert sg["clones"] > 0
+        assert abs(sg["clones"] - sc["clones"]) <= 0.02 * sc["clones"]
+    on = rg.launched > 0
+    bal = (rg.absorbed_photons + rg.escaped)[on] / rg.launched[on] - 1
+    assert np.abs(bal).max() < 1e-5
+    np.testing.assert_allclose(rg.temperature, rc.temperature, rtol=0.02)
+
+
+def test_pipeline_abundance_on_card(cuda, tmp_path):
+    """The `pipeline` verb with two GSET dusts and per-cell abundances:
+    one A2E launch a card and a dust, against the CPU run."""
+    kw = dict(kind="gset", nfreq=16, nsize=6, abundance=True,
+              extra="nenumber 32\n")
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("gpu", cuda)):
+        ini = write_model(str(tmp_path / name), 6, **kw)
+        n0 = a2e_kernel.launches
+        res_rt, emitted, _ = full.run_pipeline(ini, device=dev,
+                                               lanes=1 << 12)
+        assert a2e_kernel.launches - n0 == \
+            (2 * torch.cuda.device_count() if dev.type == "cuda" else 0)
+        out[name] = (res_rt, emitted)
+    (rc, ec), (rg, eg) = out["cpu"], out["gpu"]
+    _close_on_card(rg.absorbed, rc.absorbed)
+    _close_on_card(eg, ec)
+
+
+def test_octree_pipeline_sources_on_card(cuda, tmp_path):
+    """The `pipeline` verb on a 3-level octree with the split background,
+    point sources, a diffuse field and saveint 2: one A2E launch a card,
+    the parents' emission zero, against the CPU run."""
+    kw = dict(kind="gset", nfreq=16, nsize=6, octree=(2, 8, 3),
+              extra="nenumber 32\n", split=4,
+              point_sources=[(4.3, 3.7, 4.1, 0.3)], pspackets=1000,
+              diffuse=0.5, dfpackets=1280, saveint=2)
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("gpu", cuda)):
+        ini = write_model(str(tmp_path / name), 8, **kw)
+        n0 = a2e_kernel.launches
+        res_rt, emitted, _ = full.run_pipeline(ini, device=dev,
+                                               lanes=1 << 12)
+        assert a2e_kernel.launches - n0 == \
+            (torch.cuda.device_count() if dev.type == "cuda" else 0)
+        out[name] = (res_rt, emitted)
+    (rc, ec), (rg, eg) = out["cpu"], out["gpu"]
+    parents = rg.absorbed[:, 0] < -1e19
+    assert (eg[parents] == 0).all() and eg[~parents].max() > 0
+    assert rg.intensity.shape == (640, 16, 4)
+    leaf = ~parents
+    _close_on_card(rg.absorbed[leaf], rc.absorbed[leaf])
+    _close_on_card(eg, ec)

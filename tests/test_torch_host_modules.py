@@ -192,6 +192,43 @@ def test_dust_files_byte_equal(compiled, tmp_path):
                 tdust.hg_scattering_function(np.linspace(0, 0.8, 5), 64))
 
 
+def test_runconfig_on_the_source_models(tmp_path):
+    """The keywords of point sources, the Healpix sky, the diffuse field,
+    abundances, split, simum, saveint and optishalf."""
+    ini = example_model.write_model(
+        str(tmp_path), 4, kind="eqdust", nfreq=8,
+        point_sources=[(2.0, 2.1, 1.9, 0.5), (2.0, 2.0, 9.0, 1.0)],
+        ps_method=3, pspackets=100, hpbg=2, hpbg_weighted=True,
+        diffuse=0.5, dfpackets=128, abundance=True, split=6,
+        simum=(1.0, 100.0), saveint=2, optishalf=True)
+    a, b = _config_pair(ini_path=ini)
+    assert a[0] == b[0] == "ok"
+    assert_same(a[1], b[1])
+
+
+def test_source_input_readers_bit_equal(tmp_path):
+    """The diffuse field and the abundances, as the drivers read them."""
+    from soc_tpu.pipeline import driver as jdriver
+    from soc_tpu.pipeline import full as jfull
+    from soc_tpu_torch.pipeline import driver as tdriver
+    from soc_tpu_torch.pipeline import full as tfull
+    ini = example_model.write_model(str(tmp_path), 4, kind="eqdust",
+                                    nfreq=8, diffuse=0.5, abundance=True)
+    path = str(tmp_path / "diffuse.bin")
+    assert_same(jdriver.read_diffuse_field(path, 64),
+                tdriver.read_diffuse_field(path, 64))
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        cfg = tconfig.RunConfig(ini)
+        assert_same(jfull.read_abundances(cfg, 64, 2),
+                    tfull.read_abundances(cfg, 64, 2))
+        assert_same(jfull.read_abundances(cfg, 64, 2),
+                    tdriver.read_abundances(cfg, 64, 2))
+    finally:
+        os.chdir(cwd)
+
+
 def test_field_files_byte_equal(tmp_path):
     rng = np.random.default_rng(5)
     cells = rng.random((50, NFREQ), np.float32)

@@ -99,14 +99,15 @@ def test_cli_rt_on_cpu_and_verbs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,name", [
-    ("mirror xX\n", "mirror"), ("optishalf\n", "optishalf"),
-    ("saveint 1\n", "saveint"), ("hpbg sky.bin\n", "hpbg"),
+    ("mirror xX\n", "mirror"), ("roi 1 2 1 2 1 2\n", "roi"),
+    ("roimap\n", "roimap"), ("hpbg sky.bin\ndevices 2\n", "hpbg"),
     ("savetau tau 250.0\n", "savetau"), ("mapint 1\n", "mapint"),
     ("perspective 4 4 4\n", "perspective"), ("yshear 1.0\n", "yshear"),
-    ("pointsource 3 3 3 ps.bin\n", "pointsource"),
-    ("diffuse field.bin\n", "diffuse"),
+    ("pointsource 3 3 3 ps.bin\ndevices 2\n", "pointsource"),
+    ("direweight 0 0.5\n", "direweight"),
     ("cellpackets 100\niterations 2\ndevices 2\n", "cell emission"),
-    ("stepweight 1 0.5\n", "stepweight"), ("split 8\n", "split"),
+    ("stepweight 1 0.5\n", "stepweight"),
+    ("split 8\ndevices 2\n", "split"),
     ("checkpoint c.ckpt\n", "checkpoint"), ("nnsolve x\n", "nnsolve"),
     ("CR_HEATING 1\n", "CR_HEATING"), ("polmap 1\n", "polmap"),
     ("mmapabs\n", "mmapabs"), ("domains 2\n", "domains")])
