@@ -112,6 +112,41 @@ Phases (any failure exits non-zero before the final line):
      channels, without and with `optishalf`: the masked channels absorb
      nothing, the balance per selected channel, and the temperatures of
      the two runs within 1% (bfloat16 keeps 8 bits)
+ 13. ROI save and load, mmapabs, the weighting, mirrored faces and the
+     render suite on the same octree with the equilibrium dust, the
+     background of phase 4, no cell packets: (a) `rt` with `roi 8 15 8 15
+     8 15` (an 8^3 box of unrefined root cells clear of the refined block
+     and the faces), `roisave`, `roinside 8` and `mmapabs` with
+     SOC_TPU_TALLY_BYTES set for four device blocks of 11 channels: the
+     ROI file finite, non-negative, with photons in every lit channel;
+     then the same run in memory: absorbed.data and the ROI tally within
+     1e-4 relative or 1e-6 of the maximum (phase 4's rerun bound), and the
+     background's seconds with the blocks, in memory and (phase 10 (a))
+     without the ROI save;
+     (b) `rt` on the box's 8^3 sub-model (example_model's roi_box) with
+     `roiload` of (a)'s file and `roipackets` 589,824 (4 a (element,
+     pixel) pair and channel, 25.95M packets): (absorbed + escaped) /
+     injected within 0.5% a channel, the absorbed energy within 10% of
+     (a)'s inside the box (soc_tpu's tests/test_roi.py bound); (c1) `rt`
+     with `stepweight 2 1.3 0.4`, `direweight 1 0.5` and `split 4`: no
+     clone; against (a), the leaf cells' temperatures within 5% on all but
+     5e-3 of them (soc_tpu's 5% on all but 1e-4 is below the weighting's
+     variance at these packets), their mean |relative difference| within
+     2e-2, each level's signed mean within 1e-3, 3e-3 and 3e-2 (levels
+     0-2), each lit channel's absorption over the leaf cells within 1%
+     (bounds from profile_phase13's seed-to-seed readings); (c2) `rt` with `mirror xyz` (the three low faces, an octant of
+     a symmetric cloud): the balance per channel within 0.5%, absorbed at
+     least (a)'s in every channel; (d) from (a)'s temperatures (loadtemp):
+     the orthographic map from theta 70 deg with FITS, `savetau` at 100
+     and 850 um and column density and `pssavetau` for phase 12's point
+     sources; MAP_HIER orthographic; `mapint 2`; `yshear 2`; the Healpix
+     map at NSIDE 64 from the centre with `interpolate 3` and without;
+     MAP_HIER Healpix; a 256x128 perspective panorama; `roimap` in the
+     map-only mode with a NaN emission outside the box: every map finite
+     with a positive peak, the hierarchy planes summed equal to the plain
+     maps within 1e-5 of the peak, every FITS file read back bit for bit
+     equal to its plane, the sheared map at least the plain one; each
+     run's seconds and packets/s, each render's seconds, rays and steps
 The kernels line gives each kernel's launches on its path (phase 4 for the
 A2E kernel, and under octree_* its launches, time, plain time and bound
 on phase 11's octree, under sources_* on phase 12 (b)'s; 6 for the clamp kernel, 7 for the probes, 9 for the
@@ -169,6 +204,26 @@ DIFFUSE_SHARE = 0.5     # phase 12 (b): the diffuse field's power share
 SPLIT_SIGMAS = 5.0      # phase 12 (a): the refined cells' statistical bound
 SIMUM = (1.0, 200.0)    # phase 12 (c): the simulated band [um], 22 of 44
 OPTISHALF_TOL = 0.01    # phase 12 (c): T with and without optishalf
+ROI_BOX = (8, 15, 8, 15, 8, 15)   # phase 13: an 8^3 box of unrefined root
+ROI_NSIDE = 8           # cells, clear of the refined block and the faces
+ROI_PACKETS = 589824    # phase 13 (b): 4 a (element, pixel) pair a channel
+ROI_RTOL = 0.1          # (b) in-box absorption, soc_tpu's tests/test_roi.py
+MMAP_BLOCK = 11         # phase 13 (a): channels a device block of mmapabs
+# phase 13 (c1) against (a), each bound set from the readings of
+# `python -m soc_tpu_torch.profile_phase13` on an H100 (PERF.md, PR 9):
+# soc_tpu's 5% (tests/test_ini_wiring.py) on all but WEIGHT_SHARE of the
+# leaf cells (the pair reads 1.3e-3, (c1) at another seed against (a)
+# 3.2e-3); the leaf cells' mean |relative T difference| (8.8e-3; 1.4e-2
+# between two seeds of (c1)); each level's signed mean (at most 2.4e-4,
+# 9.9e-4 and 1.2e-2 over levels 0-2 seed to seed; a dropped service weight
+# or direction weight moves levels 0 and 1 by 4.3e-3-1.9e-2); a channel's
+# absorption over the leaf cells (2.5e-3; 4.3e-3 seed to seed)
+WEIGHT_RTOL, WEIGHT_SHARE, WEIGHT_MEAN_ABS = 0.05, 5e-3, 2e-2
+WEIGHT_LEVEL = (1e-3, 3e-3, 3e-2)
+WEIGHT_CHANNEL = 0.01
+MIRROR = "xyz"          # (c2) the low faces: an octant of a symmetric cloud
+HP_NSIDE = 64           # phase 13 (d): the all-sky maps' resolution
+HIER_TOL = 1e-5         # (d) the MAP_HIER planes summed, of the peak
 SOURCES = ("a2e", "probe_gather", "probe_scatter", "probe_onehot")
 PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
     "probe_gather": ("soc_tpu_torch/csrc/probe_gather.cu",
@@ -1029,13 +1084,13 @@ def octree_pipeline_phase(dev, work, args, report):
                          b_by, rel, card), flush=True)
 
 
-def source_balance(tag, res, card):
-    """Phase 12: each phase-1 source's packets, seconds and clones, and the
-    run's energy balance per channel, (absorbed + escaped + born outside)
-    / launched - 1, over the channels that launched anything; fails
-    beyond BALANCE_TOL. Returns the balance."""
+def source_balance(tag, res, card, phase="phase 12"):
+    """Phase 12 (and 13): each phase-1 source's packets, seconds and
+    clones, and the run's energy balance per channel, (absorbed + escaped
+    + born outside) / launched - 1, over the channels that launched
+    anything; fails beyond BALANCE_TOL. Returns the balance."""
     for st in res.source_passes:
-        print("phase 12: (%s) %s: %d packets in %d pool(s), %.2f s (%.0f "
+        print(phase + ": (%s) %s: %d packets in %d pool(s), %.2f s (%.0f "
               "packets/s), %d clones served, absorbed energy %.4e [%s]"
               % (tag, st["source"], st["packets"], st["pools"],
                  st["seconds"], st["packets"] / max(st["seconds"], 1e-9),
@@ -1044,13 +1099,13 @@ def source_balance(tag, res, card):
     bal = np.zeros_like(res.launched)
     bal[on] = (res.absorbed_photons + res.escaped + res.missed)[on] \
         / res.launched[on] - 1
-    print("phase 12: (%s) energy balance per channel over %d channels, "
+    print(phase + ": (%s) energy balance per channel over %d channels, "
           "(absorbed + escaped + born outside) / launched - 1: max |.| = "
           "%.3e (tolerance %.1e); born outside %.3e of the launched weight"
           % (tag, int(on.sum()), np.abs(bal).max(), BALANCE_TOL,
              res.missed.sum() / res.launched.sum()), flush=True)
     if not np.abs(bal).max() <= BALANCE_TOL:
-        fail("phase 12: (%s) energy balance off" % tag)
+        fail(phase + ": (%s) energy balance off" % tag)
     return bal
 
 
@@ -1267,6 +1322,290 @@ def sources_phase(dev, work, args, report, plain_bg):
     report["sources_abu"] = dict(optishalf_rel=trel)
 
 
+def _variant(ini, name, subs=(), add=""):
+    """A second ini beside ``ini`` (the same model files), named name.ini,
+    with the (old, new) line substitutions ``subs`` and the lines ``add``;
+    its output files carry the name, so runs in one directory keep theirs
+    apart. Returns its path."""
+    with open(ini) as fp:
+        text = fp.read()
+    for old, new in subs:
+        if old not in text:
+            fail("phase 13: %r is not in %s" % (old, ini))
+        text = text.replace(old, new)
+    for old, new in (("absorbed.data", ".absorbed"),
+                     ("emitted.data", ".emitted"), ("tmp.T", ".T")):
+        text = text.replace(old, name + new)
+    path = os.path.join(os.path.dirname(ini), name + ".ini")
+    with open(path, "w") as fp:
+        fp.write(text + add)
+    return path
+
+
+def _rt(dev, ini, tag, card):
+    """The rt verb (cli.main) on ini: (RunResult, wall seconds)."""
+    import torch
+    from soc_tpu_torch import cli
+    results = {}
+    t0 = time.time()
+    rc = cli.main(["rt", ini, "--device", str(dev)], results)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if rc != 0:
+        fail("phase 13: (%s) rt verb returned %d" % (tag, rc))
+    res = results["rt"]
+    tm = res.timings
+    print("phase 13: (%s) rt %.2f s: constant sources %.2f s (%d packets, "
+          "%.0f packets/s), solve %.2f s, maps %.2f s [%s]"
+          % (tag, wall, tm.get("constant_sources", 0.0), res.packets,
+             res.packets / max(tm.get("constant_sources", 0.0), 1e-9),
+             tm.get("solve", 0.0), tm.get("maps", 0.0), card), flush=True)
+    for st in res.source_passes:
+        print("phase 13: (%s) %s: %d packets in %d pool(s), %.2f s (%.0f "
+              "packets/s), %d clones [%s]"
+              % (tag, st["source"], st["packets"], st["pools"],
+                 st["seconds"], st["packets"] / max(st["seconds"], 1e-9),
+                 st["clones"], card), flush=True)
+    for rp in res.render_passes:
+        print("phase 13: (%s) render %s: %.3f s, %d rays, %d march steps "
+              "[%s]" % (tag, rp["render"], rp["seconds"], rp["rays"],
+                        rp["steps"], card), flush=True)
+    return res, wall
+
+
+def slice_phase(dev, work, args, report, plain_bg=None):
+    """Phase 13: ROI save and load, mmapabs, the weighting, mirrored faces
+    and the render suite on BASELINE config 2's octree (see the module
+    docstring); ``plain_bg``, phase 10 (a)'s run, gives the background's
+    time without the ROI save."""
+    from soc_tpu_torch.example_model import (frequencies, write_model,
+                                             write_point_sources)
+    from soc_tpu_torch.io.fits import read_fits_image
+    from soc_tpu_torch.pipeline import driver
+    from soc_tpu_torch.profile_phase13 import weight_readings
+    from soc_tpu_torch.solve import equilibrium
+    from soc_tpu_torch.transport.roi import read_roi_file, roi_cell_mask
+    card = report["card"]
+    out = report["slice"] = {}
+    d = os.path.join(work, "slice")
+    box = "roi %d %d %d %d %d %d\n" % ROI_BOX
+    base = write_model(d, N, kind="eqdust", nfreq=44, npix=64,
+                       bgpac=args.bgpackets, map_dx=N / 64.0, octree=OCTREE)
+    ps_lines = write_point_sources(d, frequencies(44), 0.01, 6 * N * N,
+                                   POINT_SOURCES)
+
+    # (a) the ROI save with mmapabs, four device blocks of 11 channels
+    ini_a = _variant(base, "a", add=box + "roisave roi.bin 1\nroinside %d\n"
+                     "mmapabs\n" % ROI_NSIDE)
+    os.environ["SOC_TPU_TALLY_BYTES"] = str(OCTREE_CELLS * 4 * MMAP_BLOCK)
+    try:
+        res_a, wall = _rt(dev, ini_a, "a", card)
+    finally:
+        del os.environ["SOC_TPU_TALLY_BYTES"]
+    out["a"] = wall
+    blocks = [st["pools"] for st in res_a.source_passes]
+    if blocks != [-(-44 // MMAP_BLOCK)]:
+        fail("phase 13: (a) mmapabs ran %s pools, expected one a block of "
+             "%d channels" % (blocks, MMAP_BLOCK))
+    rnx, rny, rnz, nside, tally = read_roi_file(os.path.join(d, "roi.bin"))
+    inj = res_a.launched > 0
+    dims = tuple(ROI_BOX[k + 1] - ROI_BOX[k] + 1 for k in (0, 2, 4))
+    if (rnx, rny, rnz, nside) != dims + (ROI_NSIDE,) \
+            or not np.isfinite(tally).all() or (tally < 0).any() \
+            or not (tally.sum(1)[inj] > 0).all():
+        fail("phase 13: (a) the ROI file is not a finite, non-negative "
+             "tally with a positive total in every lit channel")
+    print("phase 13: (a) ROI file %dx%dx%d elements x %d pixels x 44 "
+          "channels, %.4e photons entered the box (%.4e of those launched)"
+          % (rnx, rny, rnz, 12 * nside * nside, tally.sum(),
+             tally.sum() / res_a.launched.sum()), flush=True)
+    # the same run in memory: the absorbed file and the ROI tally within
+    # the rerun bound
+    res_m, wall = _rt(dev, _variant(base, "a_mem", add=box + "roisave "
+                                    "roi_mem.bin 1\nroinside %d\n"
+                                    % ROI_NSIDE), "a, in memory", card)
+    out["a_mem"] = wall
+    pairs = ((read_cell_frequency_array(os.path.join(d, "a.absorbed")),
+              read_cell_frequency_array(os.path.join(d, "a_mem.absorbed")),
+              "absorbed.data"),
+             (tally, read_roi_file(os.path.join(d, "roi_mem.bin"))[4],
+              "ROI tally"))
+    for fa, fm, name in pairs:
+        live = fm > -1e19
+        diff = np.abs(fa - fm)[live].max() / np.abs(fm[live]).max()
+        ok = np.array_equal(fa > -1e19, live) and np.allclose(
+            fa[live], fm[live], rtol=PRODUCT_RTOL,
+            atol=PRODUCT_ATOL * np.abs(fm[live]).max())
+        print("phase 13: (a) mmapabs %s against the in-memory rerun: max "
+              "|diff| / max = %.3e, within rtol %.0e or %.0e of the max: %s"
+              % (name, diff, PRODUCT_RTOL, PRODUCT_ATOL, ok), flush=True)
+        if not ok:
+            fail("phase 13: (a) the mmapabs run's %s differs from the "
+                 "in-memory run's" % name)
+    t_a = res_a.timings["constant_sources"]
+    t_m = res_m.timings["constant_sources"]
+    print("phase 13: (a) the background %.2f s with the ROI save in %d "
+          "blocks, %.2f s in memory (the blocks' cost %.2f s)%s [%s]"
+          % (t_a, blocks[0], t_m, t_a - t_m, "" if plain_bg is None else
+             ", %.2f s without the ROI save (phase 10 (a); its cost %.2f s)"
+             % (plain_bg.timings["constant_sources"],
+                t_m - plain_bg.timings["constant_sources"]), card),
+          flush=True)
+
+    # (b) the ROI load on the box's 8^3 sub-model
+    sub = os.path.join(work, "slice_sub")
+    ini_b = write_model(sub, N, kind="eqdust", nfreq=44, npix=8,
+                        octree=OCTREE, roi_box=ROI_BOX, bgpac=0,
+                        extra="roiload %s\nroipackets %d\n"
+                        % (os.path.join(d, "roi.bin"), ROI_PACKETS))
+    res_b, wall = _rt(dev, ini_b, "b", card)
+    out["b"] = wall
+    on = res_b.injected > 0
+    bal = (res_b.absorbed_photons + res_b.escaped)[on] / res_b.injected[on] \
+        - 1
+    mask = roi_cell_mask(res_a.grid, ROI_BOX)
+    direct = res_a.ctabs[mask].astype(np.float64).sum()
+    got = res_b.ctabs.astype(np.float64).sum()
+    print("phase 13: (b) ROI load, %d packets on the %d-cell sub-model: "
+          "(absorbed + escaped) / injected - 1 per channel max |.| = %.3e "
+          "(tolerance %.1e); absorbed energy %.6e against (a)'s %.6e inside "
+          "the box: %.3e (bound %.2f)"
+          % (res_b.packets, res_b.grid.cells, np.abs(bal).max(),
+             BALANCE_TOL, got, direct, got / direct - 1, ROI_RTOL),
+          flush=True)
+    if not (np.abs(bal).max() <= BALANCE_TOL
+            and abs(got / direct - 1) <= ROI_RTOL):
+        fail("phase 13: (b) the ROI load does not reproduce the box")
+
+    # (c1) step and direction weighting; `split` asked, and refused
+    res_w, wall = _rt(dev, _variant(base, "c1", add="stepweight 2 1.3 0.4\n"
+                                    "direweight 1 0.5\nsplit 4\n"), "c1",
+                      card)
+    out["c1"] = wall
+    clones = sum(st["clones"] for st in res_w.source_passes)
+    leaf = res_a.grid.dens.cpu().numpy() > 0
+    lev = equilibrium.cell_levels(res_a.grid).cpu().numpy()
+    # the weights change the variance: STEP_WEIGHT 2 at A 1.3 shortens the
+    # free paths and weights a packet by up to e^(0.3 tau), so the densest
+    # cells' temperatures scatter by several per cent; a bias shows in a
+    # level's mean
+    r = weight_readings(res_w.temperature, res_a.temperature,
+                        res_w.absorbed, res_a.absorbed, leaf, lev, inj,
+                        rtol=WEIGHT_RTOL)
+    print("phase 13: (c1) stepweight 2 + direweight against (a): %d clones;"
+          " each lit channel's absorption over the leaf cells: max |rel "
+          "diff| %.3e (bound %.0e); temperatures' relative difference over "
+          "the %d leaf cells: beyond %.0e %.3e of them (bound %.0e), mean "
+          "|.| %.3e (bound %.0e), signed mean by level %s (bounds %s)"
+          % (clones, r["channel"], WEIGHT_CHANNEL, int(leaf.sum()),
+             WEIGHT_RTOL, r["beyond"], WEIGHT_SHARE, r["mean_abs"],
+             WEIGHT_MEAN_ABS, ", ".join("%.3e" % m for m in r["levels"]),
+             ", ".join("%.0e" % m for m in WEIGHT_LEVEL)), flush=True)
+    if clones or len(r["levels"]) != len(WEIGHT_LEVEL) or not (
+            r["channel"] <= WEIGHT_CHANNEL and r["beyond"] <= WEIGHT_SHARE
+            and r["mean_abs"] <= WEIGHT_MEAN_ABS
+            and all(abs(m) <= t for m, t in zip(r["levels"],
+                                                WEIGHT_LEVEL))):
+        fail("phase 13: (c1) the weighted run split, or it is biased or "
+             "scattered against (a)")
+
+    # (c2) mirrored low faces: an octant of a symmetric cloud
+    res_r, wall = _rt(dev, _variant(base, "c2", add="mirror %s\n" % MIRROR),
+                      "c2", card)
+    out["c2"] = wall
+    source_balance("c2", res_r, card, "phase 13")
+    more = res_r.absorbed_photons / res_a.absorbed_photons
+    print("phase 13: (c2) mirror %s: absorbed against (a)'s per channel "
+          "%.4f-%.4f" % (MIRROR, more[inj].min(), more[inj].max()),
+          flush=True)
+    if not (res_r.absorbed_photons[inj] >= res_a.absorbed_photons[inj]).all():
+        fail("phase 13: (c2) a channel absorbs less with the mirrors")
+
+    # (d) the maps from (a)'s temperatures (loadtemp; roimap map-only)
+    t0 = time.time()
+    emit = read_cell_frequency_array(os.path.join(d, "a.emitted"))
+    outside = np.nonzero(~mask)[0]
+    emit[outside[len(outside) // 3]] = np.nan
+    with open(os.path.join(d, "nan.emitted"), "wb") as fp:
+        np.asarray(emit.shape, np.int32).tofile(fp)
+        emit.astype(np.float32).tofile(fp)
+    lt = [("iterations      1", "iterations      0"),
+          ("temperature     tmp.T", "temperature     a.T")]
+    # the orthographic maps look from theta 70 deg: a sheared ray leaves
+    # through a Z face after at most ~2.9 box lengths (`maxlos` has no ini
+    # keyword of its own, only polmap's arguments)
+    view = [("directions      0.0 0.0", "directions      70.0 10.0")]
+    runs = {
+        "ortho": (view, "FITS 1\nsavetau tau.bin 100.0 850.0 -1\n"
+                  + ps_lines + "pssavetau pstau 250.0\n"),
+        "ortho_hier": (view, "mapping 64 64 %r 999\n" % (N / 64.0)),
+        "mapint": (view, "mapint 2\n"),
+        "yshear": (view, "yshear 2.0\n"),
+        "healpix_i3": ([], "mapping %d 0 1.0\ninterpolate 3\n" % HP_NSIDE),
+        "healpix": ([], "mapping %d 0 1.0\n" % HP_NSIDE),
+        "healpix_hier": ([], "mapping %d -1 1.0 999\n" % HP_NSIDE),
+        "perspective": ([], "perspective %r %r %r\nmapping 256 128 1.0\n"
+                        % ((N / 2.0,) * 3))}
+    maps, colden = {}, {}
+    for name, (subs, add) in runs.items():
+        ini = _variant(base, name, lt + subs, "loadtemp\n" + add)
+        res, _ = _rt(dev, ini, "d, " + name, card)
+        key = {"ortho_hier": ("hier", 0),
+               "healpix_hier": ("hier_hp", 0)}.get(name, 0)
+        maps[name] = res.maps[key]
+        if not (np.isfinite(maps[name]).all() and maps[name].max() > 0):
+            fail("phase 13: (d) the %s map is not finite with a positive "
+                 "peak" % name)
+        if ("colden", 0) in res.maps:
+            colden[name] = float(res.maps[("colden", 0)].sum())
+        if name == "ortho":
+            ortho = res
+    res, _ = _rt(dev, _variant(
+        base, "roimap", [("iterations      1", "iterations      0"),
+                         ("emitted         emitted.data",
+                          "emitted         nan.emitted")],
+        box + "roimap\n"), "d, roimap", card)
+    if not (np.isfinite(res.maps[0]).all() and res.maps[0].max() > 0):
+        fail("phase 13: (d) the roimap map is not finite with a positive "
+             "peak under a NaN emission outside the box")
+    sums = {"ortho_hier": (maps["ortho_hier"].sum(1), maps["ortho"]),
+            "healpix_hier": (maps["healpix_hier"].sum(1), maps["healpix"])}
+    for name, (got, ref) in sums.items():
+        err = np.abs(got - ref).max() / ref.max()
+        print("phase 13: (d) %s planes summed against the plain map: max "
+              "|diff| / peak = %.3e (bound %.0e)" % (name, err, HIER_TOL),
+              flush=True)
+        if not err <= HIER_TOL:
+            fail("phase 13: (d) the %s planes do not sum to the plain map"
+                 % name)
+    low = (maps["yshear"] < maps["ortho"] * (1 - 1e-6)).sum()
+    print("phase 13: (d) yshear against the plain map: %d pixels below it; "
+          "the sheared column %.3f times the plain one"
+          % (low, colden["yshear"] / colden["ortho"]), flush=True)
+    if low:
+        fail("phase 13: (d) the sheared map is below the plain map")
+    fits = sorted(f for f in os.listdir(d) if f.endswith(".fits"))
+    bad = []
+    for k, f in enumerate(fits):
+        data, _ = read_fits_image(os.path.join(d, f))
+        if f.startswith("map_"):
+            if not any(np.array_equal(data, m) for m in ortho.maps[0]):
+                bad.append(f)
+        elif not any(np.array_equal(data, np.asarray(v, np.float32))
+                     for kk, v in ortho.maps.items()
+                     if isinstance(kk, tuple) and kk[0] == "savetau"):
+            bad.append(f)
+    nmaps = sum(f.startswith("map_") for f in fits)
+    print("phase 13: (d) %d FITS files (%d map planes, %d savetau), read "
+          "back bit for bit equal to their planes: %s; pssavetau: %s"
+          % (len(fits), nmaps, len(fits) - nmaps, not bad,
+             open(os.path.join(d, "pstau_0.dat")).read().strip()
+             .replace("\n", "; ")), flush=True)
+    if bad or nmaps != 44 or len(fits) != 47:
+        fail("phase 13: (d) FITS files differ from their planes: %s" % bad)
+    out["d"] = time.time() - t0
+
+
 def probes_phase(dev, report):
     """Phase 7: the three probe modules, each row through its kernel."""
     import torch
@@ -1454,9 +1793,14 @@ def main():
         octree_pipeline_phase(dev, work, args, report)
         t2 = time.time()
         sources_phase(dev, work, args, report, plain["a"])
-        print("phase 10: %.2f s; phase 11: %.2f s; phase 12: %.2f s; the "
-              "smoke so far %.2f s" % (t1 - t0, t2 - t1, time.time() - t2,
-                                       time.time() - T_START), flush=True)
+        t3 = time.time()
+        slice_phase(dev, work, args, report, plain["a"])
+        print("phase 10: %.2f s; phase 11: %.2f s; phase 12: %.2f s; phase "
+              "13: %.2f s (%s); the smoke so far %.2f s"
+              % (t1 - t0, t2 - t1, t3 - t2, time.time() - t3,
+                 ", ".join("%s %.2f s" % kv
+                           for kv in report["slice"].items()),
+                 time.time() - T_START), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

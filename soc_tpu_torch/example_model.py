@@ -7,7 +7,8 @@ dust built from DustEM-format files through the NumPy dust compiler
 background and an ini file; optionally point sources, a Healpix sky, a
 diffuse emission field and a second dust with per-cell abundances (each
 sized as a share of the background's power, so every source matters),
-and the `split`, `simum`, `saveint` and `optishalf` lines. Two dust
+and the `split`, `simum`, `saveint` and `optishalf` lines; or, for the ROI
+coupling's second stage, the sub-model of a box of root cells. Two dust
 kinds:
 
 * ``"gset"``: a stochastically heated dust (GSET container), run through
@@ -268,7 +269,7 @@ def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
                 ps_method=None, pspackets=None, hpbg=None,
                 hpbg_weighted=False, diffuse=None, dfpackets=None,
                 abundance=False, split=None, simum=None, saveint=None,
-                optishalf=False):
+                optishalf=False, roi_box=None):
     """Write a model into directory d and return the ini path.
 
     n      : root grid size (n^3 cells)
@@ -292,6 +293,12 @@ def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
              dusts, U(0.5, 1.5) and U(0, 2)
     split, saveint : the `split N` and `saveint N` lines; simum: the
              (um_lo, um_hi) band of `simum`; optishalf: its line
+    roi_box : (x0, x1, y0, y1, z0, z1) inclusive root cells: the cloud
+             written is the box's root cells of the n^3 cloud (octree
+             or not), cell for cell as a regular grid at the same
+             `gridlength` (the box must hold no refined cell): the
+             sub-model of the ROI coupling (`roiload`)
+    bgpac  : 0 writes `bgpackets 0` (no background run)
     extra  : more ini lines
     """
     os.makedirs(d, exist_ok=True)
@@ -303,7 +310,15 @@ def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
         lcells, values = [n ** 3], [np.ones(n ** 3, np.float32)]
     else:
         lcells, values = octree_cloud(n, *octree)
-    write_hierarchy(os.path.join(d, "tmp.cloud"), n, n, n, lcells, values)
+    dims = (n, n, n)
+    if roi_box is not None:
+        x0, x1, y0, y1, z0, z1 = roi_box
+        box = values[0].reshape(n, n, n)[z0:z1 + 1, y0:y1 + 1, x0:x1 + 1]
+        if (box <= 0.0).any():
+            raise ValueError("roi_box holds refined root cells")
+        dims = box.shape[::-1]
+        lcells, values = [box.size], [np.ascontiguousarray(box).ravel()]
+    write_hierarchy(os.path.join(d, "tmp.cloud"), *dims, lcells, values)
     cells = int(np.sum(lcells))
     area = 6 * n * n
     lines = []
@@ -339,7 +354,8 @@ def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
     ini = os.path.join(d, "run.ini")
     with open(ini, "w") as fp:
         fp.write(INI.format(gl=gl_pc, npix=npix or n, map_dx=map_dx,
-                            dust=dust_name, bgpac=bgpac or 8 * 6 * n * n,
+                            dust=dust_name,
+                            bgpac=8 * 6 * n * n if bgpac is None else bgpac,
                             iterations=iterations,
                             extra="".join(lines) + extra))
     return ini

@@ -6,18 +6,26 @@ Phases:
   1. the constant sources, each in one mixed-frequency packet pool over
      the simulated channels (`simum`): the isotropic background (`split`
      on refined clouds), the Healpix sky (`hpbg`, `hpbgw`), point sources
-     (`pointsource`, PS_METHOD 0-5) and the diffuse emission (`diffuse`)
-     -> TABS (+ per-frequency absorptions, or with `saveint 2` the
-     (I, Ix, Iy, Iz) tally); or TABS read from a `cload` file. With
-     `abundance` (WITH_ABU, and MSF with a dsc file a dust) every
-     transport pass takes per-cell cross sections, in bfloat16 under
-     `optishalf`
+     (`pointsource`, PS_METHOD 0-5), the diffuse emission (`diffuse`)
+     and the ROI boundary source (`roiload`) -> TABS (+ per-frequency
+     absorptions, or with `saveint 2` the (I, Ix, Iy, Iz) tally); or TABS
+     read from a `cload` file. With `abundance` (WITH_ABU, and MSF with a
+     dsc file a dust) every transport pass takes per-cell cross sections,
+     in bfloat16 under `optishalf`. Every pass takes the `mirror` faces
+     and the `stepweight` / `direweight` weighting; `roi` + `roisave`
+     histogram the packets entering the ROI box into the ROI file. With
+     `mmapabs` (or a tally larger than SOC_TPU_TALLY_BYTES) the
+     per-frequency tally lives in a host memmap and each pass runs one
+     pool per block of channels whose tally fits the budget (HostTally)
   2. iterations: the dust's own emission re-emitted as cell packets
      (`cellpackets`, with EMWEI, ALI and the WITH_REFERENCE delta field),
      the equilibrium temperature solve and the thermal emission; or the
      SUBITERATIONS hot/cold schedule; or, with `loadtemp`, the emission of
      a stored temperature field
-  3. orthographic maps -> map_dir_XX.bin
+  3. maps: orthographic (map_dir_XX.bin, with `mapint`, `yshear`, FITS
+     and `savetau`), Healpix all-sky (map.healpix, `interpolate`),
+     perspective, MAP_HIER by level (map_dir_XX_H.bin), `roimap`'s gate,
+     and the point sources' `pssavetau` text files
 With `devices N` (or an explicit device list) phases 1 and 3 and one
 temperature solve run over a (dp x freq) mesh of devices
 (parallel/product.py): phase 1 with the channels blocked over freq and
@@ -31,6 +39,7 @@ silently ignored.
 """
 
 import os
+import tempfile
 import time
 from dataclasses import dataclass, field
 
@@ -38,8 +47,9 @@ import numpy as np
 import torch
 
 from ..config import RunConfig
-from ..constants import FACTOR, PARSEC, PLANCK
+from ..constants import FACTOR, PARSEC, PLANCK, f2um
 from ..io.dust import read_scattering_function, read_simple_dust
+from ..io.fits import write_fits_image
 from ..io.fields import (read_background_intensity,
                          read_cell_frequency_array,
                          write_cell_frequency_array, write_map_file)
@@ -51,6 +61,8 @@ from ..solve import equilibrium
 from ..transport.medium import medium_from_optics
 from ..transport import sources
 from ..transport.propagate import pool_lanes, transport_run
+from ..transport.roi import (read_roi_file, roi_cell_mask, roi_nelem,
+                             write_roi_file)
 from ..transport.sources import stream_hi_base
 
 # lanes of the packet pool: eager sweeps cost the same number of launches
@@ -63,6 +75,8 @@ HOT_LIMIT = 30.0       # SUBITERATIONS: cells at or above it [K] are hot
 # pass_balance: channels carrying less than this share of the largest
 # channel's weight are held relative to that share
 BALANCE_FLOOR = 1e-12
+# `mmapabs` without SOC_TPU_TALLY_BYTES: the device block of the host tally
+MMAP_BLOCK_BYTES = 1 << 30
 
 
 @dataclass
@@ -76,6 +90,9 @@ class RunResult:
     temperature: np.ndarray = None      # [CELLS]
     emitted: np.ndarray = None          # [CELLS, NFREQ]
     maps: dict = field(default_factory=dict)       # idir -> [NF, NY, NX]
+    tau_maps: dict = field(default_factory=dict)   # idir -> [NF, NY, NX]
+    render_passes: list = field(default_factory=list)  # a dict a render
+    roi_tally: np.ndarray = None        # roisave's [NFREQ, NELEM * NPIX]
     intensity: np.ndarray = None        # saveint's [CELLS, NFREQ(, 4)]
     escaped: np.ndarray = None          # [NFREQ] photons that left the volume
     injected: np.ndarray = None         # [NFREQ] photons injected
@@ -97,26 +114,8 @@ def unsupported_features(cfg):
         if cond:
             out.append(name)
 
-    need(cfg.roi is not None or cfg.file_roi_save or cfg.file_roi_load,
-         "roi / roisave / roiload")
-    need(cfg.roi_map, "roimap")
-    need(cfg.step_weight[0] in (1, 2) and cfg.step_weight[1] > 0,
-         "stepweight")
-    need(cfg.dir_weight[0] >= 0 and abs(cfg.dir_weight[1]) > 1e-6,
-         "direweight")
-    need(cfg.mirror, "mirror")
     need(cfg.n_domains, "domains")
-    need(cfg.mmap_absorbed, "mmapabs")
     need(cfg.polmap or cfg.polstat or cfg.b_files, "polmap / polstat")
-    need(cfg.file_savetau, "savetau")
-    need(cfg.file_pssavetau, "pssavetau")
-    need(cfg.npix[1] <= 0, "healpix maps (mapping N 0)")
-    need(cfg.intobs[0] > -1e7, "perspective maps")
-    need(cfg.fast_map >= 999, "MAP_HIER maps (mapping ... 999)")
-    need(cfg.map_interpolation, "mapint (MAP_INTERPOLATION)")
-    need(cfg.interpolate, "interpolate")
-    need(cfg.y_shear != 0.0, "yshear")
-    need(cfg.fits, "FITS")
     need(cfg.file_checkpoint, "checkpoint")
     need(cfg.lib_abs or cfg.lib_maps or cfg.file_library,
          "libabs / libmaps / library")
@@ -161,6 +160,14 @@ def mesh_refused_features(cfg):
     need(cfg.optishalf, "optishalf")
     need(cfg.save_intensity > 0, "saveint / dustem")
     need(not (cfg.sim_f[0] <= 1.0e8 and cfg.sim_f[1] >= 1.0e17), "simum")
+    need((cfg.roi is not None and cfg.file_roi_save) or cfg.file_roi_load,
+         "roi / roisave / roiload")
+    need(cfg.mirror, "mirror")
+    need(cfg.step_weight[0] in (1, 2) and cfg.step_weight[1] > 0,
+         "stepweight")
+    need(cfg.dir_weight[0] >= 0 and abs(cfg.dir_weight[1]) > 1e-6,
+         "direweight")
+    need(cfg.mmap_absorbed, "mmapabs")
     return out
 
 
@@ -199,6 +206,79 @@ def run(ini_path=None, cfg=None, device=None, lanes=DEFAULT_LANES,
         os.chdir(orig)
 
 
+def mirror_mask_of(cfg):
+    """'mirror xXyYzZ' keyword -> 6-bit mask (ASOC.py:321-324)."""
+    m = 0
+    for bit, ch in enumerate("xXyYzZ"):
+        if ch in cfg.mirror:
+            m |= 1 << bit
+    return m
+
+
+class HostTally:
+    """The out-of-core per-frequency tally of `mmapabs` (and of a tally
+    larger than SOC_TPU_TALLY_BYTES): [CELLS, NFREQ(, 4)] float32 in a
+    host np.memmap whose scratch file is unlinked at once, as the
+    reference mmaps FABSORBED (ASOC.py:39-42, 623-638). soc_tpu streams
+    one [CELLS] column a channel; here a pass runs one pool per block of
+    channels whose [CELLS, block] device tally fits ``budget`` bytes and
+    flushes each block into the memmap (``blocks``)."""
+
+    def __init__(self, shape, budget, device):
+        tf = tempfile.NamedTemporaryFile(prefix=".fabsorbed.",
+                                         suffix=".tally", dir=".",
+                                         delete=False)
+        tf.close()
+        self.host = np.memmap(tf.name, dtype=np.float32, mode="w+",
+                              shape=shape)
+        os.unlink(tf.name)
+        self.device = device
+        col = int(np.prod(shape)) // shape[1] * 4
+        self.cols = max(1, int(budget) // col)
+
+    def blocks(self, channels):
+        """Yields (channels of the block, its device tally [CELLS, NB(, 4)]
+        of channels col0 .. col0 + NB - 1, col0); each block is added into
+        the memmap when the caller's body for it is done."""
+        channels = np.asarray(channels)
+        host = self.host
+        for i in range(0, len(channels), self.cols):
+            chunk = channels[i:i + self.cols]
+            c0, ncol = int(chunk[0]), int(chunk[-1] - chunk[0] + 1)
+            dev = torch.zeros((host.shape[0], ncol) + host.shape[2:],
+                              dtype=torch.float32, device=self.device)
+            yield chunk, dev, c0
+            host[:, c0:c0 + ncol] += dev.cpu().numpy()
+
+
+def _tally_blocks(intf, channels, fresh=False):
+    """The per-frequency tallies a pass over ``channels`` adds into, as
+    (channels, tally, col0): a HostTally's device blocks; else intf
+    itself, or with ``fresh`` a tally of the pass's own added into intf
+    afterwards (a cell pass, whose absorption is held to its own)."""
+    if isinstance(intf, HostTally):
+        yield from intf.blocks(channels)
+    elif fresh:
+        own = torch.zeros_like(intf)
+        yield channels, own, 0
+        intf.add_(own)
+    else:
+        yield channels, intf, 0
+
+
+def _host_tally(cfg, grid, nfreq, device, pmesh):
+    """A HostTally when `mmapabs` asks for one or the per-frequency tally
+    exceeds SOC_TPU_TALLY_BYTES (never over a mesh), else None."""
+    if pmesh is not None:
+        return None
+    shape = (grid.cells, nfreq) + ((4,) if cfg.save_intensity == 2 else ())
+    need = 4 * int(np.prod(shape))
+    budget = int(float(os.environ.get("SOC_TPU_TALLY_BYTES", "0") or 0))
+    if not (cfg.mmap_absorbed or (budget and need > budget)):
+        return None
+    return HostTally(shape, budget or MMAP_BLOCK_BYTES, device)
+
+
 def remit_mask_of(cfg, freq):
     """bool[NFREQ]: frequencies inside the `remit` re-emission band."""
     return (np.asarray(freq) >= cfg.remit_f[0]) \
@@ -222,19 +302,27 @@ def map_freq_mask(cfg, freq):
     return (freq >= cfg.map_freq[0]) & (freq <= cfg.map_freq[1])
 
 
-def _scaled_absorbed(grid, intf, gl_cm, nnn_limit=0.0):
-    """Per-frequency tallies -> absorbed.data payload: scale by
-    8^level*FACTOR/(GL*PARSEC)/DENS, mark parent cells -1e20, and cells
-    with DENS <= nnn_limit the same way."""
+def _scale_absorbed(grid, tally, gl_cm, nnn_limit=0.0, block=1 << 20):
+    """Per-frequency tallies -> absorbed.data payload, in place over blocks
+    of rows of the float32 host array ``tally`` (the in-memory tally's host
+    copy, or the `mmapabs` memmap, where a scaled copy of [CELLS, NFREQ]
+    would defeat the point): scale by 8^level*FACTOR/(GL*PARSEC)/DENS in
+    float64, mark parent cells -1e20, and cells with DENS <= nnn_limit the
+    same way. Returns ``tally``."""
     lev = equilibrium.cell_levels(grid).cpu().numpy()
     dens = grid.dens.cpu().numpy()
-    fabs = intf.cpu().numpy() if isinstance(intf, torch.Tensor) \
-        else np.asarray(intf)
     coeff = (8.0 ** lev) * (FACTOR / gl_cm)
+    bad = dens <= max(0.0, nnn_limit)
     with np.errstate(divide="ignore", invalid="ignore"):
-        fabs = fabs * (coeff / np.maximum(dens, 1e-35))[:, None]
-    fabs[dens <= max(0.0, nnn_limit)] = -1.0e20
-    return fabs
+        scale = coeff / np.maximum(dens, 1e-35)
+    # link and parent rows become -1e20 below; zeroing their scale first
+    # keeps the float32 cast finite
+    scale[bad] = 0.0
+    for i0 in range(0, tally.shape[0], block):
+        i1 = min(i0 + block, tally.shape[0])
+        tally[i0:i1] = tally[i0:i1] * scale[i0:i1, None]
+        tally[i0:i1][bad[i0:i1]] = -1.0e20
+    return tally
 
 
 def _write_emitted_file(cfg, freq, emitted):
@@ -256,22 +344,30 @@ def _physics(medium, physics_extra=None):
 
 def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
                  seed, lanes, per_freq_tally, physics_extra=None,
-                 split_max=0):
+                 split_max=0, mirror_mask=0, roi=None):
     """One phase-1 source as one mixed-frequency pool over the channels
     ``sel``, counts[j] packets in channel sel[j] (channels with none are
     left out): soc_tpu runs a pool a channel here, and the packet
     identities (hi = stream_hi_base(phase) + channel, k the id within the
     channel) are the same, so the pool traces the same packets with one
-    drain tail. Returns (tabs, intf, stats): the source's route, packets,
-    seconds, clones and, per channel in float64, the weights escaped,
-    launched and born outside the grid, and its absorbed energy (the sum
-    and the per-cell tally it added, a host array)."""
+    drain tail. Under `mmapabs` (intf a HostTally) one pool a block of
+    channels. params['cell_maps'] (EMWEI) holds one id -> cell map a
+    channel of sel, joined end to end for the pool. ``roi``: the ROI
+    save's crossing tally (transport_run). Returns (tabs, intf, stats):
+    the source's route, pools, packets, seconds, clones and, per channel
+    in float64, the weights escaped, launched and born outside the grid,
+    and its absorbed energy (the sum and the per-cell tally it added, a
+    host array)."""
     t0 = time.time()
     device = grid.device
     nfreq = medium.nfreq
     sel = np.asarray(sel, np.int64)
     counts = np.broadcast_to(np.asarray(counts, np.int64), sel.shape)
     keep = counts > 0
+    params = dict(params)
+    maps = params.pop("cell_maps", None)
+    if maps is not None:
+        maps = [m for m, k in zip(maps, keep) if k]
     sel, counts = sel[keep], counts[keep]
     total = int(counts.sum())
     zero = np.zeros(nfreq)
@@ -281,23 +377,37 @@ def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
                  missed=zero, absorbed_energy=0.0, tabs=None)
     if total == 0:
         return tabs, intf, stats
-    params = dict(params, hi_base=stream_hi_base(phase),
-                  sel=torch.as_tensor(sel, device=device))
-    if (counts == counts[0]).all() and "cell_of_id" not in params:
-        params["per_freq"] = int(counts[0])
-    else:
-        params["starts"] = torch.as_tensor(
-            np.concatenate([[0], np.cumsum(counts)]), device=device)
+    physics = _physics(medium, physics_extra)
     tabs0 = tabs.clone()
-    out = transport_run(
-        grid, _physics(medium, physics_extra), params, total, tabs, intf,
-        seed, source_kind=kind, nlanes=pool_lanes(lanes, total),
-        per_freq_tally=per_freq_tally, split_max=split_max, births=True)
-    tabs, intf, esc = out[:3]
+    escaped, launched, missed = zero.copy(), zero.copy(), zero.copy()
+    clones = pools = 0
+    for chans, tally, col0 in _tally_blocks(intf, sel):
+        m = np.isin(sel, chans)
+        bcounts, n = counts[m], int(counts[m].sum())
+        p = dict(params, hi_base=stream_hi_base(phase),
+                 sel=torch.as_tensor(sel[m], device=device))
+        if maps is not None:
+            p["cell_of_id"] = torch.as_tensor(np.concatenate(
+                [mp for mp, k in zip(maps, m) if k]), device=device)
+        if (bcounts == bcounts[0]).all() and maps is None:
+            p["per_freq"] = int(bcounts[0])
+        else:
+            p["starts"] = torch.as_tensor(
+                np.concatenate([[0], np.cumsum(bcounts)]), device=device)
+        out = transport_run(
+            grid, physics, p, n, tabs, tally, seed, source_kind=kind,
+            nlanes=pool_lanes(lanes, n), per_freq_tally=per_freq_tally,
+            split_max=split_max, births=True, mirror_mask=mirror_mask,
+            roi=roi, tally_col0=col0)
+        tabs = out[0]
+        escaped += out[2].cpu().numpy()
+        launched += out[-2].cpu().numpy()
+        missed += out[-1].cpu().numpy()
+        clones += int(out[4]) if split_max > 0 else 0
+        pools += 1
     delta = tabs - tabs0
-    stats.update(pools=1, clones=int(out[4]) if split_max > 0 else 0,
-                 escaped=esc.cpu().numpy(), launched=out[-2].cpu().numpy(),
-                 missed=out[-1].cpu().numpy(),
+    stats.update(pools=pools, clones=clones, escaped=escaped,
+                 launched=launched, missed=missed,
                  absorbed_energy=float(delta.sum(dtype=torch.float64)),
                  tabs=delta.cpu().numpy(), seconds=time.time() - t0)
     return tabs, intf, stats
@@ -312,7 +422,7 @@ def split_max_of(cfg, grid):
 def simulate_background(grid, medium, cfg, ibg, tabs, intf, seed,
                         lanes=DEFAULT_LANES, per_freq_tally=False,
                         pmesh=None, sel=None, physics_extra=None,
-                        split_max=0, passes=None):
+                        split_max=0, passes=None, roi=None):
     """Phase-1 isotropic background over the channels ``sel`` (all by
     default), in one mixed pool; with ``pmesh`` (`devices N`) over the
     mesh, one pool per shard (product.run_freqs), intf then the mesh's
@@ -339,7 +449,8 @@ def simulate_background(grid, medium, cfg, ibg, tabs, intf, seed,
     params = dict(photons=torch.as_tensor(bg_photons, device=grid.device))
     tabs, intf, st = _source_pass(
         grid, medium, "bg", "bg", params, per_freq, sel, tabs, intf, seed,
-        lanes, per_freq_tally, physics_extra, split_max)
+        lanes, per_freq_tally, physics_extra, split_max,
+        mirror_mask_of(cfg), roi)
     st["injected"] = injected
     if passes is not None:
         passes.append(st)
@@ -355,7 +466,8 @@ def _only(values, sel):
 
 def simulate_hpbg(grid, medium, cfg, hpbg, tabs, intf, seed,
                   lanes=DEFAULT_LANES, per_freq_tally=False, weighted=False,
-                  sel=None, physics_extra=None, split_max=0, passes=None):
+                  sel=None, physics_extra=None, split_max=0, passes=None,
+                  roi=None):
     """Phase-1 Healpix-sky background (SimRAM_HP), soc_tpu's
     simulate_hpbg in one mixed pool over the channels ``sel``.
 
@@ -401,7 +513,8 @@ def simulate_hpbg(grid, medium, cfg, hpbg, tabs, intf, seed,
         params["cdf"] = torch.as_tensor(cdf.reshape(-1), device=device)
     tabs, intf, st = _source_pass(
         grid, medium, "hpbg", "hpbg", params, per_freq, sel, tabs, intf,
-        seed, lanes, per_freq_tally, physics_extra, split_max)
+        seed, lanes, per_freq_tally, physics_extra, split_max,
+        mirror_mask_of(cfg), roi)
     st["injected"] = injected * per_freq
     if passes is not None:
         passes.append(st)
@@ -427,7 +540,8 @@ def point_source_tables(grid, cfg):
 
 def simulate_point_sources(grid, medium, cfg, lps, tabs, intf, seed,
                            lanes=DEFAULT_LANES, per_freq_tally=False,
-                           sel=None, physics_extra=None, passes=None):
+                           sel=None, physics_extra=None, passes=None,
+                           roi=None):
     """Phase-1 point sources (soc_tpu's simulate_point_sources) in one
     mixed pool over the channels ``sel``: PSPAC packets a source and a
     channel, photons = L / (PLANCK PSPAC (GL PARSEC)^2) / freq, the
@@ -452,7 +566,8 @@ def simulate_point_sources(grid, medium, cfg, lps, tabs, intf, seed,
             v, device=device)
     tabs, intf, st = _source_pass(
         grid, medium, "ps", "ps", params, pspac * cfg.no_ps, sel, tabs,
-        intf, seed, lanes, per_freq_tally, physics_extra)
+        intf, seed, lanes, per_freq_tally, physics_extra,
+        mirror_mask=mirror_mask_of(cfg), roi=roi)
     st["injected"] = _only(
         np.sum(np.asarray(ps_photons, np.float64), axis=0) * pspac, sel)
     if passes is not None:
@@ -475,7 +590,7 @@ def read_diffuse_field(path, cells):
 
 def simulate_diffuse(grid, medium, cfg, diffuserad, tabs, intf, seed,
                      lanes=DEFAULT_LANES, per_freq_tally=False, sel=None,
-                     physics_extra=None, passes=None):
+                     physics_extra=None, passes=None, roi=None):
     """Phase-1 diffuse volume emission (SimRAM_CL SOURCE==2, ASOC.py:
     1250-1272), soc_tpu's simulate_diffuse in one mixed pool.
 
@@ -536,19 +651,75 @@ def simulate_diffuse(grid, medium, cfg, diffuserad, tabs, intf, seed,
             emit[:, i] = (cols_np[i] * weight).astype(np.float32)
             maps.append(cell_of_id)
             counts.append(total)
-        params = dict(cell_of_id=torch.as_tensor(
-            np.concatenate(maps) if maps else np.zeros(1, np.int32),
-            device=device))
+        params = dict(cell_maps=maps)
     params["emit"] = torch.as_tensor(emit, device=device)
     tabs, intf, st = _source_pass(
         grid, medium, "cell", "diffuse", params, counts, sel, tabs, intf,
-        seed, lanes, per_freq_tally, physics_extra)
+        seed, lanes, per_freq_tally, physics_extra,
+        mirror_mask=mirror_mask_of(cfg), roi=roi)
     if use_ew:
         st["route"] = "emweight"
     st["injected"] = injected
     if passes is not None:
         passes.append(st)
     return tabs, intf, st["escaped"], injected
+
+
+def simulate_roi_load(grid, medium, cfg, tabs, intf, seed,
+                      lanes=DEFAULT_LANES, per_freq_tally=False, sel=None,
+                      passes=None):
+    """Phase-1 ROI boundary source (SOURCE==3, kernel_ASOC.c:469-505), in
+    one mixed pool over the channels ``sel``: the (surface element x
+    Healpix direction) photons of a previous run's `roisave` file,
+    re-injected into this (sub-)model, `roipackets` // (NELEM NPIX)
+    packets a pair (at least one), each load times `roiload`'s scale.
+    As soc_tpu, without the run's per-cell or weighting physics and
+    without splitting. Returns (tabs, intf, escaped[NF], injected[NF])
+    and appends its stats to ``passes``."""
+    rnx, rny, rnz, nside, data = read_roi_file(cfg.file_roi_load)
+    nfreq = medium.nfreq
+    if data.shape[0] != nfreq:
+        raise ValueError("%s: %d freqs != model %d"
+                         % (cfg.file_roi_load, data.shape[0], nfreq))
+    npx = 12 * nside * nside
+    nelem = data.shape[1] // npx
+    reps = max(1, int(cfg.roipac) // (nelem * npx))
+    per_freq = reps * nelem * npx
+    load = np.asarray(data, np.float64) * cfg.roi_load_scale
+    sel = np.arange(nfreq) if sel is None else np.asarray(sel)
+    injected = _only(load.sum(1), sel)
+    params = dict(roi_load=torch.as_tensor(
+        load.astype(np.float32).reshape(nfreq, nelem, npx),
+        device=grid.device), roi_dim=(rnx, rny, rnz), reps=reps)
+    tabs, intf, st = _source_pass(
+        grid, medium, "roi", "roi", params, per_freq, sel, tabs, intf, seed,
+        lanes, per_freq_tally, mirror_mask=mirror_mask_of(cfg))
+    st["injected"] = injected
+    if passes is not None:
+        passes.append(st)
+    return tabs, intf, st["escaped"], injected
+
+
+def roi_save_setup(cfg, grid, nfreq):
+    """The ROI save's crossing tally (`roi` + `roisave`, the driver.py
+    :1324-1340 of soc_tpu), or None: the box's cell mask, its limits, its
+    discretisation (rnx, rny, rnz, step) and the device tally
+    [NFREQ, NELEM * 12 NSIDE^2]."""
+    if cfg.roi is None or not cfg.file_roi_save:
+        return None
+    step = cfg.roi_step
+    x0, x1, y0, y1, z0, z1 = cfg.roi
+    rnx, rny, rnz = ((x1 - x0 + 1) * step, (y1 - y0 + 1) * step,
+                     (z1 - z0 + 1) * step)
+    nside = int(cfg.roi_nside)
+    device = grid.device
+    return dict(nside=nside, box=tuple(float(v) for v in cfg.roi),
+                mask=torch.as_tensor(roi_cell_mask(grid, cfg.roi),
+                                     device=device),
+                dim=(rnx, rny, rnz, float(step)),
+                tally=torch.zeros((nfreq, roi_nelem(rnx, rny, rnz) * 12
+                                   * nside * nside), dtype=torch.float32,
+                                  device=device))
 
 
 def emweight_allocation(emit_col, clpac, lims=(0.0, 1e10), rng=None,
@@ -635,7 +806,9 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
 
     With per-frequency tallies the pass adds into a [CELLS, NFREQ] tally
     of its own, then into intf: its absorption per channel is then held
-    in float32 relative to itself, not to the tally it joins.
+    in float32 relative to itself, not to the tally it joins. Under
+    `mmapabs` (intf a HostTally) each block of channels runs on its own
+    device block: the mixed route one pool a block.
 
     Returns (tabs, intf, escaped [NFREQ], xab [CELLS] host array or None,
     stats): stats holds the pass's route, pools, packets, seconds and,
@@ -647,87 +820,93 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
     nfreq = medium.nfreq
     hi_base = stream_hi_base("cell", iteration)
     physics = _physics(medium, physics_extra)
+    mirror = mirror_mask_of(cfg)
     emitted = torch.as_tensor(emitted, device=device)
-    run_intf = intf
-    if per_freq_tally:
-        intf = torch.zeros_like(run_intf)
     injected = torch.zeros(nfreq, dtype=torch.float64, device=device)
     inj_abs = torch.zeros_like(injected)
     escaped = torch.zeros_like(injected)
+    absorbed = np.zeros(nfreq)
     xab = None
     pools = packets = 0
+    per_cell = max(1, int(cfg.clpac) // grid.cells)
+    per_freq = per_cell * grid.cells
     if cfg.use_emweight > 0:
         route = "emweight"
         rng = np.random.Generator(np.random.Philox(
             key=np.uint64([int(seed) & 0xFFFFFFFF, iteration])))
         allocs = _emweight_allocs(emitted.cpu().numpy(), cfg, rng, nfreq)
         nlanes = pool_lanes(lanes, int(cfg.clpac))
-        for ifreq in range(nfreq):
-            cell_of_id, weight, total = allocs[ifreq]
-            if total == 0:
-                continue
-            # padded to a power of two (ids beyond total are never drawn)
-            com = np.full(pool_lanes(1 << 30, total), grid.cells - 1,
-                          np.int32)
-            com[:total] = cell_of_id
-            emit = emitted[:, ifreq] * torch.as_tensor(weight, device=device)
-            w = torch.as_tensor(np.bincount(cell_of_id, minlength=grid.cells),
-                                device=device) * emit.double()
+    elif cfg.with_ali:
+        route = "ali"
+        xab = torch.zeros(grid.cells, dtype=torch.float32, device=device)
+    else:
+        route = "mixed"
+        emitw = emitted * np.float32(1.0 / per_cell)
+        w = per_cell * emitw.double()
+        injected += w.sum(0)
+        inj_abs += w.abs().sum(0)
+
+    for chans, tally, col0 in _tally_blocks(intf, np.arange(nfreq),
+                                            fresh=per_freq_tally):
+        kw = dict(per_freq_tally=per_freq_tally, mirror_mask=mirror,
+                  tally_col0=col0)
+        if route == "mixed":
+            total = per_freq * len(chans)
+            params = dict(emit=emitw, per_cell=per_cell, per_freq=per_freq,
+                          hi_base=hi_base,
+                          sel=torch.as_tensor(chans, device=device))
+            tabs, _, esc, _ = transport_run(
+                grid, physics, params, total, tabs, tally, seed,
+                source_kind="cell", nlanes=pool_lanes(lanes, total), **kw)
+            escaped += esc
+            pools += 1
+            packets += total
+        for ifreq in (chans if route != "mixed" else ()):
+            ifreq = int(ifreq)
+            if route == "emweight":
+                cell_of_id, weight, total = allocs[ifreq]
+                if total == 0:
+                    continue
+                # padded to a power of two (ids beyond total are never
+                # drawn)
+                com = np.full(pool_lanes(1 << 30, total), grid.cells - 1,
+                              np.int32)
+                com[:total] = cell_of_id
+                emit = emitted[:, ifreq] * torch.as_tensor(weight,
+                                                           device=device)
+                w = torch.as_tensor(np.bincount(cell_of_id,
+                                                minlength=grid.cells),
+                                    device=device) * emit.double()
+                params = dict(emit=emit, cell_of_id=torch.as_tensor(
+                    com, device=device), ifreq=ifreq, hi_base=hi_base)
+                tabs, _, esc, _ = transport_run(
+                    grid, physics, params, total, tabs, tally, seed,
+                    source_kind="cell", nlanes=nlanes, **kw)
+            else:
+                total = per_freq
+                emit = emitted[:, ifreq] / np.float32(per_cell)
+                w = per_cell * emit.double()
+                params = dict(emit=emit, per_cell=per_cell, ifreq=ifreq,
+                              hi_base=hi_base)
+                tabs, _, esc, _, xab = transport_run(
+                    grid, physics, params, per_freq, tabs, tally, seed,
+                    source_kind="cell", nlanes=pool_lanes(lanes, per_freq),
+                    with_ali=True, xab=xab, **kw)
             injected[ifreq] += w.sum()
             inj_abs[ifreq] += w.abs().sum()
-            params = dict(emit=emit, cell_of_id=torch.as_tensor(
-                com, device=device), ifreq=ifreq, hi_base=hi_base)
-            tabs, intf, esc, _ = transport_run(
-                grid, physics, params, total, tabs, intf, seed,
-                source_kind="cell", nlanes=nlanes,
-                per_freq_tally=per_freq_tally)
             escaped[ifreq] += esc[ifreq]
             pools += 1
             packets += total
-    else:
-        per_cell = max(1, int(cfg.clpac) // grid.cells)
-        per_freq = per_cell * grid.cells
-        if cfg.with_ali:
-            route = "ali"
-            xab = torch.zeros(grid.cells, dtype=torch.float32, device=device)
-            for ifreq in range(nfreq):
-                emit = emitted[:, ifreq] / np.float32(per_cell)
-                w = per_cell * emit.double()
-                injected[ifreq] += w.sum()
-                inj_abs[ifreq] += w.abs().sum()
-                params = dict(emit=emit, per_cell=per_cell, ifreq=ifreq,
-                              hi_base=hi_base)
-                tabs, intf, esc, _, xab = transport_run(
-                    grid, physics, params, per_freq, tabs, intf, seed,
-                    source_kind="cell", nlanes=pool_lanes(lanes, per_freq),
-                    per_freq_tally=per_freq_tally, with_ali=True, xab=xab)
-                escaped[ifreq] += esc[ifreq]
-            pools, packets = nfreq, per_freq * nfreq
-            xab = xab.cpu().numpy()
-        else:
-            route = "mixed"
-            emitw = emitted * np.float32(1.0 / per_cell)
-            w = per_cell * emitw.double()
-            injected += w.sum(0)
-            inj_abs += w.abs().sum(0)
-            total = per_freq * nfreq
-            params = dict(emit=emitw, per_cell=per_cell, per_freq=per_freq,
-                          hi_base=hi_base)
-            tabs, intf, esc, _ = transport_run(
-                grid, physics, params, total, tabs, intf, seed,
-                source_kind="cell", nlanes=pool_lanes(lanes, total),
-                per_freq_tally=per_freq_tally)
-            escaped += esc
-            pools, packets = 1, total
+        if per_freq_tally:
+            absorbed[col0:col0 + tally.shape[1]] += _absorbed_of(tally).sum(
+                0, dtype=torch.float64).cpu().numpy()
+    if xab is not None:
+        xab = xab.cpu().numpy()
     escaped = escaped.cpu().numpy()
     stats = dict(iteration=iteration, route=route, pools=pools,
                  packets=packets, injected=injected.cpu().numpy(),
                  injected_abs=inj_abs.cpu().numpy(), escaped=escaped,
-                 absorbed=None)
-    if per_freq_tally:
-        stats["absorbed"] = _absorbed_of(intf).sum(
-            0, dtype=torch.float64).cpu().numpy()
-        intf = run_intf.add_(intf)
+                 absorbed=absorbed if per_freq_tally else None)
     stats["seconds"] = time.time() - t0
     return tabs, intf, escaped, xab, stats
 
@@ -800,7 +979,9 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
         raise NotImplementedError(
             "not supported by soc_tpu_torch yet under `devices`: %s"
             % ", ".join(mesh_refused_features(cfg)))
-    physics_extra = abundance_physics(cfg, optics, scafuncs, abu, device)
+    physics_extra = {**(abundance_physics(cfg, optics, scafuncs, abu,
+                                          device) or {}),
+                     **weighting_physics(cfg, medium, abu)} or None
     res.grid, res.medium, res.freq = grid, medium, freq
     res.devices = None if pmesh is None else pmesh.devices
     seed = res.seed = int(np.uint32(max(0.0, cfg.seed) * 2**31)
@@ -858,9 +1039,13 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     t0 = time.time()
     per_freq_tally = (not cfg.noabsorbed) or cfg.save_intensity > 0
     tabs = torch.zeros(grid.cells, dtype=torch.float32, device=device)
+    host = _host_tally(cfg, grid, nfreq, device, pmesh) if per_freq_tally \
+        else None
     if pmesh is not None and per_freq_tally:
         # dp-partial per-frequency slabs, one per shard on its device
         intf = pmesh.zeros_intf(grid.cells)
+    elif host is not None:
+        intf = host
     else:
         shape = (1, 1)
         if cfg.save_intensity == 2:
@@ -873,8 +1058,9 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     escaped = np.zeros(nfreq)
     injected = np.zeros(nfreq)
     packets = 0
+    roi = roi_save_setup(cfg, grid, nfreq)
     kw = dict(sel=sel, physics_extra=physics_extra,
-              passes=res.source_passes)
+              passes=res.source_passes, roi=roi)
     split_max = split_max_of(cfg, grid)
     if cfg.file_constant_load:
         # CLOAD: the constant sources are not simulated; their integrated
@@ -916,6 +1102,12 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
                 per_freq_tally, **kw)
             escaped += esc
             injected += inj
+        if cfg.file_roi_load and cfg.roipac > 0:
+            tabs, intf, esc, inj = simulate_roi_load(
+                grid, medium, cfg, tabs, intf, seed + 9, lanes,
+                per_freq_tally, sel, res.source_passes)
+            escaped += esc
+            injected += inj
     if pmesh is not None and per_freq_tally:
         intf = pmesh.reduce_intf(intf, device)
     _sync(device)
@@ -931,6 +1123,12 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     if write_files and cfg.file_constant_save:
         # CSAVE: bare float32 [CELLS] integrated constant heating
         res.ctabs.astype(np.float32).tofile(cfg.file_constant_save)
+    if roi is not None:
+        res.roi_tally = roi["tally"].cpu().numpy()
+        if write_files:
+            rnx, rny, rnz, _ = roi["dim"]
+            write_roi_file(cfg.file_roi_save, rnx, rny, rnz, roi["nside"],
+                           res.roi_tally)
     timings["constant_sources"] = time.time() - t0
 
     # ---- phase 2: iterations (T solve + emission, optional self-heating)
@@ -953,16 +1151,24 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     # ---- outputs (reference end-of-run scaling)
     t0 = time.time()
     if per_freq_tally:
-        absorbed = _absorbed_of(intf)
-        res.absorbed_photons = absorbed.sum(
-            0, dtype=torch.float64).cpu().numpy()
+        if isinstance(intf, HostTally):
+            # the out-of-core tally: summed, scaled in place and written
+            # in blocks of rows, never copied whole
+            intf = intf.host
+            absorbed = _absorbed_of(intf)
+            res.absorbed_photons = np.sum(absorbed, 0, dtype=np.float64)
+        else:
+            absorbed = _absorbed_of(intf)
+            res.absorbed_photons = absorbed.sum(
+                0, dtype=torch.float64).cpu().numpy()
         if cfg.save_intensity > 0:
             res.intensity = _intensity(grid, medium, freq, intf)
             if write_files:
                 _write_intensity(cfg.file_intensity, res.intensity)
         if not cfg.noabsorbed:
-            res.absorbed = _scaled_absorbed(grid, absorbed, gl_cm,
-                                            cfg.nnn_limit)
+            host = absorbed if isinstance(absorbed, np.ndarray) \
+                else np.array(absorbed.cpu(), np.float32)
+            res.absorbed = _scale_absorbed(grid, host, gl_cm, cfg.nnn_limit)
             if write_files and cfg.file_absorbed:
                 write_cell_frequency_array(cfg.file_absorbed, res.absorbed)
     if write_files and temperature is not None and cfg.file_temperature:
@@ -998,7 +1204,7 @@ def _intensity(grid, medium, freq, intf):
     absf = medium.abs_gl.cpu().numpy().astype(np.float64)
     coeff = (PLANCK * np.asarray(freq, np.float64)[None, :]
              / np.maximum(absf, 1e-300)[None, :] * (8.0 ** lev)[:, None])
-    raw = intf.cpu().numpy()
+    raw = intf.cpu().numpy() if isinstance(intf, torch.Tensor) else intf
     if raw.ndim == 3:
         with np.errstate(divide="ignore", invalid="ignore"):
             intensity = (coeff[:, :, None] * raw
@@ -1064,6 +1270,25 @@ def abundance_physics(cfg, optics, scafuncs, abu, device):
             np.stack([c for _, c in scafuncs]).astype(np.float32),
             device=device), msf_abu=abu_t,
             msf_sca=torch.as_tensor(sca_d.T.copy(), device=device))
+    return out
+
+
+def weighting_physics(cfg, medium, abu):
+    """The transport's weighting keys (soc_tpu driver.py:1239-1258):
+    STEP_WEIGHT's 'sw_a' (and method 2's 'sw_b'); DIR_WEIGHT's 'dw_a' with
+    the [NFREQ, BINS] phase function 'dsc', which a mixed pool reads at
+    each lane's channel (not with abundances, as in the reference)."""
+    out = {}
+    if cfg.step_weight[0] in (1, 2) and cfg.step_weight[1] > 0:
+        out["sw_a"] = float(cfg.step_weight[1])
+        if cfg.step_weight[0] == 2:
+            # B < 1, or the quadratic degenerates (the reference divides
+            # by 2 - 2B just the same)
+            out["sw_b"] = float(cfg.step_weight[2])
+    if cfg.dir_weight[0] >= 0 and abs(cfg.dir_weight[1]) > 1e-6 \
+            and abu is None:
+        out["dw_a"] = float(cfg.dir_weight[1])
+        out["dsc"] = medium.dsc
     return out
 
 
@@ -1276,66 +1501,281 @@ def _subiterations(cfg, grid, medium, optics, table, ctabs, intf, seed,
 
 def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
                   timings, pmesh=None, ext_cells=None):
-    """Phase 3: orthographic frequency-fused maps, map_dir_XX.bin.
+    """Phase 3 (soc_tpu driver.py:1899-2201): the maps and the point
+    sources' optical depths.
 
     emitted: [CELLS, NFREQ] host array or device tensor (or None);
     ext_cells: WITH_ABU's per-cell extinction [CELLS, NFREQ] (host), or
-    None for the medium's.
-    With `threshold L` the maps take no emission from cells on levels
-    below L: they still absorb along the line of sight
-    (kernel_ASOC_map.c:825-839).
-    With ``pmesh`` the map's rows and channels are split over the mesh
-    when NY divides by dp and the selected channels by freq (soc_tpu's
-    conditions, driver.py:2063-2068 there, less those on keywords the
-    port does not take yet); otherwise it renders on the first shard's
-    device, as soc_tpu falls back."""
+    None for the medium's. By the ini, one of: MAP_HIER by level, Healpix
+    (map_dir_XX_H.bin, `mapping NSIDE -1 dx 999`) or orthographic; a
+    Healpix all-sky map from the internal observer (map.healpix,
+    `interpolate`); a perspective panorama (`intobs`); else orthographic
+    maps (map_dir_XX.bin, with `mapint` and `yshear`/`maxlos`), with FITS
+    files (`FITS`) and `savetau`'s optical depth at the asked
+    frequencies or column density (a frequency outside the map band is
+    rendered but kept out of map_dir_XX.bin). Then `pssavetau`'s text
+    files. With `threshold L` the maps take no emission from cells on
+    levels below L; with `roimap` none from cells whose root cell lies
+    outside the ROI box (a where, so a NaN there cannot reach a map; the
+    hierarchy maps have no gate, as in the reference). They still absorb
+    along the line of sight.
+    With ``pmesh`` the plain orthographic map's rows and channels are
+    split over the mesh when NY divides by dp and the selected channels
+    by freq (soc_tpu's conditions, driver.py:2063-2068 there); every other
+    map renders on the first shard's device, as soc_tpu falls back.
+    Each render's seconds, rays and march steps (None for the sharded
+    map) go to res.render_passes.
+    """
     t0 = time.time()
     device = grid.device
-    if cfg.nomap or emitted is None:
-        timings["maps"] = time.time() - t0
-        return
-    if cfg.level_threshold > 0:
+    gl_cm = cfg.gl * PARSEC
+    if emitted is not None and cfg.level_threshold > 0:
         lev = equilibrium.cell_levels(grid)
         emitted = torch.where((lev < cfg.level_threshold)[:, None], 0.0,
                               torch.as_tensor(emitted, device=device))
-    fsel = map_freq_mask(cfg, freq)
-    if not fsel.any():
-        timings["maps"] = time.time() - t0
-        return
-    centre = cfg.mapcentre
-    if centre[0] < -1e7:
-        centre = (0.5 * grid.nx, 0.5 * grid.ny, 0.5 * grid.nz)
-    kk = render_mapping.map_scale_kk(cfg.gl)
-    freq_s = np.asarray(freq)[fsel]
-    shard_maps = (pmesh is not None and cfg.npix[1] % pmesh.n_dp == 0
+    fsel = map_freq_mask(cfg, freq) if emitted is not None else None
+    ortho_maps = (cfg.fast_map < 999 and cfg.npix[1] > 0
+                  and cfg.intobs[0] <= -1e7)
+    # savetau's frequencies are rendered even outside the map band, but
+    # kept out of map_dir_XX.bin and res.maps (map_of_sel)
+    savetau_idx = []
+    map_sel = None if fsel is None else fsel.copy()
+    if ortho_maps and cfg.file_savetau and cfg.savetau_freq \
+            and fsel is not None:
+        for fv in cfg.savetau_freq:
+            if fv > 0:
+                i = int(np.argmin(np.abs(np.asarray(freq) - fv)))
+                fsel[i] = True
+                savetau_idx.append(i)
+            else:
+                savetau_idx.append(-1)          # column density
+    sel_of_full = {}
+    if fsel is not None:
+        sel_of_full = {int(i): k for k, i in enumerate(np.nonzero(fsel)[0])}
+    map_of_sel = None
+    if fsel is not None and not np.array_equal(fsel, map_sel):
+        map_of_sel = np.asarray([sel_of_full[int(i)]
+                                 for i in np.nonzero(map_sel)[0]], int)
+
+    def timed(name, fn, *args, counted=True, **kw):
+        # counted=False: a render that does not count its rays and steps
+        # (the mesh's); they stay None
+        stats = dict(render=name, rays=0 if counted else None,
+                     steps=0 if counted else None)
+        _sync(device)
+        t = time.time()
+        out = fn(*args, stats=stats, **kw) if counted else fn(*args, **kw)
+        _sync(device)
+        stats["seconds"] = time.time() - t
+        res.render_passes.append(stats)
+        return out
+
+    shard_maps = (pmesh is not None and ortho_maps and cfg.y_shear == 0.0
+                  and int(cfg.map_interpolation) == 0 and ext_cells is None
+                  and cfg.maxlos >= 1e9
+                  and cfg.npix[1] % pmesh.n_dp == 0
+                  and fsel is not None
                   and int(fsel.sum()) % pmesh.n_freq == 0)
     if pmesh is not None and not shard_maps:
         device = pmesh.devices[0]
         grid = pmesh.replica(grid, device)
-    emitted = torch.as_tensor(emitted, device=device)
-    scale = torch.as_tensor((kk * freq_s).astype(np.float32), device=device)
-    sel_idx = torch.as_tensor(np.nonzero(fsel)[0], device=device)
-    emit_map = emitted[:, sel_idx].to(torch.float32) * scale[None, :]
-    if ext_cells is not None:
-        # WITH_ABU: each cell's own extinction [CELLS, NF]
-        ext_gl = torch.as_tensor(ext_cells[:, fsel], device=device)
-    else:
-        ext_gl = torch.as_tensor(
-            (medium.abs_gl.cpu().numpy()
-             + medium.sca_gl.cpu().numpy())[fsel], device=device)
-    for idir in range(len(cfg.obs_theta)):
-        odir, ra, de = render_mapping.observer_basis(cfg.obs_theta[idir],
-                                                     cfg.obs_phi[idir])
-        if shard_maps:
-            from ..parallel.mesh import sharded_render_ortho
-            phot, _, _ = sharded_render_ortho(
-                grid, emit_map, ext_gl, odir, ra, de, centre, cfg.map_dx,
-                tuple(cfg.npix), pmesh)
+    if not cfg.nomap and emitted is not None and fsel.any():
+        centre = cfg.mapcentre
+        if centre[0] < -1e7:
+            centre = (0.5 * grid.nx, 0.5 * grid.ny, 0.5 * grid.nz)
+        kk = render_mapping.map_scale_kk(cfg.gl)
+        freq_s = np.asarray(freq)[fsel]
+        emitted = torch.as_tensor(emitted, device=device)
+        scale = torch.as_tensor((kk * freq_s).astype(np.float32),
+                                device=device)
+        sel_idx = torch.as_tensor(np.nonzero(fsel)[0], device=device)
+        emit_map = emitted[:, sel_idx].to(torch.float32) * scale[None, :]
+        if cfg.roi_map and cfg.roi is not None and cfg.fast_map < 999:
+            # ROI_MAP: emission only from cells whose root cell lies in
+            # the box (kernel_ASOC_map.c:515-961 InRoi)
+            inside = torch.as_tensor(roi_cell_mask(grid, cfg.roi),
+                                     device=device)
+            emit_map = torch.where(inside[:, None], emit_map, 0.0)
+        if ext_cells is not None:
+            # WITH_ABU: each cell's own extinction [CELLS, NF]
+            ext_gl = torch.as_tensor(ext_cells[:, fsel], device=device)
         else:
-            phot, _, _ = render_mapping.render_ortho(
-                grid, emit_map, ext_gl, odir, ra, de, centre, cfg.map_dx,
-                tuple(cfg.npix))
-        res.maps[idir] = phot.cpu().numpy()
-        if write_files:
-            write_map_file("map_dir_%02d.bin" % idir, res.maps[idir])
+            ext_gl = torch.as_tensor(
+                (medium.abs_gl.cpu().numpy()
+                 + medium.sca_gl.cpu().numpy())[fsel], device=device)
+        ndir = len(cfg.obs_theta)
+        if cfg.fast_map >= 999 and cfg.npix[1] <= 0:
+            # MAP_HIER + Healpix: per-level all-sky maps from the internal
+            # observer, one file a direction (all the same product):
+            # [NSIDE, NPIX.y] + [NF, LEVELS] int32, float32
+            # [NF, LEVELS, 12 NSIDE^2]
+            intobs = cfg.intobs if cfg.intobs[0] > -1e7 else centre
+            phot, _, _ = timed("healpix_hier",
+                               render_mapping.render_healpix_hier, grid,
+                               emit_map, ext_gl, intobs, int(cfg.npix[0]))
+            hier = phot.permute(1, 0, 2).cpu().numpy()
+            for idir in range(ndir):
+                res.maps[("hier_hp", idir)] = hier
+                if write_files:
+                    _write_hier("map_dir_%02d_H.bin" % idir, cfg, grid,
+                                hier)
+        elif cfg.fast_map >= 999:
+            # MAP_HIER: per-level orthographic maps, [NX, NY] + [NF,
+            # LEVELS] int32, float32 [NF, LEVELS, NY, NX]
+            for idir in range(ndir):
+                odir, ra, de = render_mapping.observer_basis(
+                    cfg.obs_theta[idir], cfg.obs_phi[idir])
+                phot = timed("ortho_hier", render_mapping.render_ortho_hier,
+                             grid, emit_map, ext_gl, odir, ra, de, centre,
+                             cfg.map_dx, tuple(cfg.npix))
+                hier = phot.permute(1, 0, 2, 3).cpu().numpy()
+                res.maps[("hier", idir)] = hier
+                if write_files:
+                    _write_hier("map_dir_%02d_H.bin" % idir, cfg, grid,
+                                hier)
+        elif cfg.npix[1] <= 0:
+            # all-sky Healpix map around the internal observer (NPIX.x is
+            # NSIDE; a headerless map.healpix)
+            intobs = cfg.intobs if cfg.intobs[0] > -1e7 else centre
+            phot, tau, _ = timed("healpix", render_mapping.render_healpix,
+                                 grid, emit_map, ext_gl, intobs,
+                                 int(cfg.npix[0]),
+                                 interpolate=int(cfg.interpolate))
+            res.maps[0] = phot.cpu().numpy()
+            res.tau_maps[0] = tau.cpu().numpy()
+            if write_files:
+                res.maps[0].astype(np.float32).tofile("map.healpix")
+        elif cfg.intobs[0] > -1e7:
+            # perspective panorama from inside the model
+            phot, tau, _ = timed("perspective",
+                                 render_mapping.render_perspective, grid,
+                                 emit_map, ext_gl, cfg.intobs,
+                                 tuple(cfg.npix))
+            res.maps[0] = phot.cpu().numpy()
+            res.tau_maps[0] = tau.cpu().numpy()
+            if write_files:
+                write_map_file("map_dir_00.bin", res.maps[0])
+        else:
+            fmaps = freq_s if map_of_sel is None else freq_s[map_of_sel]
+            for idir in range(ndir):
+                odir, ra, de = render_mapping.observer_basis(
+                    cfg.obs_theta[idir], cfg.obs_phi[idir])
+                if shard_maps:
+                    from ..parallel.mesh import sharded_render_ortho
+                    phot, tau, colden = timed(
+                        "ortho", sharded_render_ortho, grid, emit_map,
+                        ext_gl, odir, ra, de, centre, cfg.map_dx,
+                        tuple(cfg.npix), pmesh, counted=False)
+                else:
+                    phot, tau, colden = timed(
+                        "ortho", render_mapping.render_ortho, grid,
+                        emit_map, ext_gl, odir, ra, de, centre, cfg.map_dx,
+                        tuple(cfg.npix), use_shear=cfg.y_shear != 0.0,
+                        y_shear=cfg.y_shear, maxlos=cfg.maxlos,
+                        map_interp=int(cfg.map_interpolation))
+                phot_np = phot.cpu().numpy()
+                res.maps[idir] = phot_np if map_of_sel is None \
+                    else phot_np[map_of_sel]
+                res.tau_maps[idir] = tau.cpu().numpy()
+                res.maps[("colden", idir)] = colden.cpu().numpy()
+                if cfg.file_savetau and savetau_idx:
+                    _savetau(cfg, res, freq, idir, savetau_idx, sel_of_full,
+                             colden, gl_cm, write_files)
+                if not write_files:
+                    continue
+                write_map_file("map_dir_%02d.bin" % idir, res.maps[idir])
+                if cfg.fits > 0:
+                    # one FITS file a frequency, '<prefix>_<um>[_NNN].fits'
+                    # (ASOC.py:3142-3147)
+                    for k, f0 in enumerate(np.atleast_1d(fmaps)):
+                        name = ("%s_%s.fits" % (cfg.fits_prefix, _um_tag(f0))
+                                if ndir == 1 else "%s_%s_%03d.fits"
+                                % (cfg.fits_prefix, _um_tag(f0), idir))
+                        write_fits_image(name, res.maps[idir][k],
+                                         ra_deg=cfg.fits_ra,
+                                         de_deg=cfg.fits_de,
+                                         pix_deg=_fits_pix_deg(cfg))
+
+    # PSTau: column density and optical depth from each point source
+    # toward the observer (ASOC.py:3631-3650), "%s_%d.dat" text files
+    if cfg.file_pssavetau and cfg.no_ps > 0:
+        ext_all = torch.as_tensor(
+            ext_cells if ext_cells is not None
+            else medium.abs_gl.cpu().numpy() + medium.sca_gl.cpu().numpy(),
+            device=device)
+        itau = int(np.argmin(np.abs(np.asarray(freq)
+                                    - max(cfg.pssavetau_freq, 0.0))))
+        for idir in range(len(cfg.obs_theta)):
+            odir, _, _ = render_mapping.observer_basis(cfg.obs_theta[idir],
+                                                       cfg.obs_phi[idir])
+            tau, colden = timed("pstau", render_mapping.render_pstau, grid,
+                                ext_all, np.asarray(cfg.ps_pos, np.float32),
+                                odir)
+            tau = tau.cpu().numpy()
+            colden_cm = colden.cpu().numpy() * gl_cm
+            res.maps[("pstau", idir)] = (colden_cm, tau[:, itau])
+            if write_files:
+                with open("%s_%d.dat" % (cfg.file_pssavetau, idir),
+                          "w") as fp:
+                    for i in range(cfg.no_ps):
+                        fp.write("%6d  %12.4e  %12.4e\n"
+                                 % (i, colden_cm[i], tau[i, itau]))
     timings["maps"] = time.time() - t0
+
+
+def _write_hier(path, cfg, grid, hier):
+    """A MAP_HIER file: int32 NPIX (2) and [NF, LEVELS], then float32
+    hier [NF, LEVELS, ...]."""
+    with open(path, "wb") as fp:
+        np.asarray(cfg.npix, np.int32).tofile(fp)
+        np.asarray([hier.shape[0], grid.levels], np.int32).tofile(fp)
+        hier.astype(np.float32).tofile(fp)
+
+
+def _um_tag(f):
+    """A frequency's wavelength as the reference's FITS names write it."""
+    um = f2um(f)
+    return "%.0f" % um if um > 20.0 else "%.1f" % um if um > 2.0 \
+        else "%.2f" % um
+
+
+def _fits_pix_deg(cfg):
+    """The FITS pixel size [deg]: GL MAP_DX / distance (1 kpc when no
+    `distance` is given)."""
+    dist = cfg.distance if cfg.distance > 0 else 1000.0
+    return np.degrees(cfg.gl * cfg.map_dx / dist)
+
+
+def _savetau(cfg, res, freq, idir, savetau_idx, sel_of_full, colden, gl_cm,
+             write_files):
+    """savetau: for each asked frequency its optical-depth map, or for a
+    negative one the column density [cm^-2], in "%s[_k].%d" % (savetau,
+    idir) (NPIX int32 + float32 map, ASOC.py:3010-3075, 3420-3434); with
+    `FITS` also '<savetau>_colden' / '<savetau>_tau_<um>' FITS files with
+    the reference's _dirN and _NNN tags (ASOC.py:3123-3124, 3157-3170)."""
+    ndir = len(cfg.obs_theta)
+    for k, idx in enumerate(savetau_idx):
+        if idx < 0:
+            payload = colden.cpu().numpy() * gl_cm
+        else:
+            payload = res.tau_maps[idir][sel_of_full[idx]]
+        suffix = "" if len(savetau_idx) == 1 else "_%d" % k
+        res.maps[("savetau", idir, k)] = payload
+        if not write_files:
+            continue
+        with open("%s%s.%d" % (cfg.file_savetau, suffix, idir), "wb") as fp:
+            np.asarray(cfg.npix, np.int32).tofile(fp)
+            payload.astype(np.float32).tofile(fp)
+        if cfg.fits > 0:
+            dtag = "" if ndir == 1 else "_dir%d" % idir
+            if idx < 0:
+                base, unit = "%s_colden%s" % (cfg.file_savetau, dtag), "cm-2"
+            else:
+                base, unit = ("%s_tau_%s%s" % (cfg.file_savetau,
+                                               _um_tag(freq[idx]), dtag),
+                              "tau")
+            fname = "%s.fits" % base if ndir == 1 \
+                else "%s_%03d.fits" % (base, idir)
+            write_fits_image(fname, payload, ra_deg=cfg.fits_ra,
+                             de_deg=cfg.fits_de, pix_deg=_fits_pix_deg(cfg),
+                             bunit=unit)

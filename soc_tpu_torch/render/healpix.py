@@ -1,13 +1,16 @@
-"""HEALPix RING-scheme pixel centres (port of pix2ang_ring of
-soc_tpu.render.healpix): the directions of the Healpix-sky background and
-of PS_METHOD 3's pixel-weighted point sources.
+"""HEALPix RING-scheme pixelization (port of soc_tpu.render.healpix):
+the directions of the Healpix-sky background, of PS_METHOD 3's
+pixel-weighted point sources, of ROI packets and of all-sky maps, and the
+pixel of a direction for the ROI crossing tally.
 
-``pix2ang_ring`` runs in torch on the packets' device; ``pix2ang_ring_np``
-is its NumPy twin for host tables (healpix_visibility). Both compute in
-float32 step for step as soc_tpu does (integer pixel arithmetic, float32
-square roots), so phi matches soc_tpu's bit for bit and theta to an ulp
-of arccos. Angles: theta the colatitude in [0, pi], phi the
-longitude.
+``pix2ang_ring`` and ``ang2pix_ring`` run in torch on the packets' device;
+``pix2ang_ring_np`` and ``ang2pix_ring_np`` are their NumPy twins for host
+tables. All compute in float32 step for step as soc_tpu does (integer
+pixel arithmetic, float32 square roots and floors), so phi matches
+soc_tpu's bit for bit and theta to an ulp of arccos; a direction within an
+ulp of a pixel edge may land in the neighbouring pixel where XLA's cos
+differs from torch's by an ulp. Angles: theta the colatitude in [0, pi],
+phi the longitude.
 """
 
 import math
@@ -110,3 +113,75 @@ def pix2ang_ring_np(nside, ipix):
     # an ulp on some pixels, as torch's does)
     theta = np.arccos(np.clip(z, f32(-1.0), f32(1.0)).astype(np.float64))
     return theta.astype(f32), phi
+
+
+def ang2pix_ring(nside, theta, phi):
+    """(theta, phi) float32 tensors -> RING pixel index (int64 tensor)."""
+    z = torch.cos(theta)
+    za = torch.abs(z)
+    phi = torch.remainder(phi, 2.0 * math.pi)
+    tt = phi / (0.5 * math.pi)                  # in [0, 4)
+    nl2 = 2 * nside
+    nl4 = 4 * nside
+    ncap = nl2 * (nside - 1)
+    total = npix(nside)
+
+    # equatorial region
+    jp_e = torch.floor(nside * (0.5 + tt - z * 0.75)).to(torch.int64)
+    jm_e = torch.floor(nside * (0.5 + tt + z * 0.75)).to(torch.int64)
+    ir_e = nside + 1 + jp_e - jm_e              # in {1, 2n+1}
+    kshift = torch.where(torch.remainder(ir_e, 2) == 0, 1, 0)
+    ip_e = (jp_e + jm_e - nside + kshift + 1) // 2 + 1
+    ip_e = torch.where(ip_e > nl4, ip_e - nl4, ip_e)
+    pix_e = ncap + nl4 * (ir_e - 1) + ip_e
+
+    # polar caps
+    tp = tt - torch.floor(tt)
+    tmp = torch.sqrt(3.0 * (1.0 - za))
+    jp_p = torch.floor(nside * tp * tmp).to(torch.int64)
+    jm_p = torch.floor(nside * (1.0 - tp) * tmp).to(torch.int64)
+    ir_p = jp_p + jm_p + 1
+    ip_p = torch.floor(tt * ir_p).to(torch.int64) + 1
+    ip_p = torch.where(ip_p > 4 * ir_p, ip_p - 4 * ir_p, ip_p)
+    pix_n = 2 * ir_p * (ir_p - 1) + ip_p
+    pix_s = total - 2 * ir_p * (ir_p + 1) + ip_p
+    pix_p = torch.where(z > 0, pix_n, pix_s)
+
+    pix = torch.where(za <= 2.0 / 3.0, pix_e, pix_p)
+    return pix - 1
+
+
+def ang2pix_ring_np(nside, theta, phi):
+    """ang2pix_ring in NumPy float32, for host tables."""
+    f32 = np.float32
+    theta = np.asarray(theta, f32)
+    z = np.cos(theta)
+    za = np.abs(z)
+    phi = np.mod(np.asarray(phi, f32), f32(2.0 * np.pi))
+    tt = phi / f32(0.5 * np.pi)
+    nl2 = 2 * nside
+    nl4 = 4 * nside
+    ncap = nl2 * (nside - 1)
+    total = npix(nside)
+    n = f32(nside)
+
+    jp_e = np.floor(n * (f32(0.5) + tt - z * f32(0.75))).astype(np.int64)
+    jm_e = np.floor(n * (f32(0.5) + tt + z * f32(0.75))).astype(np.int64)
+    ir_e = nside + 1 + jp_e - jm_e
+    kshift = np.where(ir_e % 2 == 0, 1, 0)
+    ip_e = (jp_e + jm_e - nside + kshift + 1) // 2 + 1
+    ip_e = np.where(ip_e > nl4, ip_e - nl4, ip_e)
+    pix_e = ncap + nl4 * (ir_e - 1) + ip_e
+
+    tp = tt - np.floor(tt)
+    tmp = np.sqrt(f32(3.0) * (f32(1.0) - za))
+    jp_p = np.floor(n * tp * tmp).astype(np.int64)
+    jm_p = np.floor(n * (f32(1.0) - tp) * tmp).astype(np.int64)
+    ir_p = jp_p + jm_p + 1
+    ip_p = np.floor(tt * ir_p.astype(f32)).astype(np.int64) + 1
+    ip_p = np.where(ip_p > 4 * ir_p, ip_p - 4 * ir_p, ip_p)
+    pix_n = 2 * ir_p * (ir_p - 1) + ip_p
+    pix_s = total - 2 * ir_p * (ir_p + 1) + ip_p
+    pix_p = np.where(z > 0, pix_n, pix_s)
+    pix = np.where(za <= f32(2.0 / 3.0), pix_e, pix_p)
+    return pix - 1

@@ -1,7 +1,8 @@
 """Photon-packet propagation: the hot loop (port of
 soc_tpu.transport.propagate: the mixed-frequency pool, with the ALI
 self-absorption tally, in-flight packet splitting, per-cell cross sections
-(WITH_ABU, MSF) and the (I, Ix, Iy, Iz) intensity tally).
+(WITH_ABU, MSF), the (I, Ix, Iy, Iz) intensity tally, mirrored faces, the
+ROI crossing tally and the step and direction weighting).
 
 A fixed pool of packet lanes is stepped in eager PyTorch. Each *march*
 step advances every live lane by one event (a cell-boundary crossing or the
@@ -42,6 +43,24 @@ uint32 does) and re-samples its entry point over the crossed octet face.
 Whether a packet splits depends on how many lanes are dead at each refill,
 so split runs reproduce soc_tpu's only at the same lane count.
 
+Mirrored faces (``mirror_mask``, the 6 bits of `mirror xXyYzZ`): a lane
+leaving through one is reflected back inside (its direction negated, its
+position mirrored PEPS inside the face) and re-indexed from the root.
+
+ROI save (``roi``): every crossing into the ROI box adds the packet's
+photons at (channel, surface element, Healpix pixel of its direction) of a
+flat [NFREQ * NELEM * NPIX] tally; lanes that did not enter add 0.0 into
+one of ``lanes`` spare slots past its end, as the absorbed tally's
+inactive lanes do.
+
+STEP_WEIGHT (physics 'sw_a', and 'sw_b' for method 2) draws free paths
+from a stretched exponential (or a two-exponential mixture) and weights the
+packet by the ratio of the densities, at birth and at every scattering;
+splitting is then off, as in soc_tpu (a stretched free path is not
+memoryless). DIR_WEIGHT (physics 'dw_a' with the [NFREQ, BINS] phase
+function 'dsc') draws the deflection from HG(dw_a) and weights by
+p_DSC / p_HG at the lane's channel.
+
 Physics per step (kernel_ASOC.c semantics):
   * step to the next cell boundary; tau_abs = ds*n*k_abs, tau_sca = ds*n*k_sca
   * if the scattering free path ends inside the step: move there, deposit
@@ -61,7 +80,9 @@ from ..constants import (ADHOC, DEPS, MAX_SCATTERINGS, PEPS, PHOTON_LIMIT,
                          TAULIM)
 
 from ..ops import traverse
+from ..render.healpix import ang2pix_ring
 from .. import rng as socrng
+from .roi import roi_element_index
 
 ESC_SPREAD = 1024   # escape-tally slots per frequency (see transport_run)
 REFILL_PERIOD = 16  # march steps between refills (one service step each)
@@ -275,6 +296,8 @@ class PoolState:
     spare_cell: torch.Tensor   # [N] lane % CELLS: where inactive lanes add 0
     xab: torch.Tensor = None   # [CELLS] self-absorption tally (ALI) or None
     sp: dict = None            # split state (init_split_state) or None
+    roi: torch.Tensor = None   # flat ROI tally + lanes spare slots, or None
+    roi_spare: torch.Tensor = None  # [N] each lane's spare ROI slot
 
 
 class StepKit:
@@ -289,10 +312,17 @@ class StepKit:
     their frequency for life, so the per-lane constants are gathered once
     per refill (``lane_const_of``) rather than once per step.
     ncomp: 1 for a per-frequency tally of deposits, 4 for the (I, Ix, Iy,
-    Iz) tally of saveint 2 (deposit times (1, direction))."""
+    Iz) tally of saveint 2 (deposit times (1, direction)).
+    ncol, col0: the per-frequency tally holds channels [col0, col0 + ncol)
+    (a block of them under `mmapabs`; all NFREQ by default).
+    mirror_mask: the mirrored faces' bits (x X y Y z Z = 1 2 4 8 16 32).
+    roi: the ROI save's dict(mask [CELLS] bool, box, dim (rnx, rny, rnz,
+    step), nside) or None.
+    The weighting keys of physics ('sw_a', 'sw_b', 'dw_a') are floats."""
 
     def __init__(self, grid, physics, seed, per_freq_tally, with_ali=False,
-                 split_max=0, ncomp=1):
+                 split_max=0, ncomp=1, ncol=None, col0=0, mirror_mask=0,
+                 roi=None):
         csc = physics["csc"]
         if csc.ndim != 2 or physics["kabs"].ndim != 1:
             raise NotImplementedError(
@@ -308,23 +338,73 @@ class StepKit:
         self.ncomp = ncomp
         self.opt = physics.get("opt_abs")
         self.msf = "msf_csc" in physics
-        # soc_tpu caps the depth so that path * 64 stays in 32 bits
-        self.split_max = min(int(split_max), SPLIT_CAP)
+        self.ncol = self.nfreq if ncol is None else int(ncol)
+        self.col0 = int(col0)
+        self.block = self.col0 != 0 or self.ncol != self.nfreq
+        device = grid.device
+
+        def f32(key):
+            v = physics.get(key)
+            return None if v is None else torch.tensor(
+                float(v), dtype=torch.float32, device=device)
+
+        self.sw_a, self.sw_b, self.dw_a = f32("sw_a"), f32("sw_b"), \
+            f32("dw_a")
+        # soc_tpu caps the depth so that path * 64 stays in 32 bits, and
+        # turns splitting off under STEP_WEIGHT
+        self.split_max = 0 if self.sw_a is not None \
+            else min(int(split_max), SPLIT_CAP)
+        self.mirror_mask = int(mirror_mask)
+        if self.mirror_mask:
+            m = self.mirror_mask
+            self.lo_m = torch.tensor([bool(m & 1), bool(m & 4),
+                                      bool(m & 16)], device=device)
+            self.hi_m = torch.tensor([bool(m & 2), bool(m & 8),
+                                      bool(m & 32)], device=device)
+            self.bounds = torch.tensor([grid.nx, grid.ny, grid.nz],
+                                       dtype=torch.float32, device=device)
+        self.roi = roi
+        if roi is not None:
+            rnx, rny, rnz = roi["dim"][:3]
+            self.roi_npix = 12 * int(roi["nside"]) ** 2
+            self.roi_size = (rnx * rny + rnx * rnz + rny * rnz) \
+                * self.roi_npix * self.nfreq
 
     def lane_const_of(self, b):
         p = self.physics
         return p["kabs"][b.ifreq], p["ksca"][b.ifreq], p["tw"][b.ifreq]
 
+    def draw_fp_weighted(self, u):
+        """Free path from a uniform and its STEP_WEIGHT weight (None when
+        off): method 1 p(tau) = A exp(-A tau), weight exp((A - 1) tau) / A;
+        method 2 the mixture A B exp(-A tau) + 2 A (1 - B) exp(-2 A tau)
+        by its closed-form inverse CDF, weight exp(-tau) / p(tau)
+        (kernel_ASOC.c:516-541)."""
+        a, b = self.sw_a, self.sw_b
+        if a is None:
+            return -torch.log(u), None
+        if b is None:
+            fp = -torch.log(u) / a
+            return fp, torch.exp(a * fp - fp) / a
+        x = ((-b + torch.sqrt(b * b + 4.0 * u * (1.0 - b)))
+             / (2.0 - 2.0 * b))
+        fp = -torch.log(torch.clamp_min(x, 1e-30)) / a
+        w = 1.0 / (a * b * torch.exp((1.0 - a) * fp)
+                   + 2.0 * a * (1.0 - b) * torch.exp((1.0 - 2.0 * a) * fp))
+        return fp, w
+
     def draw_birth_fp(self, stream, hi):
-        # birth free path: counter slot 2, first word
+        """The birth free path (counter slot 2, first word) and its
+        weight (None without STEP_WEIGHT)."""
         u = socrng.uniform1(self.seed, stream, torch.full_like(stream, 2), hi)
-        return -torch.log(u)
+        return self.draw_fp_weighted(u)
 
     def service(self, st):
         """Serve pending scattering events: one RNG evaluation, the
         phase-function lookup and the deflection for every frozen lane."""
         b = st.b
         act = st.pending & (b.ind >= 0)
+        dw_corr = None
         if self.msf:
             # WITH_MSF: the scattering species with probability
             # ABU[cell, d] * SCA_d / sum (kernel_ASOC.c:786-795), then
@@ -341,14 +421,38 @@ class StepKit:
             bin_idx = (u_bin * self.bins).to(torch.int64).clamp(
                 0, self.bins - 1)
             cos_theta = p["msf_csc"][species, b.ifreq, bin_idx]
+        elif self.dw_a is not None:
+            # DIR_WEIGHT (WScatter, kernel_ASOC_aux.c:567): the deflection
+            # from HG(dw_a), weighted by p_DSC(cos) / p_HG(cos) at the
+            # lane's channel
+            u_fp, u_bin, u_phi = socrng.step_uniforms(self.seed, b.stream,
+                                                      b.counter, b.hi)
+            a = self.dw_a
+            t = (1.0 - a * a) / (1.0 - a + 2.0 * a * u_bin)
+            cos_theta = torch.clamp((1.0 + a * a - t * t) / (2.0 * a + 1e-6),
+                                    -1.0, 1.0)
+            p_hg = torch.clamp_min(
+                (1.0 / (4.0 * math.pi)) * (1.0 - a * a)
+                / (1.0 + a * a - 2.0 * a * cos_theta) ** 1.5, 1e-6)
+            dsc = self.physics["dsc"]
+            nb = dsc.shape[-1]
+            dbin = ((1.0 + cos_theta) * 0.5 * nb).to(torch.int64).clamp(
+                0, nb - 1)
+            dw_corr = torch.clamp_min(dsc[b.ifreq, dbin], 1e-6) / p_hg
         else:
             u_fp, u_bin, u_phi = socrng.step_uniforms(self.seed, b.stream,
                                                       b.counter, b.hi)
             cos_theta = _csc_lookup(self.physics["csc"], b.ifreq, u_bin,
                                     self.bins)
         new_dir = _deflect(b.dir, cos_theta, (2.0 * math.pi) * u_phi)
-        fp_next = -torch.log(u_fp)
+        fp_next, w_next = self.draw_fp_weighted(u_fp)
+        photons = b.photons
+        if w_next is not None:
+            photons = torch.where(act, photons * w_next, photons)
+        if dw_corr is not None:
+            photons = torch.where(act, photons * dw_corr, photons)
         st.b = replace(b, dir=torch.where(act[..., None], new_dir, b.dir),
+                       photons=photons,
                        counter=b.counter + act.to(torch.int64))
         st.free_path = torch.where(act, fp_next, st.free_path)
         st.tau = torch.where(act, 0.0, st.tau)
@@ -407,15 +511,20 @@ class StepKit:
             st.xab.index_add_(0, didx, torch.where(selfc, wdep, 0.0))
         else:
             st.tabs.index_add_(0, didx, wdep)
+        if self.per_freq_tally:
+            col = b.ifreq
+            if self.block:
+                # dead lanes keep another block's channel: clamp into range
+                col = (col - self.col0).clamp(0, self.ncol - 1)
+            fidx = didx * self.ncol + col
         if self.per_freq_tally and self.ncomp == 4:
             # saveint 2: (I, Ix, Iy, Iz), the deposit times (1, direction)
             w4 = torch.cat([torch.ones_like(dep)[:, None], b.dir], 1) \
                 * dep[:, None]
-            cidx = ((didx * self.nfreq + b.ifreq) * 4)[:, None] \
-                + torch.arange(4, device=dep.device)
+            cidx = (fidx * 4)[:, None] + torch.arange(4, device=dep.device)
             st.intf.index_add_(0, cidx.reshape(-1), w4.reshape(-1))
         elif self.per_freq_tally:
-            st.intf.index_add_(0, didx * self.nfreq + b.ifreq, dep)
+            st.intf.index_add_(0, fidx, dep)
         st.absd = st.absd + dep.sum()
         photons = torch.where(active, b.photons * att, b.photons)
 
@@ -426,12 +535,21 @@ class StepKit:
             grid, posx, b.level, b.ind, b.anc, cross, descend=False)
         failed = cross & (nlevel == b.level) & (nind == b.ind)
         npos = traverse.failed_step_nudge(npos, b.dir, failed)
+        dirx = b.dir
+        if self.mirror_mask:
+            npos, nlevel, nind, anc, dirx = self._mirror(
+                cross, npos, nlevel, nind, anc, b.dir)
+        if self.roi is not None:
+            self._roi_tally(st, cross, gidx, npos, nlevel, nind, b,
+                            photons)
         exited = cross & (nind < 0)
 
         # ---- merge: scattering lanes freeze at the scattering point
         pos = torch.where(scatter_now[..., None], pos_scatter, npos)
         level = torch.where(scatter_now, b.level, nlevel)
         ind = torch.where(scatter_now, b.ind, nind)
+        dir = torch.where(scatter_now[..., None], b.dir, dirx) \
+            if self.mirror_mask else b.dir
         if grid.levels > 1:
             pos, level, ind, anc = traverse.descend_one(
                 grid, pos, level, ind, anc, dens, is_link)
@@ -449,8 +567,60 @@ class StepKit:
         st.tau = torch.where(scatter_now, 0.0,
                              torch.where(cross, st.tau + dtau_sca, st.tau))
         st.pending = (st.pending | scatter_now) & (ind >= 0)
-        st.b = replace(b, pos=pos, level=level, ind=ind, photons=photons,
-                       scatterings=scat, anc=anc)
+        st.b = replace(b, pos=pos, dir=dir, level=level, ind=ind,
+                       photons=photons, scatterings=scat, anc=anc)
+
+    def _mirror(self, cross, npos, nlevel, nind, anc, dir):
+        """Reflect lanes leaving through a mirrored face (Mirror,
+        kernel_ASOC_aux.c:1054): exiting lanes hold root coordinates in
+        npos; a reflected lane is re-indexed from the root with its leaf
+        walk's ancestor stack (stack_from_par's, read on the way down).
+        Returns (npos, nlevel, nind, anc, dir)."""
+        bounds = self.bounds
+        exiting = cross & (nind < 0)
+        lo_hit = npos <= 0.0
+        hi_hit = npos >= bounds
+        refl = ((lo_hit & self.lo_m) | (hi_hit & self.hi_m)) \
+            & exiting[:, None]
+        rpos = torch.where(lo_hit, PEPS - npos,
+                           torch.where(hi_hit, 2.0 * bounds - PEPS - npos,
+                                       npos))
+        mpos = torch.where(refl, torch.minimum(torch.clamp_min(rpos, PEPS),
+                                               bounds - PEPS), npos)
+        dir = torch.where(refl, -dir, dir)
+        mirrored = refl.any(-1)
+        mp, ml, mi, ma = traverse.index_global_stack(self.grid, mpos)
+        npos = torch.where(mirrored[:, None], mp, npos)
+        nlevel = torch.where(mirrored, ml, nlevel)
+        nind = torch.where(mirrored, mi, nind)
+        if self.grid.levels > 1:
+            anc = torch.where(mirrored[:, None], ma, anc)
+        return npos, nlevel, nind, anc, dir
+
+    def _roi_tally(self, st, cross, gidx, npos, nlevel, nind, b, photons):
+        """WITH_ROI_SAVE (kernel_ASOC.c:617-660): a lane that crossed from
+        a cell outside the ROI into one inside adds its photons at
+        (channel, surface element, Healpix pixel of its direction)."""
+        grid, roi = self.grid, self.roi
+        mask = roi["mask"]
+        was_in = mask[gidx]
+        now_in = mask[traverse._gidx(grid, nlevel, nind.clamp_min(0))] \
+            & (nind >= 0)
+        entered = cross & now_in & ~was_in
+        # soc_tpu takes the root position of npos; a lane that enters the
+        # box crossed a root cell's face, and the march leaves it on the
+        # root level (its descent deferred), so npos is that position (a
+        # mirrored lane, re-indexed to its leaf, lands in the root cell it
+        # left and does not enter)
+        rnx, rny, rnz, rstep = roi["dim"]
+        elem = roi_element_index(npos, roi["box"], rnx, rny, rnz, rstep)
+        theta = torch.acos(torch.clamp(b.dir[:, 2], -1.0, 1.0))
+        phi = torch.atan2(b.dir[:, 1], b.dir[:, 0])
+        hpix = ang2pix_ring(int(roi["nside"]), theta, phi)
+        per_freq = self.roi_size // self.nfreq
+        slot = torch.where(entered, b.ifreq * per_freq
+                           + elem * self.roi_npix + hpix, st.roi_spare)
+        st.roi.index_add_(0, slot, torch.where(entered, photons, 0.0))
 
 
 def new_pool(nlanes, grid, tabs, intf, xab=None, split=False):
@@ -498,7 +668,11 @@ def _refill(kit, st, gen, params, next_id, total, births=None):
         scatterings=torch.where(can, 0, b.scatterings),
         e_cell=torch.where(can, nb.e_cell, b.e_cell),
         anc=torch.where(canl, nb.anc, b.anc) if grid.levels > 1 else b.anc)
-    fp_new = kit.draw_birth_fp(nb.stream, nb.hi)
+    fp_new, w_new = kit.draw_birth_fp(nb.stream, nb.hi)
+    if w_new is not None:
+        # STEP_WEIGHT: the birth free path's weight
+        st.b.photons = torch.where(can, st.b.photons * w_new,
+                                   st.b.photons)
     st.free_path = torch.where(can, fp_new, st.free_path)
     st.pending = st.pending & ~can
     st.tau = torch.where(can, 0.0, st.tau)
@@ -525,7 +699,8 @@ def pool_lanes(nlanes, per_freq):
 def transport_run(grid, physics, source_params, total_packets, tabs, intf,
                   seed, source_kind="bg", nlanes=1 << 17,
                   per_freq_tally=False, with_ali=False, xab=None,
-                  split_max=0, births=False):
+                  split_max=0, births=False, mirror_mask=0, roi=None,
+                  tally_col0=0):
     """Drain ``total_packets`` packets through the grid with lane refill.
 
     physics : dict of device tensors 'kabs', 'ksca', 'tw' [NFREQ] and
@@ -536,22 +711,29 @@ def transport_run(grid, physics, source_params, total_packets, tabs, intf,
     tabs : [CELLS] integrated tally; intf : [CELLS, NFREQ] per-frequency
         tally, or [CELLS, NFREQ, 4] for the (I, Ix, Iy, Iz) tally (any
         placeholder when per_freq_tally is False); both are added to in
-        place
+        place. With ``tally_col0`` intf is [CELLS, NB(, 4)], the block of
+        channels tally_col0 .. tally_col0 + NB - 1 (every packet of the run
+        lies in it: `mmapabs`)
     with_ali : route deposits into a packet's own emitting cell to xab
         [CELLS] (added to in place; zeros when None) instead of tabs
     split_max : in-flight splitting at refinement boundaries, at most
         split_max (capped at 26) splits a packet; 0 turns it off
     births : also count the weights launched and born outside the grid
+    mirror_mask : the mirrored faces (driver.mirror_mask_of)
+    roi : the ROI save, dict(mask [CELLS] bool tensor, box, dim (rnx, rny,
+        rnz, step), nside, tally [NFREQ, NELEM * NPIX] added to in place)
 
     Returns (tabs, intf, escaped [NFREQ] float64, absorbed scalar) on the
     device, then xab when with_ali, the clones served (int64 scalar) when
-    split_max > 0, and (launched, missed) [NFREQ] float64 with births;
-    escaped is per frequency.
+    split_max > 0 (0 under STEP_WEIGHT, which turns splitting off), and
+    (launched, missed) [NFREQ] float64 with births; escaped is per
+    frequency.
     """
     return drain(transport_steps(grid, physics, source_params,
                                  total_packets, tabs, intf, seed,
                                  source_kind, nlanes, per_freq_tally,
-                                 with_ali, xab, split_max, births))
+                                 with_ali, xab, split_max, births,
+                                 mirror_mask, roi, tally_col0))
 
 
 def drain(steps):
@@ -566,7 +748,8 @@ def drain(steps):
 def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
                     seed, source_kind="bg", nlanes=1 << 17,
                     per_freq_tally=False, with_ali=False, xab=None,
-                    split_max=0, births=False):
+                    split_max=0, births=False, mirror_mask=0, roi=None,
+                    tally_col0=0):
     """transport_run as a generator: it yields after each refill body (the
     escape flush, the clone service, a refill, a service step and
     REFILL_PERIOD march steps queued on the device, in soc_tpu's order)
@@ -576,14 +759,19 @@ def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
     gen = GENERATORS[source_kind]
     ncomp = intf.shape[2] if per_freq_tally and intf.ndim == 3 else 1
     kit = StepKit(grid, physics, seed, per_freq_tally, with_ali, split_max,
-                  ncomp)
+                  ncomp, intf.shape[1] if per_freq_tally else None,
+                  tally_col0, mirror_mask, roi)
     nfreq = kit.nfreq
     device = grid.device
     if with_ali and xab is None:
         xab = torch.zeros(grid.cells, dtype=torch.float32, device=device)
-    split = split_max > 0
+    split = kit.split_max > 0
     st = new_pool(nlanes, grid, tabs, intf, xab if with_ali else None,
                   split)
+    if roi is not None:
+        st.roi = torch.zeros(kit.roi_size + nlanes, dtype=torch.float32,
+                             device=device)
+        st.roi_spare = kit.roi_size + torch.arange(nlanes, device=device)
     # escaped weight per frequency, spread over ESC_SPREAD slots per bin
     # (slot = lane % ESC_SPREAD) so the card's atomic adds do not all wait
     # on NFREQ addresses; float64, so the order of the additions cannot
@@ -630,8 +818,11 @@ def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
     out = (tabs, intf, esc_w.view(nfreq, ESC_SPREAD).sum(1), st.absd)
     if with_ali:
         out = out + (xab,)
-    if split:
-        out = out + (st.sp["clones"],)
+    if roi is not None:
+        roi["tally"].view(-1).add_(st.roi[:kit.roi_size])
+    if split_max > 0:
+        out = out + (st.sp["clones"] if split else
+                     torch.zeros((), dtype=torch.int64, device=device),)
     if births:
         out = out + tuple(w.view(nfreq, ESC_SPREAD).sum(1)
                           for w in birth_w[:2])

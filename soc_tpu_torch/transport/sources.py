@@ -1,6 +1,7 @@
 """Packet source generation (port of soc_tpu.transport.sources): the
-isotropic background, the Healpix sky, point sources and cells' own
-emission (the dust's, and the diffuse field's).
+isotropic background, the Healpix sky, point sources, cells' own
+emission (the dust's, and the diffuse field's) and the ROI boundary
+source.
 
 A generator maps local packet ids (0..total-1 within one transport run) to
 initial packet states. Every packet owns the RNG stream ``(hi, k)``: ``k``
@@ -526,5 +527,64 @@ def gen_hpbg(grid, ids_local, seed, params):
     return _finish(grid, pos, dir, photons, ifreq, stream, hi)
 
 
+def gen_roi(grid, ids_local, seed, params):
+    """ROI-load boundary source (SOURCE==3, kernel_ASOC.c:469-505): the
+    photons a previous run's `roisave` recorded, re-injected into this
+    (sub-)model, which spans the ROI box.
+
+    params: 'roi_load' [NELEM, NPIX] (one channel) or [NFREQ, NELEM,
+    NPIX] (a mixed pool) photons per (surface element, sky direction),
+    'roi_dim' (rnx, rny, rnz) of the saved discretisation, 'reps' packets
+    per (element, pixel) pair (a packet carries load / reps), plus the
+    packet_identity keys. The within-channel id k gives elem = k % NELEM
+    and pix = (k // NELEM) % NPIX; the position is jittered over the
+    element's patch, the direction by +-0.025 rad around the pixel
+    centre."""
+    nx, ny, nz = grid.nx, grid.ny, grid.nz
+    stream, ifreq, hi = packet_identity(ids_local, params)
+    roi_load = params["roi_load"]
+    nelem, npx = roi_load.shape[-2:]
+    nside = int(np.sqrt(npx // 12))
+    rnx, rny, rnz = params["roi_dim"]
+    u1, u2, u3, u4, _, _ = _uniforms(seed, stream, hi)
+
+    elem = torch.remainder(stream, nelem)
+    pix = torch.remainder(stream // nelem, npx)
+    load = roi_load[ifreq, elem, pix] if roi_load.ndim == 3 \
+        else roi_load[elem, pix]
+    photons = load / float(params["reps"])
+
+    theta, phi = hp.pix2ang_ring(nside, pix)
+    theta = theta + (u3 - 0.5) * 0.05
+    phi = phi + (u4 - 0.5) * 0.05
+    dir = torch.stack([torch.sin(theta) * torch.cos(phi),
+                       torch.sin(theta) * torch.sin(phi),
+                       torch.cos(theta)], -1)
+    dir = _unit(torch.where(torch.abs(dir) < 1e-5, 1e-5, dir))
+
+    # element -> (side, patch coordinates); patch size = model size / dims
+    in_x = elem < rny * rnz
+    in_y = ~in_x & (elem < rny * rnz + rnx * rnz)
+    r = torch.where(in_x, elem, torch.where(in_y, elem - rny * rnz,
+                                            elem - rny * rnz - rnx * rnz))
+    n1 = torch.where(in_x, rny, rnx)
+    t1 = torch.remainder(r, n1).to(torch.float32)
+    t2 = (r // n1).to(torch.float32)
+    rd1 = torch.where(in_x, ny / rny, nx / rnx)
+    rd2 = torch.where(in_x | in_y, nz / rnz, ny / rny)
+    c1 = (t1 + 0.5) * rd1 + (u1 - 0.5) * 0.98 * rd1
+    c2 = (t2 + 0.5) * rd2 + (u2 - 0.5) * 0.98 * rd2
+    # entry face fixed by the direction's sign on the normal axis
+    px = torch.where(in_x, torch.where(dir[:, 0] > 0, PEPS, nx - PEPS), c1)
+    py = torch.where(in_x, c1, torch.where(
+        in_y, torch.where(dir[:, 1] > 0, PEPS, ny - PEPS), c2))
+    pz = torch.where(in_x | in_y, c2,
+                     torch.where(dir[:, 2] > 0, PEPS, nz - PEPS))
+    pos = torch.stack([torch.clamp(px, PEPS, nx - PEPS),
+                       torch.clamp(py, PEPS, ny - PEPS),
+                       torch.clamp(pz, PEPS, nz - PEPS)], -1)
+    return _finish(grid, pos, dir, photons, ifreq, stream, hi)
+
+
 GENERATORS = {"bg": gen_background, "cell": gen_cell,
-              "ps": gen_point_source, "hpbg": gen_hpbg}
+              "ps": gen_point_source, "hpbg": gen_hpbg, "roi": gen_roi}

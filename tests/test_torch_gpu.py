@@ -793,3 +793,114 @@ def test_octree_pipeline_sources_on_card(cuda, tmp_path):
     leaf = ~parents
     _close_on_card(rg.absorbed[leaf], rc.absorbed[leaf])
     _close_on_card(eg, ec)
+
+
+ROI_BOX = (1, 6, 1, 2, 1, 6)
+
+
+def test_roi_save_and_load_on_card_match_cpu(cuda, tmp_path):
+    """`roi` + `roisave` on a 3-level octree (the crossing tally with its
+    spare slots, Healpix pixels of the lanes' directions), then `roiload`
+    on the box's sub-model from the CPU run's file, both stages on the
+    card against the CPU: the ROI tallies as the absorbed files (totals
+    per channel at 2e-3, 99% of the entries at 1e-4)."""
+    extra = ("roi %d %d %d %d %d %d\nroisave roi.bin 1\nroinside 2\n"
+             % ROI_BOX)
+    rc, rg = _rt_cpu_and_card(cuda, tmp_path, n=8, octree=(2, 8, 3),
+                              extra=extra)
+    _hold_sources(rc, rg)
+    assert rg.roi_tally.shape == rc.roi_tally.shape
+    _close_on_card(rg.roi_tally.T, rc.roi_tally.T)
+    roi_file = str(tmp_path / "cpu" / "roi.bin")
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("gpu", cuda)):
+        ini = write_model(str(tmp_path / ("sub_" + name)), 8, kind="eqdust",
+                          nfreq=6, octree=(2, 8, 3), roi_box=ROI_BOX,
+                          bgpac=0, extra="roiload %s\nroipackets 23040\n"
+                          % roi_file)
+        out[name] = driver.run(ini, device=dev, lanes=1 << 12)
+    _hold_sources(out["cpu"], out["gpu"])
+    np.testing.assert_allclose(out["gpu"].injected, out["cpu"].injected,
+                               rtol=1e-12)
+
+
+@pytest.mark.parametrize("extra", [
+    "mirror xyz\n", "stepweight 2 1.3 0.4\n", "stepweight 1 1.4\n",
+    "direweight 1 0.5\n"])
+def test_mirror_and_weights_on_card_match_cpu(cuda, tmp_path, extra):
+    """The mirrored low faces (the reflected lanes re-indexed from the
+    root on the octree) and the step and direction weighting, with point sources
+    inside and outside the cloud, on the card against the CPU."""
+    rc, rg = _rt_cpu_and_card(cuda, tmp_path, n=8, octree=(2, 8, 3),
+                              point_sources=SOURCES, pspackets=3000,
+                              extra=extra)
+    if extra.startswith("mirror"):
+        # the three low faces, an octant of a symmetric cloud: between two
+        # mirrored opposite faces a grazing packet of a nearly transparent
+        # channel bounces for ~1e5 steps and more
+        _hold_sources(rc, rg)
+    else:
+        # the weights make the balance hold in expectation only: the
+        # card against the CPU, the same packets
+        np.testing.assert_allclose(rg.launched, rc.launched, rtol=1e-6)
+        np.testing.assert_allclose(rg.temperature, rc.temperature,
+                                   rtol=1e-4)
+        for a, b in ((rg.absorbed, rc.absorbed), (rg.maps[0], rc.maps[0])):
+            _close_on_card(a, b)
+
+
+def _render_inputs(dev):
+    from soc_tpu_torch.example_model import octree_cloud
+    from soc_tpu_torch.grid import grid_from_arrays
+    lcells, values = octree_cloud(8, 2, 8, 3)
+    grid = grid_from_arrays(8, 8, 8, lcells, values, dev)
+    rng = np.random.default_rng(3)
+    emit = torch.as_tensor(rng.uniform(0, 1, (grid.cells, 4))
+                           .astype(np.float32), device=dev)
+    ext = torch.tensor([0.05, 0.2, 0.5, 1.0], device=dev)
+    return grid, emit, ext
+
+
+def _renders(dev):
+    from soc_tpu_torch.render import mapping as m
+    grid, emit, ext = _render_inputs(dev)
+    odir, ra, de = m.observer_basis(np.radians(70.0), np.radians(10.0))
+    c, obs = (4.0, 4.0, 4.0), (3.3, 4.1, 4.7)
+    out = {"ortho": m.render_ortho(grid, emit, ext, odir, ra, de, c, 0.5,
+                                   (12, 10)),
+           "mapint": m.render_ortho(grid, emit, ext, odir, ra, de, c, 0.5,
+                                    (12, 10), map_interp=2),
+           "yshear": m.render_ortho(grid, emit, ext, odir, ra, de, c, 0.5,
+                                    (12, 10), use_shear=True, y_shear=2.0,
+                                    maxlos=24.0),
+           "perspective": m.render_perspective(grid, emit, ext, obs,
+                                               (16, 8)),
+           "pstau": m.render_pstau(grid, ext, np.asarray(
+               [[3.0, 4.0, 5.0], [1.0, 7.0, 2.0]], np.float32), odir),
+           "ortho_hier": (m.render_ortho_hier(grid, emit, ext, odir, ra, de,
+                                              c, 0.5, (12, 10)),),
+           "healpix_hier": m.render_healpix_hier(grid, emit, ext, obs, 4)}
+    for mode in (0, 1, 2, 3):
+        out["healpix%d" % mode] = m.render_healpix(grid, emit, ext, obs, 4,
+                                                   interpolate=mode)
+    return {k: [t.cpu().numpy() for t in v] for k, v in out.items()}
+
+
+def test_renderers_on_card_match_cpu(cuda):
+    """Every renderer (and each `interpolate` mode) on the card against
+    the CPU: the same float32 steps, the card's exp, sin and cos a few
+    ulps off the CPU's: 1e-5 of each output's peak, but for `interpolate
+    3`, where a lookup point within an ulp of a cell face may fall into
+    the neighbouring cell: 0.5% of the entries may differ by up to 1e-3
+    of the peak."""
+    gpu, cpu = _renders(cuda), _renders(torch.device("cpu"))
+    for name in cpu:
+        for g, c in zip(gpu[name], cpu[name]):
+            peak = max(np.abs(c).max(), 1e-30)
+            assert np.isfinite(g).all(), name
+            if name == "healpix3":
+                assert (np.abs(g - c) > 1e-5 * peak).mean() <= 0.005
+                np.testing.assert_allclose(g, c, rtol=0, atol=1e-3 * peak)
+            else:
+                np.testing.assert_allclose(g, c, rtol=0, atol=1e-5 * peak,
+                                           err_msg=name)

@@ -1,6 +1,7 @@
 """The port's own copies of soc_tpu's host modules (constants, config,
-io.dust, io.fields, solve.solver_file, solve.grain_model, solve.solver_prep,
-solve.dust_compiler, solve.ali) against their originals on the same inputs.
+io.dust, io.fields, io.fits, solve.solver_file, solve.grain_model,
+solve.solver_prep, solve.dust_compiler, solve.ali) against their originals
+on the same inputs.
 
 Tolerance: none. The copies are the same NumPy code, so every result is
 held bit for bit (NaNs compared as equal) and every file byte for byte.
@@ -17,6 +18,7 @@ from soc_tpu import config as jconfig
 from soc_tpu import constants as jconst
 from soc_tpu.io import dust as jdust
 from soc_tpu.io import fields as jfields
+from soc_tpu.io import fits as jfits
 from soc_tpu.solve import ali as jali
 from soc_tpu.solve import dust_compiler as jdc
 from soc_tpu.solve import grain_model as jgm
@@ -28,6 +30,7 @@ from soc_tpu_torch import constants as tconst
 from soc_tpu_torch import example_model
 from soc_tpu_torch.io import dust as tdust
 from soc_tpu_torch.io import fields as tfields
+from soc_tpu_torch.io import fits as tfits
 from soc_tpu_torch.solve import ali as tali
 from soc_tpu_torch.solve import dust_compiler as tdc
 from soc_tpu_torch.solve import grain_model as tgm
@@ -267,3 +270,24 @@ def test_ali_bit_equal():
     for t_old in (None, told):
         assert_same(jali.refine_beta(beta0, temp, freq, kabs, dens, t_old),
                     tali.refine_beta(beta0, temp, freq, kabs, dens, t_old))
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((6, 7), {}), ((3, 6, 7), dict(pix_deg=0.0125, ra_deg=12.5)),
+    ((1, 5, 4), dict(de_deg=-30.0, pix_deg=1e-3, bunit="cm-2"))])
+def test_fits_files_byte_equal(tmp_path, shape, kw):
+    """FITS images (a 2-D map, a cube, a one-plane cube with a unit) and
+    the Healpix table, written byte for byte and read back equal."""
+    rng = np.random.default_rng(len(shape))
+    data = rng.random(shape, np.float32)
+    jp, tp = _write_both(tmp_path, "m.fits",
+                         lambda p, d: jfits.write_fits_image(p, d, **kw),
+                         lambda p, d: tfits.write_fits_image(p, d, **kw),
+                         data)
+    assert_same(jfits.read_fits_image(str(jp)),
+                tfits.read_fits_image(str(tp)))
+    maps = rng.random((4, 12 * 4 * 4), np.float32)
+    jp, tp = _write_both(tmp_path, "hp.fits", jfits.write_healpix_map,
+                         tfits.write_healpix_map, maps, 4)
+    assert_same(jfits.read_healpix_map(str(jp)),
+                tfits.read_healpix_map(str(tp)))

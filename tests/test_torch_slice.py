@@ -99,22 +99,49 @@ def test_cli_rt_on_cpu_and_verbs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,name", [
-    ("mirror xX\n", "mirror"), ("roi 1 2 1 2 1 2\n", "roi"),
-    ("roimap\n", "roimap"), ("hpbg sky.bin\ndevices 2\n", "hpbg"),
-    ("savetau tau 250.0\n", "savetau"), ("mapint 1\n", "mapint"),
-    ("perspective 4 4 4\n", "perspective"), ("yshear 1.0\n", "yshear"),
+    ("polstat 1\n", "polstat"),
+    ("Bfiles bx.bin by.bin bz.bin\n", "polmap / polstat"),
+    ("libabs 100.0 250.0\n", "libabs"), ("nnmake x.nn\n", "nnmake"),
+    ("absthin 4\n", "absthin"), ("hpbg sky.bin\ndevices 2\n", "hpbg"),
+    ("mirror xX\ndevices 2\n", "mirror"),
+    ("roi 1 2 1 2 1 2\nroisave roi.bin\ndevices 2\n", "roi"),
+    ("roiload roi.bin\nroipackets 100\ndevices 2\n", "roiload"),
     ("pointsource 3 3 3 ps.bin\ndevices 2\n", "pointsource"),
-    ("direweight 0 0.5\n", "direweight"),
+    ("direweight 0 0.5\ndevices 2\n", "direweight"),
     ("cellpackets 100\niterations 2\ndevices 2\n", "cell emission"),
-    ("stepweight 1 0.5\n", "stepweight"),
+    ("stepweight 1 0.5\ndevices 2\n", "stepweight"),
     ("split 8\ndevices 2\n", "split"),
     ("checkpoint c.ckpt\n", "checkpoint"), ("nnsolve x\n", "nnsolve"),
     ("CR_HEATING 1\n", "CR_HEATING"), ("polmap 1\n", "polmap"),
-    ("mmapabs\n", "mmapabs"), ("domains 2\n", "domains")])
+    ("mmapabs\ndevices 2\n", "mmapabs"), ("domains 2\n", "domains")])
 def test_unsupported_keywords_raise(tmp_path, extra, name):
     ini = write_model(str(tmp_path), 4, kind="eqdust", nfreq=6, extra=extra)
     with pytest.raises(NotImplementedError, match=name):
         tdriver.run(ini, device=CPU, lanes=1024)
+
+
+@pytest.mark.parametrize("extra,names", [
+    ("roi 1 2 1 2 1 2\nroisave roi.bin\n", ["roi / roisave / roiload"]),
+    ("roiload roi.bin\n", ["roi / roisave / roiload"]),
+    ("mirror xXyYzZ\n", ["mirror"]), ("stepweight 2 1.3 0.4\n",
+                                       ["stepweight"]),
+    ("direweight 1 0.5\n", ["direweight"]), ("mmapabs\n", ["mmapabs"]),
+    ("stepweight 1 1.4\ndireweight 1 0.5\nmirror x\nmmapabs\n",
+     ["mirror", "stepweight", "direweight", "mmapabs"]),
+    # the maps render on the first shard's device: none is refused
+    ("roi 1 2 1 2 1 2\nroimap\nsavetau t.bin 250.0\nmapint 1\n"
+     "interpolate 2\nyshear 1.0\nFITS 1\nperspective 4 4 4\n"
+     "pssavetau p.txt\nmapping 4 0 1.0 999\n", [])])
+def test_mesh_refused_features_names_the_transport_keywords(tmp_path, extra,
+                                                            names):
+    """driver.mesh_refused_features under `devices N` names each
+    transport keyword of the ROI / mirror / weighting / mmapabs slice,
+    and no map keyword."""
+    from soc_tpu_torch.config import RunConfig
+    ini = write_model(str(tmp_path), 4, kind="eqdust", nfreq=6, extra=extra)
+    cfg = RunConfig(ini)
+    assert tdriver.mesh_refused_features(cfg) == names
+    assert tdriver.unsupported_features(cfg) == []
 
 
 def test_octree_raises(tmp_path):
