@@ -74,14 +74,23 @@ Phases (any failure exits non-zero before the final line):
      below (266,752 cells), the equilibrium dust at 44 channels, the
      background packets of phase 4, `cellpackets` 533,504 (2 a cell a
      channel: 23,474,176 packets a cell pass), a 64x64 map; three runs:
-     (a) `iterations 3`, (b) the same with `ali 1` and `reference 1`, (c)
-     `emweight 1` and `iterations 2`. Each: finite fields, each cell pass's
+     (a) `iterations 3` (with `csave`), (b) the same with `ali 1` and
+     `reference 1`, (c) `emweight 1` and `iterations 2` at a quarter of
+     the cell packets. (b) and (c) `cload` (a)'s constant-source heating:
+     the same background packets on the same streams, not traced again.
+     These cuts, and the ALI rerun's below, hold the whole smoke under
+     800 s on an H100 now that phase 14 runs (841 s without them on a
+     slow host): (b) keeps its packets, since its gate against (a) is set
+     by their spread at 2 packets a cell; (c)'s gate (the balance) and the
+     rerun's (the same packets without and with ALI) do not depend on the
+     packet count. Each: finite fields, each cell pass's
      energy balance per channel (signed sums, driver.pass_balance) within
      0.5%, the stage seconds and each pass's packets/s; (b)'s temperatures
      within 2% of (a)'s (soc_tpu's bound for iterated runs) on all but
      1e-4 of the leaf cells, within 5% on every one; then one cell
      pass of (a)'s last emission in its 4 brightest channels (ALI_CHANNELS;
-     the others zero: their packets die at birth) rerun without and with
+     the others zero: their packets die at birth), one packet a cell and
+     channel, rerun without and with
      ALI: tabs_noali within 1e-4 relative or 1e-6 of the maximum of
      tabs_ali + xab, xab a nonzero, partial share
  11. the `pipeline` verb (cli.main) on the same octree with the GSET dust
@@ -147,9 +156,38 @@ Phases (any failure exits non-zero before the final line):
      maps within 1e-5 of the peak, every FITS file read back bit for bit
      equal to its plane, the sheared map at least the plain one; each
      run's seconds and packets/s, each render's seconds, rays and steps
+ 14. polarized dust emission on the same octree: (a) the `pipeline` verb
+     with phase 11's GSET model, `polarisation` (write_aalg: an aligned
+     grain size a cell, an eighth of the cells below the size grid and an
+     eighth above) and `polmap` with a tangled field: a2e_all_sizes
+     launched once a card, with the align weights; PEMITTED against the
+     plain twin's align sum on 16,384 leaf cells (REL_TOL); emitted.data.P
+     equal to the returned PEMITTED, at most EMITTED (1e-5 relative), zero
+     on the 576 parents, EMITTED (1e-5) where aalg lies below the smallest
+     size and zero above the largest; then a2e_all_sizes with align on
+     the run's absorptions against its plain twin, timed; (b) nine
+     map-only `rt` runs from (a)'s emission: `polmap` from theta 70 deg,
+     `polstat 1` and `3` each with the tangled field and a uniform
+     in-plane one, `polstat 2` with `yshear 2` and a `maxlos` of twice
+     the box, Healpix I/Q/U at NSIDE 64 from the centre with
+     `interpolate 3` and without, Healpix POLSTAT with a uniform field
+     along +Z: every plane finite, the map files equal to the returned
+     planes, the polarized fraction at most p0 / (1 - p0/3), I within
+     [1 - p0/3, 1 + 2 p0/3] times the plain map of the same run (1e-5
+     slack; not under POLSTAT 2, whose rays stop at `maxlos`), the
+     uniform field's rT and jT below 1e-3 rad, B_LOS and B_POS at most B,
+     POLSTAT 3's column density the plain map's (1e-5 of the peak), the
+     sheared I at least the unsheared one, the polar pixels' rI above 1.3
+     rad, every FITS file read back bit for bit; (c) `rt` with
+     `CR_HEATING 1.0` from a `cload` of phase 10 (a)'s constant-source
+     heating (phase 10 (a) runs `csave`): no leaf cell's temperature below
+     (a)'s by more than 1e-4 (phase 4's rerun bound), the coldest decile's
+     mean raised; each run's seconds, each render's seconds, rays and
+     steps
 The kernels line gives each kernel's launches on its path (phase 4 for the
 A2E kernel, and under octree_* its launches, time, plain time and bound
-on phase 11's octree, under sources_* on phase 12 (b)'s; 6 for the clamp kernel, 7 for the probes, 9 for the
+on phase 11's octree, under sources_* on phase 12 (b)'s, under pol_* on
+phase 14 (a)'s with the align weights; 6 for the clamp kernel, 7 for the probes, 9 for the
 sharded A2E, whose other numbers phase 8 takes over the same six shards),
 its time, its plain version's, its library call's where one exists, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -186,6 +224,7 @@ OCTREE = (8, 64, 3)     # phases 10-11: BASELINE config 2's refinement
 OCTREE_CELLS = 266752   # 64^3 + 4,096 + 512
 OCTREE_PARENTS = 576    # 512 refined root cells + the 64-cell cascade
 CELLPACKETS = 533504    # phase 10: 2 packets a cell a channel
+EMWEI_PACKETS = CELLPACKETS // 4   # phase 10 (c): a quarter of them
 # phase 10, (b) against (a): soc_tpu's own bound for iterated runs, 2%
 # (tests/test_iterations.py, on every cell of an 8^3 model), on all but
 # ITER_SHARE of the leaf cells and ITER_MAX on every one: at 2 packets a
@@ -222,7 +261,9 @@ WEIGHT_RTOL, WEIGHT_SHARE, WEIGHT_MEAN_ABS = 0.05, 5e-3, 2e-2
 WEIGHT_LEVEL = (1e-3, 3e-3, 3e-2)
 WEIGHT_CHANNEL = 0.01
 MIRROR = "xyz"          # (c2) the low faces: an octant of a symmetric cloud
-HP_NSIDE = 64           # phase 13 (d): the all-sky maps' resolution
+HP_NSIDE = 64           # phases 13 (d), 14 (b): the all-sky maps' resolution
+POL_RTOL = 1e-5         # phase 14: the formulas' bounds, relative slack
+POL_CHECK_CELLS = 16384  # phase 14 (a): PEMITTED against the plain twin
 HIER_TOL = 1e-5         # (d) the MAP_HIER planes summed, of the peak
 SOURCES = ("a2e", "probe_gather", "probe_scatter", "probe_onehot")
 PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
@@ -892,15 +933,21 @@ def octree_rt_phase(dev, work, args, report):
     from soc_tpu_torch.example_model import write_model
     from soc_tpu_torch.pipeline import driver
     card = report["card"]
-    runs = {"a": ("", 3), "b": ("ali 1\nreference 1\n", 3),
-            "c": ("emweight 1\n", 2)}
+    runs = {"a": ("", 3, CELLPACKETS),
+            "b": ("ali 1\nreference 1\n", 3, CELLPACKETS),
+            "c": ("emweight 1\n", 2, EMWEI_PACKETS)}
+    # (a) keeps its constant-source heating (phase 14 (c) loads it too);
+    # (b) and (c) load it: the same packets, not traced again
+    ctabs = os.path.join(work, "octree_rt_a", "ctabs.save")
     out = {}
-    for tag, (extra, iters) in runs.items():
+    for tag, (extra, iters, clpac) in runs.items():
         d = os.path.join(work, "octree_rt_" + tag)
         ini = write_model(d, N, kind="eqdust", nfreq=44, npix=64,
                           bgpac=args.bgpackets, map_dx=N / 64.0,
-                          octree=OCTREE, cellpackets=CELLPACKETS,
-                          iterations=iters, extra=extra)
+                          octree=OCTREE, cellpackets=clpac,
+                          iterations=iters,
+                          extra=extra + ("csave ctabs.save\n" if tag == "a"
+                                         else "cload %s\n" % ctabs))
         results = {}
         t0 = time.time()
         rc = cli.main(["rt", ini, "--device", str(dev)], results)
@@ -922,16 +969,18 @@ def octree_rt_phase(dev, work, args, report):
             fail("phase 10: (%s) %d cell passes for %d iterations"
                  % (tag, len(res.cell_passes), iters))
         tm = res.timings
+        bg = ("background %.2f (%d packets, %.0f packets/s)"
+              % (tm["constant_sources"], res.packets,
+                 res.packets / tm["constant_sources"]) if tag == "a"
+              else "background loaded from (a)'s csave")
         print("phase 10: (%s) rt on the octree (%d cells, %s, iterations %d"
-              "): %.2f s: input %.2f, background %.2f (%d packets, %.0f "
-              "packets/s), iterations %.2f, outputs %.2f, maps %.2f; T "
-              "%.2f-%.2f K [%s]"
+              ", cellpackets %d): %.2f s: input %.2f, %s, iterations %.2f, "
+              "outputs %.2f, maps %.2f; T %.2f-%.2f K [%s]"
               % (tag, res.grid.cells, extra.strip().replace("\n", ", ")
-                 or "plain", iters, wall, tm["input"],
-                 tm["constant_sources"], res.packets,
-                 res.packets / tm["constant_sources"], tm["solve"],
-                 tm["outputs"], tm["maps"], res.temperature.min(),
-                 res.temperature.max(), card), flush=True)
+                 or "plain", iters, clpac, wall, tm["input"], bg,
+                 tm["solve"], tm["outputs"], tm["maps"],
+                 res.temperature.min(), res.temperature.max(), card),
+              flush=True)
         print_passes(tag, res, card)
     leaf = out["a"].grid.dens.cpu().numpy() > 0
     rel = (np.abs(out["b"].temperature - out["a"].temperature)
@@ -954,7 +1003,7 @@ def octree_rt_phase(dev, work, args, report):
     # one cell pass without and with ALI: the same packets, so the ALI
     # split must add up to the plain tally. The whole pass with ALI is 44
     # pools, each paying its own drain tail (about a minute on an H100):
-    # the rerun keeps the brightest channels only
+    # the rerun keeps the brightest channels only, one packet a cell
     res = out["a"]
     orig = os.getcwd()
     os.chdir(os.path.join(work, "octree_rt_a"))
@@ -962,6 +1011,7 @@ def octree_rt_phase(dev, work, args, report):
         cfg = RunConfig("run.ini").validate()
     finally:
         os.chdir(orig)
+    cfg.clpac = OCTREE_CELLS
     keep = np.zeros(44, np.float32)
     keep[np.argsort(res.emitted.sum(0))[-ALI_CHANNELS:]] = 1.0
     print("phase 10: the ALI rerun runs (a)'s emission in its %d brightest "
@@ -1331,7 +1381,7 @@ def _variant(ini, name, subs=(), add=""):
         text = fp.read()
     for old, new in subs:
         if old not in text:
-            fail("phase 13: %r is not in %s" % (old, ini))
+            fail("%r is not in %s" % (old, ini))
         text = text.replace(old, new)
     for old, new in (("absorbed.data", ".absorbed"),
                      ("emitted.data", ".emitted"), ("tmp.T", ".T")):
@@ -1342,7 +1392,7 @@ def _variant(ini, name, subs=(), add=""):
     return path
 
 
-def _rt(dev, ini, tag, card):
+def _rt(dev, ini, tag, card, phase="phase 13"):
     """The rt verb (cli.main) on ini: (RunResult, wall seconds)."""
     import torch
     from soc_tpu_torch import cli
@@ -1352,22 +1402,22 @@ def _rt(dev, ini, tag, card):
     torch.cuda.synchronize()
     wall = time.time() - t0
     if rc != 0:
-        fail("phase 13: (%s) rt verb returned %d" % (tag, rc))
+        fail(phase + ": (%s) rt verb returned %d" % (tag, rc))
     res = results["rt"]
     tm = res.timings
-    print("phase 13: (%s) rt %.2f s: constant sources %.2f s (%d packets, "
+    print(phase + ": (%s) rt %.2f s: constant sources %.2f s (%d packets, "
           "%.0f packets/s), solve %.2f s, maps %.2f s [%s]"
           % (tag, wall, tm.get("constant_sources", 0.0), res.packets,
              res.packets / max(tm.get("constant_sources", 0.0), 1e-9),
              tm.get("solve", 0.0), tm.get("maps", 0.0), card), flush=True)
     for st in res.source_passes:
-        print("phase 13: (%s) %s: %d packets in %d pool(s), %.2f s (%.0f "
+        print(phase + ": (%s) %s: %d packets in %d pool(s), %.2f s (%.0f "
               "packets/s), %d clones [%s]"
               % (tag, st["source"], st["packets"], st["pools"],
                  st["seconds"], st["packets"] / max(st["seconds"], 1e-9),
                  st["clones"], card), flush=True)
     for rp in res.render_passes:
-        print("phase 13: (%s) render %s: %.3f s, %d rays, %d march steps "
+        print(phase + ": (%s) render %s: %.3f s, %d rays, %d march steps "
               "[%s]" % (tag, rp["render"], rp["seconds"], rp["rays"],
                         rp["steps"], card), flush=True)
     return res, wall
@@ -1606,6 +1656,333 @@ def slice_phase(dev, work, args, report, plain_bg=None):
     out["d"] = time.time() - t0
 
 
+def _pol_fraction(tag, i, q, u, p0):
+    """Phase 14 (b): the polarized fraction sqrt(Q^2 + U^2) / I of every
+    pixel with I > 0 at most p0 / (1 - p0/3) (1e-5 relative); returns its
+    largest value."""
+    lit = i > 0
+    frac = np.sqrt(q.astype(np.float64) ** 2 + u.astype(np.float64) ** 2)
+    frac = float((frac[lit] / i[lit]).max()) if lit.any() else 0.0
+    if not frac <= p0 / (1.0 - p0 / 3.0) * (1.0 + POL_RTOL):
+        fail("phase 14: (b) %s: polarized fraction %.6f above p0 / (1 - "
+             "p0/3) = %.6f" % (tag, frac, p0 / (1.0 - p0 / 3.0)))
+    return frac
+
+
+def _pol_intensity(tag, i, plain, p0):
+    """Phase 14 (b): I of the polarization map within [1 - p0/3,
+    1 + 2 p0/3] times the plain map of the same emission (1e-5 relative
+    slack) where the plain map exceeds 1e-6 of its peak; returns the
+    ratio's range."""
+    sel = plain > 1e-6 * plain.max()
+    r = i[sel].astype(np.float64) / plain[sel]
+    lo, hi = (1.0 - p0 / 3.0) * (1.0 - POL_RTOL), \
+        (1.0 + 2.0 * p0 / 3.0) * (1.0 + POL_RTOL)
+    if not (r.min() >= lo and r.max() <= hi):
+        fail("phase 14: (b) %s: I / plain map in [%.6f, %.6f], outside "
+             "[%.6f, %.6f]" % (tag, r.min(), r.max(), lo, hi))
+    return float(r.min()), float(r.max())
+
+
+def _fits_planes(d, tag, planes):
+    """Phase 14 (b): every FITS file the run wrote (removed before the
+    next run) read back bit for bit equal to one of ``planes``; returns
+    their number."""
+    from soc_tpu_torch.io.fits import read_fits_image, read_healpix_map
+    names = sorted(f for f in os.listdir(d) if ".fits" in f)
+    for f in names:
+        path = os.path.join(d, f)
+        data = read_healpix_map(path)[0] if f.startswith("pol_healpix") \
+            else read_fits_image(path)[0]
+        if not any(np.array_equal(data, np.asarray(pl, np.float32))
+                   for pl in planes):
+            fail("phase 14: (b) %s: %s differs from its planes" % (tag, f))
+        os.remove(path)
+    return len(names)
+
+
+def _pol_healpix_file(d, shape):
+    """pol_healpix.bin's [4, NF, NPIX] planes; fails unless its int32
+    header is [NSIDE, NF] for ``shape`` (NF, NPIX)."""
+    raw = np.fromfile(os.path.join(d, "pol_healpix.bin"), np.float32)
+    head = raw[:2].view(np.int32).tolist()
+    if head != [HP_NSIDE, shape[0]] or raw.size != 2 + 4 * np.prod(shape):
+        fail("phase 14: (b) pol_healpix.bin has header %s and %d values"
+             % (head, raw.size - 2))
+    return raw[2:].reshape((4,) + tuple(shape))
+
+
+def polarization_phase(dev, work, args, report, plain_a):
+    """Phase 14: polarized dust emission on BASELINE config 2's octree
+    (see the module docstring); ``plain_a``, phase 10 (a)'s run, gives the
+    temperatures (c) is held against and its saved heating."""
+    import torch
+    from soc_tpu_torch import cli
+    from soc_tpu_torch.config import RunConfig
+    from soc_tpu_torch.constants import PARSEC, f2um
+    from soc_tpu_torch.example_model import (octree_cloud, write_bfield,
+                                             write_model)
+    from soc_tpu_torch.pipeline import driver
+    from soc_tpu_torch.render.mapping import observer_basis
+    from soc_tpu_torch.solve import a2e_kernel, stochastic
+    from soc_tpu_torch.solve.solver_file import read_solver
+    card = report["card"]
+    out = report["pol"] = {}
+    d = os.path.join(work, "pol")
+    t0 = time.time()
+
+    # (a) the pipeline with `polarisation` and `polmap`
+    ini = write_model(d, N, kind="gset", nfreq=44, nsize=24, npix=64,
+                      bgpac=args.bgpackets, map_dx=N / 64.0, octree=OCTREE,
+                      bfield="tangled", polarisation=True,
+                      extra="polmap          Bx.bin By.bin Bz.bin\n")
+    shutil.copy(os.path.join(work, "gs_TST.solver"), d)
+    results = {}
+    a2e_kernel.launches = a2e_kernel.align_launches = 0
+    a2e_kernel.clamp_launches = 0
+    t1 = time.time()
+    rc = cli.main(["pipeline", ini, "--device", str(dev)], results)
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    launches = (a2e_kernel.launches, a2e_kernel.align_launches,
+                a2e_kernel.clamp_launches)
+    if rc != 0:
+        fail("phase 14: (a) pipeline verb returned %d" % rc)
+    ncard = torch.cuda.device_count()
+    if launches != (ncard, ncard, 0):
+        fail("phase 14: (a) A2E launches (all, with align, clamp) %s, "
+             "expected one a card with align" % (launches,))
+    res_rt, emitted, res_map = (results[k] for k in ("absorption", "emitted",
+                                                     "map"))
+    pem = res_map.pemitted
+    pfile = read_cell_frequency_array(os.path.join(d, "emitted.data.P"))
+    absorbed = read_cell_frequency_array(os.path.join(d, "absorbed.data"))
+    parents = absorbed[:, 0] < -1e19
+    if pem is None or pfile.shape != (OCTREE_CELLS, 44) \
+            or not np.array_equal(pfile, pem):
+        fail("phase 14: (a) emitted.data.P differs from the returned "
+             "PEMITTED")
+    if not (np.isfinite(pem).all() and int(parents.sum()) == OCTREE_PARENTS
+            and (pem[parents] == 0).all()
+            and (pem <= emitted * (1.0 + POL_RTOL)).all()):
+        fail("phase 14: (a) PEMITTED not finite, not zero on the %d parents "
+             "or above EMITTED" % OCTREE_PARENTS)
+    sol = read_solver(os.path.join(d, "gs_TST.solver"))
+    aalg = np.fromfile(os.path.join(d, "aalg.bin"), np.float32)[1:]
+    below = (aalg < sol.size_a[0]) & ~parents
+    above = (aalg > sol.size_a[-1]) & ~parents
+    rel_below = float((np.abs(pem[below] - emitted[below])
+                       / np.maximum(emitted[below], 1e-30)).max())
+    # write_aalg puts about an eighth of the cells on either side
+    if min(below.sum(), above.sum()) < (~parents).sum() // 20 \
+            or not rel_below <= POL_RTOL or (pem[above] != 0).any():
+        fail("phase 14: (a) PEMITTED is not EMITTED where aalg lies below "
+             "the smallest grain size (%d cells, %.3e) or not zero above the "
+             "largest (%d cells)" % (below.sum(), rel_below, above.sum()))
+    # the plain twin with the align weights on 16,384 leaf cells, the
+    # pipeline's clip of the last channel applied as solve_emission does
+    leaves = np.nonzero(~parents)[0]
+    pick = leaves[::len(leaves) // POL_CHECK_CELLS][:POL_CHECK_CELLS]
+    ab = np.where(parents[:, None], 0.0, absorbed).astype(np.float32)
+    ab[:, -1] = np.clip(ab[:, -1], 0.0, 0.2 * ab[:, -2])
+    align_all = np.stack([stochastic.alignment_weights(sol, i, aalg)
+                          for i in range(sol.nsize)])
+    stacks = stochastic.get_fused_stacks(sol, dev, plain=True)
+    _, ptwin = a2e_kernel.solve_all_sizes_plain(
+        stacks, torch.as_tensor(ab[pick], device=dev),
+        torch.as_tensor(align_all[:, pick], device=dev))
+    rel = max_rel(torch.as_tensor(pem[pick], device=dev), ptwin)
+    if not rel <= REL_TOL:
+        fail("phase 14: (a) PEMITTED differs from the plain twin on %d "
+             "cells (%.3e)" % (len(pick), rel))
+    tm = res_map.timings
+    print("phase 14: (a) pipeline with `polarisation` on the octree: %.2f s "
+          "(absorption %.2f s, A2E %.2f s, maps %.2f s); %d a2e_all_sizes "
+          "launch(es), all with align; PEMITTED against the plain twin on "
+          "%d cells: max rel err %.3e; EMITTED where aalg < a_min (%d cells, "
+          "max rel diff %.3e), zero where aalg > a_max (%d cells), zero on "
+          "the %d parents; PEMITTED / EMITTED summed %.4f [%s]"
+          % (wall, res_rt.timings["constant_sources"], tm["a2e"],
+             tm["maps"], launches[0], len(pick), rel, below.sum(), rel_below,
+             above.sum(), OCTREE_PARENTS, pem.sum() / emitted.sum(), card),
+          flush=True)
+    for rp in res_map.render_passes:
+        print("phase 14: (a) render %s: %.3f s, %d rays, %d march steps [%s]"
+              % (rp["render"], rp["seconds"], rp["rays"], rp["steps"], card),
+              flush=True)
+    # the kernel with align at this shape, against the plain twin, timed
+    abt = torch.as_tensor(ab, device=dev)
+    alt = torch.as_tensor(align_all, device=dev)
+    ms_k, (_, pk) = timed(lambda: a2e_kernel.solve_all_sizes(stacks, abt,
+                                                             alt), 3)
+    ms_p, (_, pp) = timed(
+        lambda: a2e_kernel.solve_all_sizes_plain(stacks, abt, alt), 1)
+    rel = max_rel(pk, pp)
+    if rel > REL_TOL:
+        fail("phase 14: (a) a2e_all_sizes with align differs from the plain "
+             "twin (%.3e)" % rel)
+    b_ms, b_by = bound(*a2e_work(OCTREE_CELLS - OCTREE_PARENTS, sol.nsize,
+                                 sol.ne, 44, False, True))
+    report["a2e_all_sizes"].update(
+        pol_launches=launches[1], pol_ms=ms_k, pol_plain_ms=ms_p,
+        pol_bound_ms=b_ms, pol_max_abs_err=float(torch.abs(pk - pp).max()))
+    print("phase 14: (a) a2e_all_sizes with align on the octree's "
+          "absorptions (%d cells; bound over the %d leaves, with the align "
+          "read and the PEMIT write): kernel %.2f ms, plain %.2f ms, bound "
+          "%.2f ms (%s), PEMIT max rel err %.3e [%s]"
+          % (OCTREE_CELLS, OCTREE_CELLS - OCTREE_PARENTS, ms_k, ms_p, b_ms,
+             b_by, rel, card), flush=True)
+    out["a"] = time.time() - t0
+
+    # (b) map-only runs from (a)'s emission
+    t0 = time.time()
+    shutil.copy(os.path.join(d, "emitted.data"),
+                os.path.join(d, "pol14.emitted"))
+    lcells = octree_cloud(N, *OCTREE)[0]
+    odir, ra, de = observer_basis(np.radians(70.0), np.radians(10.0))
+    write_bfield(d, (N, N, N), lcells, tuple(0.6 * ra + 0.8 * de),
+                 prefix="U")
+    write_bfield(d, (N, N, N), lcells, (0.0, 0.0, 1.0), prefix="Z")
+    mo = [("iterations      1", "iterations      0"),
+          ("optical         gs_TST.dust", "optical         TST_simple.dust"),
+          ("emitted         emitted.data", "emitted         pol14.emitted")]
+    view = [("directions      0.0 0.0", "directions      70.0 10.0")]
+    tangled = "polmap          Bx.bin By.bin Bz.bin"
+    field = {"U": [(tangled, "polmap          Ux.bin Uy.bin Uz.bin")],
+             "Z": [(tangled, "polmap          Zx.bin Zy.bin Zz.bin")],
+             "T": []}
+    runs = {
+        "ortho": (view, "T", ""),
+        "polstat1_tangled": (view, "T", "polstat 1\n"),
+        "polstat1_uniform": (view, "U", "polstat 1\n"),
+        "polstat3_tangled": (view, "T", "polstat 3\n"),
+        "polstat3_uniform": (view, "U", "polstat 3\n"),
+        "polstat2": (view + [(tangled, tangled + " 0.0 %r"
+                              % (2.0 * N))], "T", "polstat 2\nyshear 2.0\n"),
+        "healpix_i3": ([], "T", "mapping %d 0 1.0\ninterpolate 3\n"
+                       % HP_NSIDE),
+        "healpix": ([], "T", "mapping %d 0 1.0\n" % HP_NSIDE),
+        "healpix_stat": ([], "Z", "mapping %d -1 1.0\npolstat 1\n"
+                         % HP_NSIDE)}
+    for f in os.listdir(d):
+        if ".fits" in f:
+            os.remove(os.path.join(d, f))
+    cfg = RunConfig(ini)
+    p0 = cfg.p0
+    fsel = driver.map_freq_mask(cfg, res_rt.freq)
+    res_b, nfits = {}, 0
+    for name, (subs, fld, add) in runs.items():
+        run_ini = _variant(ini, "pol_" + name, mo + subs + field[fld], add)
+        res, _ = _rt(dev, run_ini, "b, " + name, card, phase="phase 14")
+        res_b[name] = res
+        pol = [np.asarray(a) for k, v in res.maps.items()
+               if isinstance(k, tuple) and str(k[0]).startswith("pol")
+               for a in (v if isinstance(v, tuple) else (v,))]
+        if not pol or not all(np.isfinite(v).all() for v in pol):
+            fail("phase 14: (b) %s: a polarization plane is not finite, or "
+                 "none was rendered" % name)
+        planes = []
+        if ("pol", 0) in res.maps or ("pol_hp", 0) in res.maps:
+            key = ("pol", 0) if ("pol", 0) in res.maps else ("pol_hp", 0)
+            i, q, u, colden = res.maps[key]
+            frac = _pol_fraction(name, i, q, u, p0)
+            ratio = (float("nan"),) * 2
+            if name != "polstat2":
+                ratio = _pol_intensity(name, i[fsel], res.maps[0], p0)
+            print("phase 14: (b) %s: I peak %.4e, largest polarized "
+                  "fraction %.5f (bound %.5f), I / plain map %.5f-%.5f"
+                  % (name, i.max(), frac, p0 / (1 - p0 / 3.0), *ratio),
+                  flush=True)
+            stack = np.fromfile(os.path.join(d, "polmap_dir_00.bin"),
+                                np.float32).reshape((4,) + i.shape) \
+                if key == ("pol", 0) else _pol_healpix_file(d, i.shape)
+            if not all(np.array_equal(stack[k], v)
+                       for k, v in enumerate((i, q, u))):
+                fail("phase 14: (b) %s: the map file differs from the "
+                     "returned planes" % name)
+            planes = [stack[:, f] for f in range(stack.shape[1])]
+        if ("polstat", 0) in res.maps:
+            st = res.maps[("polstat", 0)]
+            rt_, ri_, b, blos, bpos = st[:5]
+            if (blos > b * (1 + 1e-6)).any() or (bpos > b * (1 + 1e-6)).any():
+                fail("phase 14: (b) %s: B_LOS or B_POS above B" % name)
+            four = res.maps[("polstat4", 0)]
+            planes = [four[:, f] for f in range(four.shape[1])]
+            print("phase 14: (b) %s: rT %.4f-%.4f rad, rI %.4f-%.4f rad, "
+                  "jT %.4f-%.4f rad, <|B|> %.4f-%.4f" % (
+                      name, rt_.min(), rt_.max(), ri_.min(), ri_.max(),
+                      four[2].min(), four[2].max(), b.min(), b.max()),
+                  flush=True)
+            if name.endswith("uniform") and not (
+                    rt_.max() < 1e-3 and four[2].max() < 1e-3):
+                fail("phase 14: (b) %s: the uniform field's rT or jT reaches "
+                     "1e-3 rad" % name)
+            if name.startswith("polstat3"):
+                plain_n = res.maps[("colden", 0)] * (cfg.gl * PARSEC)
+                err = np.abs(st[6] - plain_n).max() / plain_n.max()
+                if not err <= POL_RTOL:
+                    fail("phase 14: (b) %s: colden differs from the plain "
+                         "map's (%.3e of the peak)" % (name, err))
+        if ("polstat_hp", 0) in res.maps:
+            hp4 = res.maps[("polstat_hp", 0)]
+            if not np.array_equal(_pol_healpix_file(d, hp4.shape[1:]), hp4):
+                fail("phase 14: (b) %s: pol_healpix.bin differs from the "
+                     "returned planes" % name)
+            planes = [hp4[:, f] for f in range(hp4.shape[1])]
+            poles = hp4[1, 0, [0, -1]]
+            print("phase 14: (b) %s: rI at the poles %.4f, %.4f rad; rT "
+                  "max %.3e rad" % (name, poles[0], poles[1],
+                                    hp4[0, 0].max()), flush=True)
+            if not (poles > 1.3).all():
+                fail("phase 14: (b) %s: the polar pixels' rI is not above "
+                     "1.3 rad for a field along the line of sight" % name)
+        nfits += _fits_planes(d, name, planes)
+    low = (res_b["polstat2"].maps[("pol", 0)][0]
+           < res_b["ortho"].maps[("pol", 0)][0] * (1 - 1e-6)).sum()
+    print("phase 14: (b) polstat 2 against the unsheared map: %d pixels "
+          "below it; the sheared column %.3f times the plain one; %d FITS "
+          "files read back bit for bit" % (
+              low, res_b["polstat2"].maps[("pol", 0)][3].sum()
+              / res_b["ortho"].maps[("pol", 0)][3].sum(), nfits), flush=True)
+    if low:
+        fail("phase 14: (b) the sheared I is below the unsheared one")
+    # one a map-band channel for the three Healpix runs; for the four
+    # orthographic runs of POLSTAT 0-2 one a distinct 'polmap_%.1f_00'
+    # name (channels that print alike share a file, the last one wins)
+    names = {"%.1f" % f2um(f) for f in res_rt.freq[fsel]}
+    if nfits != 3 * int(fsel.sum()) + 4 * len(names):
+        fail("phase 14: (b) %d FITS files, expected %d" % (
+            nfits, 3 * int(fsel.sum()) + 4 * len(names)))
+    out["b"] = time.time() - t0
+
+    # (c) rt with CR_HEATING from (a)'s saved constant-source heating
+    t0 = time.time()
+    base_a = os.path.join(work, "octree_rt_a", "run.ini")
+    res_c, _ = _rt(dev, _variant(base_a, "cr", [("csave ctabs.save",
+                                                 "cload ctabs.save")],
+                                 "CR_HEATING 1.0\n"), "c", card,
+                   phase="phase 14")
+    if res_c.packets != 0 or not np.isfinite(res_c.temperature).all():
+        fail("phase 14: (c) the cload run traced constant-source packets, "
+             "or its temperatures are not finite")
+    leaf = res_c.grid.dens.cpu().numpy() > 0
+    ta, tc = plain_a.temperature[leaf], res_c.temperature[leaf]
+    cold = ta <= np.percentile(ta, 10)
+    rise = tc[cold] / ta[cold] - 1
+    low = int((tc < ta * (1 - PRODUCT_RTOL)).sum())
+    print("phase 14: (c) rt with CR_HEATING 1.0 from phase 10 (a)'s saved "
+          "heating: %d of %d leaf cells below (a)'s by more than %.0e "
+          "relative; the coldest decile (%d cells, %.3f-%.3f K) raised by "
+          "%.3e on average (%.3e-%.3e), %.4f of them raised [%s]"
+          % (low, leaf.sum(), PRODUCT_RTOL, cold.sum(), ta[cold].min(),
+             ta[cold].max(), rise.mean(), rise.min(), rise.max(),
+             (rise > 0).mean(), card), flush=True)
+    if low or not rise.mean() > 0:
+        fail("phase 14: (c) CR_HEATING lowered a leaf cell's temperature or "
+             "did not raise the coldest decile")
+    out["c"] = time.time() - t0
+
+
 def probes_phase(dev, report):
     """Phase 7: the three probe modules, each row through its kernel."""
     import torch
@@ -1795,11 +2172,17 @@ def main():
         sources_phase(dev, work, args, report, plain["a"])
         t3 = time.time()
         slice_phase(dev, work, args, report, plain["a"])
+        t4 = time.time()
+        polarization_phase(dev, work, args, report, plain["a"])
         print("phase 10: %.2f s; phase 11: %.2f s; phase 12: %.2f s; phase "
-              "13: %.2f s (%s); the smoke so far %.2f s"
-              % (t1 - t0, t2 - t1, t3 - t2, time.time() - t3,
+              "13: %.2f s (%s); phase 14: %.2f s (%s); the smoke so far "
+              "%.2f s"
+              % (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["slice"].items()),
+                 time.time() - t4,
+                 ", ".join("%s %.2f s" % kv
+                           for kv in report["pol"].items()),
                  time.time() - T_START), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1816,7 +2199,8 @@ def main():
     extra = ("shards", "octree_launches", "octree_ms", "octree_plain_ms",
              "octree_bound_ms", "octree_max_abs_err", "sources_launches",
              "sources_ms", "sources_plain_ms", "sources_bound_ms",
-             "sources_max_abs_err")
+             "sources_max_abs_err", "pol_launches", "pol_ms",
+             "pol_plain_ms", "pol_bound_ms", "pol_max_abs_err")
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=sources[name][0],
         replaces=sources[name][1],

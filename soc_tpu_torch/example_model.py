@@ -7,9 +7,11 @@ dust built from DustEM-format files through the NumPy dust compiler
 background and an ini file; optionally point sources, a Healpix sky, a
 diffuse emission field and a second dust with per-cell abundances (each
 sized as a share of the background's power, so every source matters),
-and the `split`, `simum`, `saveint` and `optishalf` lines; or, for the ROI
-coupling's second stage, the sub-model of a box of root cells. Two dust
-kinds:
+and the `split`, `simum`, `saveint` and `optishalf` lines; a magnetic
+field (Bx.bin, By.bin, Bz.bin for `polmap`) and the `polarisation`
+inputs (a per-cell aligned grain size, and for an equilibrium dust its
+.rpol table); or, for the ROI coupling's second stage, the sub-model of
+a box of root cells. Two dust kinds:
 
 * ``"gset"``: a stochastically heated dust (GSET container), run through
   the ``pipeline`` verb (absorption run -> A2E -> map);
@@ -263,13 +265,58 @@ def write_diffuse(d, freq, gl_pc, area, lcells, share=0.5, nf=None,
         "diffpackets     %d\n" % packets if packets is not None else "")
 
 
+B_MEAN = (0.3, 0.5, 0.2)     # the tangled field's mean part
+
+
+def write_bfield(d, dims, lcells, field, seed=9, prefix="B"):
+    """<prefix>x.bin, <prefix>y.bin, <prefix>z.bin hierarchy files over
+    the model's cells (the octree's too); returns their names, for a
+    `polmap` line. field: a 3-vector (a uniform field), or "tangled":
+    B_MEAN plus a Gaussian tangled part of 0.6 its size a component, from
+    ``seed``. Every vector is scaled to |B| <= 1, so `polred` reads |B|
+    as a fraction."""
+    cells = int(np.sum(lcells))
+    if isinstance(field, str):
+        if field != "tangled":
+            raise ValueError("field: a 3-vector or 'tangled'")
+        rng = np.random.default_rng(seed)
+        mean = np.asarray(B_MEAN)
+        b = mean + rng.normal(0.0, 0.6 * np.linalg.norm(mean), (cells, 3))
+    else:
+        b = np.broadcast_to(np.asarray(field, np.float64), (cells, 3))
+    b = b / np.maximum(1.0, np.linalg.norm(b, axis=1))[:, None]
+    bounds = np.cumsum([0] + list(lcells))
+    names = tuple(prefix + axis + ".bin" for axis in "xyz")
+    for k, name in enumerate(names):
+        col = b[:, k].astype(np.float32)
+        write_hierarchy(os.path.join(d, name), *dims, lcells,
+                        [col[bounds[i]:bounds[i + 1]]
+                         for i in range(len(lcells))])
+    return names
+
+
+def write_aalg(d, sizes, cells, seed=13, path="aalg.bin"):
+    """The `polarisation` keyword's aligned-grain-size file: one leading
+    value (the cell count) and CELLS float32 sizes [cm], log-uniform from
+    a third of the smallest grain size to three times the largest (about
+    an eighth of the cells below the size grid, an eighth above).
+    Returns its name."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.log(sizes[0] / 3.0), np.log(3.0 * sizes[-1])
+    aalg = np.exp(rng.uniform(lo, hi, cells))
+    np.concatenate([[cells], aalg]).astype(np.float32).tofile(
+        os.path.join(d, path))
+    return path
+
+
 def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
                 bgpac=None, map_dx=1.0, gl_pc=0.01, extra="", octree=None,
                 cellpackets=None, iterations=1, point_sources=None,
                 ps_method=None, pspackets=None, hpbg=None,
                 hpbg_weighted=False, diffuse=None, dfpackets=None,
                 abundance=False, split=None, simum=None, saveint=None,
-                optishalf=False, roi_box=None):
+                optishalf=False, roi_box=None, bfield=None,
+                polarisation=False):
     """Write a model into directory d and return the ini path.
 
     n      : root grid size (n^3 cells)
@@ -298,6 +345,12 @@ def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
              or not), cell for cell as a regular grid at the same
              `gridlength` (the box must hold no refined cell): the
              sub-model of the ROI coupling (`roiload`)
+    bfield : a magnetic field over the cells (write_bfield: a 3-vector or
+             "tangled"), in Bx.bin, By.bin, Bz.bin; extra's `polmap
+             Bx.bin By.bin Bz.bin` line draws the maps
+    polarisation : the `polarisation <dust> aalg.bin` line with its file
+             (write_aalg, over the dust's size grid); an equilibrium
+             dust also gets its .rpol table (tst.rpol)
     bgpac  : 0 writes `bgpackets 0` (no background run)
     extra  : more ini lines
     """
@@ -351,6 +404,14 @@ def write_model(d, n, kind="gset", nfreq=44, nsize=24, npix=None,
         lines.append("saveint         %d\n" % saveint)
     if optishalf:
         lines.append("optishalf\n")
+    if bfield is not None:
+        write_bfield(d, dims, lcells, bfield)
+    if polarisation:
+        if kind == "eqdust":
+            dc.write_polarized_dust_aux(dust, freq,
+                                        prefix=os.path.join(d, "tst"))
+        lines.append("polarisation    %s %s\n"
+                     % (dust_name, write_aalg(d, dust.size_a, cells)))
     ini = os.path.join(d, "run.ini")
     with open(ini, "w") as fp:
         fp.write(INI.format(gl=gl_pc, npix=npix or n, map_dx=map_dx,

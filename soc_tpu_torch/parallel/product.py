@@ -215,10 +215,11 @@ def run_freqs(pm, grid, medium, kind, photons, per_freq, tabs, intf, seed,
     return tabs, intf, escaped
 
 
-def solve_temperature(pm, grid, table, tabs, gl_pc_parsec):
+def solve_temperature(pm, grid, table, tabs, gl_pc_parsec, cr_heating=0.0):
     """Equilibrium temperature [CELLS] on tabs' device, the cells split
     into contiguous ranges over all shards (elementwise, so equal to the
-    one-device solve bit for bit)."""
+    one-device solve bit for bit); cr_heating as
+    equilibrium.temperature_lookup's."""
     lev = equilibrium.cell_levels(grid)
     ranges = shard_ranges(grid.cells, len(pm.devices))
 
@@ -227,7 +228,7 @@ def solve_temperature(pm, grid, table, tabs, gl_pc_parsec):
         return equilibrium.temperature_lookup(
             pm.replica(table, dev), tabs[c0:c1].to(dev),
             pm.replica(grid, dev).dens[c0:c1], lev[c0:c1].to(dev),
-            gl_pc_parsec)
+            gl_pc_parsec, cr_heating=cr_heating)
 
     return torch.cat([t.to(tabs.device) for t in pm.map_shards(shard)])
 

@@ -25,7 +25,10 @@ Phases:
   3. maps: orthographic (map_dir_XX.bin, with `mapint`, `yshear`, FITS
      and `savetau`), Healpix all-sky (map.healpix, `interpolate`),
      perspective, MAP_HIER by level (map_dir_XX_H.bin), `roimap`'s gate,
-     and the point sources' `pssavetau` text files
+     the point sources' `pssavetau` text files, and the polarization
+     maps of `polmap` (Stokes I/Q/U/N, POLSTAT 1-3 statistics,
+     orthographic and Healpix; render/polarization.py)
+`CR_HEATING` adds its cosmic-ray rate to every temperature solve.
 With `devices N` (or an explicit device list) phases 1 and 3 and one
 temperature solve run over a (dp x freq) mesh of devices
 (parallel/product.py): phase 1 with the channels blocked over freq and
@@ -89,6 +92,7 @@ class RunResult:
     absorbed: np.ndarray = None         # [CELLS, NFREQ] (file scaling applied)
     temperature: np.ndarray = None      # [CELLS]
     emitted: np.ndarray = None          # [CELLS, NFREQ]
+    pemitted: np.ndarray = None         # pipeline's polarised emission
     maps: dict = field(default_factory=dict)       # idir -> [NF, NY, NX]
     tau_maps: dict = field(default_factory=dict)   # idir -> [NF, NY, NX]
     render_passes: list = field(default_factory=list)  # a dict a render
@@ -115,14 +119,11 @@ def unsupported_features(cfg):
             out.append(name)
 
     need(cfg.n_domains, "domains")
-    need(cfg.polmap or cfg.polstat or cfg.b_files, "polmap / polstat")
     need(cfg.file_checkpoint, "checkpoint")
     need(cfg.lib_abs or cfg.lib_maps or cfg.file_library,
          "libabs / libmaps / library")
     need(cfg.nn_make or cfg.nn_solve, "nnmake / nnsolve")
     need(cfg.abs_thin > 1, "absthin")
-    need(cfg.cr_heating, "CR_HEATING")
-    need(cfg.aalg, "polarisation")
     return out
 
 
@@ -1304,16 +1305,18 @@ def _remit_band(cfg, freq, emitted):
 
 def _solve_and_emit(grid, table, heating, gl_cm, freq, abs_gl, cfg, pmesh,
                     beta=1.0):
-    """Equilibrium temperature of a heating field and its emission (remit
-    band applied), over the mesh when one is given."""
+    """Equilibrium temperature of a heating field (with `CR_HEATING`'s
+    rate) and its emission (remit band applied), over the mesh when one is
+    given."""
     if pmesh is not None:
         from ..parallel import product
-        temperature = product.solve_temperature(pmesh, grid, table, heating,
-                                                gl_cm)
+        temperature = product.solve_temperature(
+            pmesh, grid, table, heating, gl_cm, cr_heating=cfg.cr_heating)
         emitted = product.emission(pmesh, freq, abs_gl, temperature, gl_cm)
     else:
-        temperature = equilibrium.solve_temperature(grid, table, heating,
-                                                    gl_cm, beta=beta)
+        temperature = equilibrium.solve_temperature(
+            grid, table, heating, gl_cm, beta=beta,
+            cr_heating=cfg.cr_heating)
         emitted = equilibrium.emission(freq, abs_gl, temperature, gl_cm)
     return temperature, _remit_band(cfg, freq, emitted)
 
@@ -1514,7 +1517,8 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
     files (`FITS`) and `savetau`'s optical depth at the asked
     frequencies or column density (a frequency outside the map band is
     rendered but kept out of map_dir_XX.bin). Then `pssavetau`'s text
-    files. With `threshold L` the maps take no emission from cells on
+    files, then the polarization maps (_polarization_maps). With
+    `threshold L` the maps take no emission from cells on
     levels below L; with `roimap` none from cells whose root cell lies
     outside the ROI box (a where, so a NaN there cannot reach a map; the
     hierarchy maps have no gate, as in the reference). They still absorb
@@ -1720,7 +1724,147 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
                     for i in range(cfg.no_ps):
                         fp.write("%6d  %12.4e  %12.4e\n"
                                  % (i, colden_cm[i], tau[i, itau]))
+    if cfg.polmap > 0 and emitted is not None and len(cfg.b_files) == 3:
+        # outside the `nomap` gate, on the first shard's device
+        _polarization_maps(
+            cfg, grid if pmesh is None else pmesh.replica(
+                grid, pmesh.devices[0]), medium, res, freq, emitted,
+            write_files, timed, ext_cells, gl_cm)
     timings["maps"] = time.time() - t0
+
+
+def _polarization_maps(cfg, grid, medium, res, freq, emitted, write_files,
+                       timed, ext_cells, gl_cm):
+    """The polarization maps (soc_tpu driver.py:2203-2377), outside the
+    `nomap` gate: the field of the three `polmap` / `Bfiles` hierarchy
+    files and the emission of every channel (scaled by KK freq in float64,
+    then float32), with WITH_ABU's per-cell extinction when given. By the
+    ini, one of: the Healpix POLSTAT maps (`polstat` > 0 with `intobs` or
+    NPIX.y <= 0; pol_healpix.bin [NSIDE, NF] + [4, NF, NPIX] rhoTheta,
+    rhoGamma, jTheta, jGamma); the Healpix I/Q/U/N maps (pol_healpix.bin);
+    else per direction POLSTAT 2 (I/Q/U/N with the shearing replication
+    up to `maxlos`), POLSTAT 1/3 (polstat_dir_XX.bin: NPIX + [7, NY, NX]
+    rT, rI, B, B_LOS, B_POS, tau, N) or plain I/Q/U/N (polmap_dir_XX.bin
+    [4, NF, NY, NX]). The Healpix maps also write pol_healpix.fits.%d and
+    POLSTAT 0-2 polmap_%.1f_%02d.fits, one a map-band channel. N is in
+    cm^-2. ``grid`` lies on the device the maps render on."""
+    from ..io.fits import write_healpix_map
+    from ..render import polarization as rpol
+    device = grid.device
+    bvec = [np.concatenate(read_hierarchy(bf)[4]) for bf in cfg.b_files]
+    bfield = torch.as_tensor(np.stack(bvec, -1).astype(np.float32),
+                             device=device)
+    centre = cfg.mapcentre
+    if centre[0] < -1e7:
+        centre = (0.5 * grid.nx, 0.5 * grid.ny, 0.5 * grid.nz)
+    kk = render_mapping.map_scale_kk(cfg.gl)
+    scale = torch.as_tensor(kk * np.asarray(freq, np.float64), device=device)
+    emit_map = (torch.as_tensor(emitted, device=device).to(torch.float64)
+                * scale[None, :]).to(torch.float32)
+    ext_gl = torch.as_tensor(
+        ext_cells if ext_cells is not None
+        else medium.abs_gl.cpu().numpy() + medium.sca_gl.cpu().numpy(),
+        device=device)
+    cell_w = None
+    if cfg.level_threshold > 0:
+        # `threshold` zeroes the POLSTAT density weight too
+        cell_w = (equilibrium.cell_levels(grid)
+                  >= cfg.level_threshold).to(torch.float32)
+    polred = len(cfg.file_polred) > 0
+    nf = len(freq)
+    band = np.nonzero(map_freq_mask(cfg, freq))[0]
+    healpix = cfg.intobs[0] > -1e7 or cfg.npix[1] <= 0
+    intobs = cfg.intobs if cfg.intobs[0] > -1e7 else centre
+    nside = int(cfg.npix[0])
+
+    def write_healpix(stack, names=None):
+        with open("pol_healpix.bin", "wb") as fp:
+            np.asarray([nside, nf], np.int32).tofile(fp)
+            stack.astype(np.float32).tofile(fp)
+        for ifq in band:
+            kw = {} if names is None else dict(column_names=names)
+            write_healpix_map("pol_healpix.fits.%d" % ifq,
+                              tuple(stack[k, ifq] for k in range(4)), nside,
+                              **kw)
+
+    if cfg.polstat > 0 and healpix:
+        st = timed("polstat_healpix", rpol.render_polstat_healpix, grid,
+                   emit_map, ext_gl, bfield, intobs, nside, polred=polred,
+                   maxlos=cfg.maxlos, use_shear=cfg.y_shear != 0.0,
+                   y_shear=cfg.y_shear)
+        st = {k: v.cpu().numpy() for k, v in st.items()}
+        npx = 12 * nside * nside
+        stack = np.stack([np.broadcast_to(st["rT"][None], (nf, npx)),
+                          np.broadcast_to(st["rI"][None], (nf, npx)),
+                          st["jT"], st["jI"]])
+        res.maps[("polstat_hp", 0)] = stack
+        if write_files:
+            write_healpix(stack, ("rhoTheta", "rhoGamma", "jTheta",
+                                  "jGamma"))
+        return
+    if healpix:
+        out = timed("pol_healpix", rpol.render_pol_healpix, grid, emit_map,
+                    ext_gl, bfield, cfg.p0, intobs, nside, polred=polred,
+                    maxlos=cfg.maxlos, minlos=cfg.minlos,
+                    interpolate=int(cfg.interpolate))
+        s_i, s_q, s_u, colden = (v.cpu().numpy() for v in out)
+        res.maps[("pol_hp", 0)] = (s_i, s_q, s_u, colden)
+        if write_files:
+            colden_cm = colden * gl_cm
+            write_healpix(np.stack([s_i, s_q, s_u, np.broadcast_to(
+                colden_cm[None], (nf, colden.size))]))
+        return
+    for idir in range(len(cfg.obs_theta)):
+        odir, ra, de = render_mapping.observer_basis(cfg.obs_theta[idir],
+                                                     cfg.obs_phi[idir])
+        if cfg.polstat > 0 and cfg.polstat != 2:
+            st = timed("polstat", rpol.render_polstat, grid, emit_map,
+                       ext_gl, bfield, odir, ra, de, centre, cfg.map_dx,
+                       tuple(cfg.npix), polred=polred, cell_w=cell_w)
+            st = {k: v.cpu().numpy() for k, v in st.items()}
+            stack = np.stack([st[k] for k in ("rT", "rI", "B", "B_LOS",
+                                              "B_POS", "tau", "colden")])
+            stack[6] *= gl_cm
+            res.maps[("polstat", idir)] = stack
+            four = np.stack([np.broadcast_to(st["rT"][None], st["jT"].shape),
+                             np.broadcast_to(st["rI"][None], st["jI"].shape),
+                             st["jT"], st["jI"]])
+            res.maps[("polstat4", idir)] = four
+            if write_files:
+                with open("polstat_dir_%02d.bin" % idir, "wb") as fp:
+                    np.asarray(cfg.npix, np.int32).tofile(fp)
+                    stack.astype(np.float32).tofile(fp)
+                if cfg.polstat == 1:
+                    _write_polmap_fits(cfg, freq, band, four, idir)
+            continue
+        # POLSTAT 2: the shearing replication until the path passes maxlos
+        shear = cfg.polstat == 2
+        out = timed("pol", rpol.render_pol, grid, emit_map, ext_gl, bfield,
+                    cfg.p0, odir, ra, de, centre, cfg.map_dx,
+                    tuple(cfg.npix), polred=polred,
+                    rho_weight=cfg.pol_rho_weight, use_shear=shear,
+                    y_shear=cfg.y_shear if shear else 0.0,
+                    maxlos=cfg.maxlos, minlos=cfg.minlos)
+        s_i, s_q, s_u, colden = (v.cpu().numpy() for v in out)
+        res.maps[("pol", idir)] = (s_i, s_q, s_u, colden)
+        if write_files:
+            colden_cm = colden * gl_cm
+            stack = np.stack([s_i, s_q, s_u, np.broadcast_to(
+                colden_cm[None], (nf,) + colden.shape)])
+            stack.astype(np.float32).tofile("polmap_dir_%02d.bin" % idir)
+            _write_polmap_fits(cfg, freq, band, stack, idir)
+
+
+def _write_polmap_fits(cfg, freq, band, stack, idir):
+    """The polmap product: one FITS a map-band channel,
+    'polmap_%.1f_%02d.fits' (um, direction), holding that channel's
+    [4, NY, NX] planes of ``stack`` [4, NF, NY, NX]."""
+    pix_deg = None
+    if cfg.distance > 0:
+        pix_deg = np.degrees(cfg.gl * cfg.map_dx / cfg.distance)
+    for ifq in band:
+        write_fits_image("polmap_%.1f_%02d.fits" % (f2um(freq[ifq]), idir),
+                         stack[:, ifq], pix_deg=pix_deg)
 
 
 def _write_hier(path, cfg, grid, hier):

@@ -3,7 +3,9 @@ soc_tpu.pipeline.full for the plain chain, mode=None).
 
 Chains: solver-file generation (A2E_pre) for stochastic dusts ->
 absorption run (nosolve, per-frequency tallies) -> multi-dust emission
-(A2E_MABU, the A2E solve on the card) -> map run from the emitted file.
+(A2E_MABU, the A2E solve on the card; `CR_HEATING`'s rate in the last
+channel; with `polarisation` the aligned grains' emission, <emitted>.P)
+-> map run from the emitted file.
 Under `devices N` the three stages share the absorption run's devices.
 The reference's intermediate files are still written, so any stage can be
 re-run or inspected.
@@ -107,6 +109,47 @@ def read_abundances(cfg, cells, ndust):
     return abu
 
 
+def _rpol_factor(name, freq, aalg):
+    """R(aalg[cell], freq): the share of the cross section in aligned
+    grains a >= aalg, from the <name>.rpol table (A2E_MABU.py:615-637):
+    log-frequency interpolation between its columns, then the size
+    interpolation at each cell's aalg, zero outside the size grid."""
+    tab = np.loadtxt("%s.rpol" % name)
+    apol, fpol, rpol = tab[1:, 0], tab[0, 1:], tab[1:, 1:]
+    lf = np.log(fpol)
+    out = np.zeros((len(aalg), len(freq)), np.float32)
+    for k, f in enumerate(np.asarray(freq, np.float64)):
+        i = int(np.argmin(np.abs(fpol - f)))
+        if fpol[i] > f:
+            i = max(i - 1, 0)
+        j = min(i + 1, len(fpol) - 1)
+        wj = 0.0 if i == j else (np.log(f) - lf[i]) / (lf[j] - lf[i])
+        col = (1.0 - wj) * rpol[:, i] + wj * rpol[:, j]
+        out[:, k] = np.interp(aalg, apol, col, left=0.0, right=0.0)
+    return out
+
+
+def pol_specs(cfg, comps, freq, cells):
+    """The `polarisation` keyword's specs a component (cfg.aalg: the dust
+    file's base name without .dust -> its aalg file, one leading value
+    then CELLS float32): ("aalg", aalg) for a stochastic dust,
+    ("rfactor", R [CELLS, NFREQ]) for an equilibrium one; None without
+    the keyword or a matching dust."""
+    if not cfg.aalg:
+        return None
+    pol = {}
+    for d, comp in enumerate(comps):
+        f_aalg = cfg.aalg.get(comp.name)
+        if f_aalg is None:
+            continue
+        aalg = np.fromfile(f_aalg, np.float32)[1:][:cells]
+        if comp.kind == "gset":
+            pol[d] = ("aalg", aalg)
+        else:
+            pol[d] = ("rfactor", _rpol_factor(comp.name, freq, aalg))
+    return pol or None
+
+
 def _simple_dust_substitutes(cfg):
     """The RT and map stages need simple-dust optics: swap every gset dust
     for its <name>_simple.dust ('gs_' prefix dropped), generating the file
@@ -155,7 +198,9 @@ def run_pipeline(ini_path, device, lanes=driver.DEFAULT_LANES, ne=128,
     (RunResult of the absorption run, EMITTED [CELLS, NFREQ], RunResult of
     the map run); the emission stage's seconds are in the map run's
     timings under 'a2e'. With `devices N` in the ini, or a ``devices``
-    list, all three stages run over the same devices (see driver.run)."""
+    list, all three stages run over the same devices (see driver.run).
+    With `polarisation` the polarised emission is written to
+    <emitted>.P and returned as the map run's ``pemitted``."""
     if mode is not None:
         raise NotImplementedError(
             "not supported by soc_tpu_torch yet: pipeline mode %r "
@@ -192,11 +237,19 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, devices):
     abs_clean = np.where(valid[:, None], absorbed, 0.0).astype(np.float32)
     t0 = time.time()
     abu = read_abundances(cfg, absorbed.shape[0], len(comps))
-    emitted = mabu.solve_emission_multi(comps, abs_clean, device, abu=abu,
-                                        devices=res_rt.devices)
+    pol = pol_specs(cfg, comps, freq, absorbed.shape[0])
+    out = mabu.solve_emission_multi(
+        comps, abs_clean, device, abu=abu, devices=res_rt.devices,
+        cr_mode=int(cfg.cr_heating), dens=res_rt.grid.dens.cpu().numpy(),
+        pol=pol)
+    emitted, pemitted = out if pol else (out, None)
     t_a2e = time.time() - t0
     emitted[~valid] = 0.0
     write_cell_frequency_array(cfg.file_emitted, emitted)
+    if pemitted is not None:
+        # the aligned dusts' polarised emission (A2E_MABU.py:589, 651-656)
+        pemitted[~valid] = 0.0
+        write_cell_frequency_array(cfg.file_emitted + ".P", pemitted)
 
     # Stage 3: map run from the emitted file
     cfg_map = copy.deepcopy(cfg)
@@ -207,4 +260,5 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, devices):
                          workdir=".", devices=res_rt.devices)
     res_map.timings["a2e_prep"] = t_prep
     res_map.timings["a2e"] = t_a2e
+    res_map.pemitted = pemitted
     return res_rt, emitted, res_map

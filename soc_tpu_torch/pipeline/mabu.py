@@ -1,5 +1,4 @@
-"""Multi-dust emission (port of soc_tpu.pipeline.mabu, without cosmic-ray
-heating and polarisation).
+"""Multi-dust emission (port of soc_tpu.pipeline.mabu).
 
 Splits total absorptions between dust populations in proportion to their
 absorption cross sections, solves each population's emission (stochastic
@@ -8,6 +7,10 @@ abundance-weighted emissions:
 
     ABS_d[cell, f] = ABS[cell, f] * R[f, d] / sum_d' ABU[cell, d'] R[f, d']
     EMIT[cell, f]  = sum_d ABU[cell, d] * EMIT_d[cell, f]
+
+With `CR_HEATING` a cosmic-ray heating rate rides in the last channel;
+with `polarisation` the emission of the aligned grains (PEMITTED) is
+summed the same way.
 """
 
 from dataclasses import dataclass
@@ -40,9 +43,36 @@ def split_absorbed(absorbed, rabs, abu, idust, den=None):
     return absorbed * rabs[None, :, idust] / np.maximum(den, 1e-40)
 
 
-def solve_equilibrium_eqdust(kabs, freq, absorbed, ne=30000):
+def cr_heating_channel(mode, dens, cells):
+    """Extra per-cell heating rate [erg/s/H * FACTOR] that `CR_HEATING`
+    injects through the LAST channel of the absorbed array
+    (A2E_MABU.py:795-817):
+      1 : the cosmic-ray rate 1e-27 erg/s/H
+      2 : twice that (an upper limit)
+      3 : gas-dust coupling 9e-34 n(H) sqrt(Tgas) (Tgas - Tdust), with the
+          reference's Tgas(n), dT(n) interpolations
+    """
+    if mode == 1:
+        return np.full(cells, 1.0e-27 * FACTOR, np.float32)
+    if mode == 2:
+        return np.full(cells, 2.0e-27 * FACTOR, np.float32)
+    if mode == 3:
+        logn = np.log10(np.clip(np.asarray(dens, np.float64), 1e-8, 1e20))
+        xs = [-8.0, 0.0, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0, 20.0]
+        tg = np.interp(logn, xs, [15, 15, 15, 15, 14, 12, 10, 7, 6, 6, 6])
+        dt = np.interp(logn, xs, [5, 5, 5, 5, 5, 5, 3, 1, 0, 0, 0])
+        return (9.0e-34 * np.asarray(dens, np.float64) * np.sqrt(tg) * dt
+                * FACTOR).astype(np.float32)
+    raise ValueError("CR_HEATING mode %r" % mode)
+
+
+def solve_equilibrium_eqdust(kabs, freq, absorbed, ne=30000,
+                             cr_channel=False):
     """Equilibrium dust of one population: per-cell T from the E<->T
-    table and the emission per unit density (host NumPy, float64)."""
+    table and the emission per unit density (host NumPy, float64).
+    cr_channel: the last channel holds a direct heating rate (erg/s/H *
+    FACTOR), left out of the photon integral and added to Ein as it is
+    (kernel_eqsolver.c:27-33)."""
     freq = np.asarray(freq, np.float64)
     kabs = np.asarray(kabs, np.float64)
     tstep = 1600.0 / ne
@@ -54,9 +84,15 @@ def solve_equilibrium_eqdust(kabs, freq, absorbed, ne=30000):
            + np.sum(tmp[:, 1:-1] * df[None, :], axis=1))
     eout = 4.0 * np.pi * FACTOR * 0.5 * res
     absorbed = np.asarray(absorbed, np.float64)
+    ein_extra = 0.0
+    if cr_channel:
+        absorbed = absorbed.copy()
+        ein_extra = absorbed[:, -1].copy()
+        absorbed[:, -1] = 0.0
     integ = absorbed * (PLANCK * freq)[None, :]
-    ein = 0.5 * np.sum((integ[:, 1:] + integ[:, :-1])
-                       * (freq[1:] - freq[:-1])[None, :], axis=1)
+    ein = ein_extra + 0.5 * np.sum((integ[:, 1:] + integ[:, :-1])
+                                   * (freq[1:] - freq[:-1])[None, :],
+                                   axis=1)
     t = np.interp(ein, eout, tt)
     x = np.clip(H_K * freq[None, :] / np.maximum(t[:, None], 1e-3),
                 1e-10, 500)
@@ -66,7 +102,7 @@ def solve_equilibrium_eqdust(kabs, freq, absorbed, ne=30000):
 
 
 def solve_emission_multi(components, absorbed, device, abu=None,
-                         devices=None):
+                         devices=None, cr_mode=0, dens=None, pol=None):
     """Full multi-dust solve.
 
     components : list[DustComponent]
@@ -74,12 +110,27 @@ def solve_emission_multi(components, absorbed, device, abu=None,
     abu        : [CELLS, NDUST] abundances (default: all ones)
     devices    : devices the stochastic solve splits its cells over
                  (stochastic.a2e_devices)
-    Returns EMITTED [CELLS, NFREQ] float32.
+    cr_mode    : CR_HEATING 1/2/3: the rate of cr_heating_channel (mode 3
+                 from dens [CELLS]) replaces the last channel and is split
+                 between the dusts like any absorption; an equilibrium
+                 dust adds it to its absorbed energy, a stochastic one
+                 takes it as its highest channel's absorptions (which
+                 stochastic.solve_emission clips to 0.2 times the channel
+                 below, as soc_tpu does)
+    pol        : {component index: spec} of the `polarisation` keyword:
+                 ('aalg', aalg [CELLS]) for a stochastic dust (the
+                 emission of the aligned sizes a >= aalg; the A2E kernel's
+                 align path) or ('rfactor', R [CELLS, NFREQ]) for an
+                 equilibrium dust (the .rpol fraction, full._rpol_factor)
+    Returns EMITTED [CELLS, NFREQ] float32; with pol, (EMITTED, PEMITTED).
     """
     cells, nfreq = absorbed.shape
     ndust = len(components)
     if abu is None:
         abu = np.ones((cells, ndust), np.float32)
+    if cr_mode > 0:
+        absorbed = np.asarray(absorbed).copy()
+        absorbed[:, -1] = cr_heating_channel(cr_mode, dens, cells)
     rabs = np.zeros((nfreq, ndust))
     for d, comp in enumerate(components):
         rabs[:, d] = np.clip(comp.kabs, 1e-40, 1e30)
@@ -87,16 +138,31 @@ def solve_emission_multi(components, absorbed, device, abu=None,
     rabs = np.clip(rabs, 1e-30, 1.0)
 
     emitted = np.zeros((cells, nfreq), np.float32)
+    pemitted = np.zeros((cells, nfreq), np.float32) if pol else None
     split_den = np.einsum("cd,fd->cf", abu, rabs)
     for d, comp in enumerate(components):
         absd = split_absorbed(absorbed, rabs, abu, d, den=split_den)
+        spec = pol.get(d) if pol else None
+        pemit_d = None
         if comp.kind == "gset":
-            emit_d = stochastic.solve_emission(comp.solver, absd, device,
-                                               nstoch=comp.nstoch,
-                                               devices=devices)
+            if spec is not None and spec[0] == "aalg":
+                emit_d, pemit_d = stochastic.solve_emission(
+                    comp.solver, absd, device, nstoch=comp.nstoch,
+                    aalg=spec[1], devices=devices)
+            else:
+                emit_d = stochastic.solve_emission(
+                    comp.solver, absd, device, nstoch=comp.nstoch,
+                    devices=devices)
         elif comp.kind == "eqdust":
-            emit_d, _ = solve_equilibrium_eqdust(comp.kabs, comp.freq, absd)
+            emit_d, _ = solve_equilibrium_eqdust(comp.kabs, comp.freq, absd,
+                                                 cr_channel=cr_mode > 0)
+            if spec is not None and spec[0] == "rfactor":
+                pemit_d = emit_d * spec[1]
         else:
             raise ValueError(f"unknown dust kind {comp.kind!r}")
         emitted += emit_d * abu[:, d][:, None]
+        if pemit_d is not None:
+            pemitted += pemit_d * abu[:, d][:, None]
+    if pol:
+        return emitted, pemitted
     return emitted

@@ -219,12 +219,14 @@ def _cross_ray(grid, emit_map, pos, step_dir, ds, level, ind, anc, active,
 
 
 def _shear_wrap(grid, active, npos, nlevel, nind, nanc, los, y_shear,
-                maxlos):
+                maxlos, margin=2.0 * EPS):
     """The shearing-box continuation (kernel_ASOC_map_H.c:800-830): a ray
     leaving through an X face inside the Z range re-enters on the opposite
     side with y shifted by -/+ y_shear root cells (the Y faces wrap), until
-    its path exceeds maxlos [GL]."""
-    # float32 bounds, so nx - 2 EPS rounds as soc_tpu's float32 does
+    its path exceeds maxlos [GL]. The re-entry point keeps ``margin`` root
+    cells inside the faces: soc_tpu writes 2 EPS for the maps and 1e-3 for
+    the polarization maps (render/polarization.py), the same float."""
+    # float32 bounds, so nx - margin rounds as soc_tpu's float32 does
     nx_, ny_, nz_ = (torch.tensor(float(v), device=npos.device)
                      for v in (grid.nx, grid.ny, grid.nz))
     exited = active & (nind < 0)
@@ -232,12 +234,12 @@ def _shear_wrap(grid, active, npos, nlevel, nind, nanc, los, y_shear,
     cont = exited & zin & (los < maxlos)
     xlo = npos[:, 0] <= 0.0
     xhi = npos[:, 0] >= nx_
-    newx = torch.where(xlo, nx_ - 2.0 * EPS,
-                       torch.where(xhi, 2.0 * EPS, npos[:, 0]))
+    newx = torch.where(xlo, nx_ - margin,
+                       torch.where(xhi, margin, npos[:, 0]))
     ys = float(np.float32(y_shear))
     yshift = torch.where(xlo, -ys, torch.where(xhi, ys, 0.0))
     newy = torch.remainder(npos[:, 1] + ny_ + yshift, ny_)
-    newy = torch.minimum(torch.clamp_min(newy, 2.0 * EPS), ny_ - 2.0 * EPS)
+    newy = torch.minimum(torch.clamp_min(newy, margin), ny_ - margin)
     wpos = torch.stack([newx, newy, npos[:, 2]], 1)
     wp, wl, wi, wa = traverse.index_global_stack(grid, wpos)
     npos = torch.where(cont[:, None], wp, npos)

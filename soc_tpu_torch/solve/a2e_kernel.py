@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 launches = 0           # a2e_all_sizes launches made by solve_all_sizes
+align_launches = 0     # those of them with the align weights (PEMIT)
 clamp_launches = 0     # a2e_clamp launches made by solve_all_sizes_clamp
 _count_lock = threading.Lock()   # the counts may be added to from threads
 
@@ -316,6 +317,8 @@ def solve_all_sizes(stacks, absorbed, align=None):
         return solve_all_sizes_plain(stacks, absorbed, align)
     out = _launch("a2e_all_sizes", "w_fold", stacks, absorbed, align)
     _count("launches")
+    if align is not None:
+        _count("align_launches")
     return out
 
 

@@ -63,13 +63,16 @@ def cell_levels(grid):
 
 
 def temperature_lookup(table, absorbed_integrated, dens, lev, gl_pc_parsec,
-                       beta=1.0):
+                       beta=1.0, cr_heating=0.0):
     """Per-cell E->T lookup: TABS tally -> absorbed energy per H ->
-    log-grid interpolation of the TTT table."""
+    log-grid interpolation of the TTT table. cr_heating (`CR_HEATING`)
+    adds that multiple of the 1e-27 erg/s/H cosmic-ray rate to every
+    cell's absorbed energy (kernel_ASOC_aux.c:769-772)."""
     scale = (PLANCK * FACTOR) / gl_pc_parsec
     ein = (scale * absorbed_integrated
            * torch.exp2(3.0 * lev.to(torch.float32))
            / torch.clamp_min(dens, 1e-30)) / beta
+    ein = ein + 1.0e-27 * FACTOR * cr_heating
     oplgke = 1.0 / np.log10(table.ke)
     ie = torch.clamp(torch.floor(
         oplgke * torch.log10(torch.clamp_min(ein, 1e-37) / table.emin)),
@@ -84,14 +87,15 @@ def temperature_lookup(table, absorbed_integrated, dens, lev, gl_pc_parsec,
 
 
 def solve_temperature(grid, table, absorbed_integrated, gl_pc_parsec,
-                      beta=1.0):
+                      beta=1.0, cr_heating=0.0):
     """Per-cell equilibrium temperature from integrated absorbed energy.
 
     absorbed_integrated : [CELLS] the TABS tally; gl_pc_parsec : GL*PARSEC
     in cm. Empty and parent cells get T=10; the rest are clamped to
     [3, 1600] K."""
     return temperature_lookup(table, absorbed_integrated, grid.dens,
-                              cell_levels(grid), gl_pc_parsec, beta=beta)
+                              cell_levels(grid), gl_pc_parsec, beta=beta,
+                              cr_heating=cr_heating)
 
 
 def emission(freq, abs_gl, temperature, gl_pc_parsec):

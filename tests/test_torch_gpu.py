@@ -904,3 +904,113 @@ def test_renderers_on_card_match_cpu(cuda):
             else:
                 np.testing.assert_allclose(g, c, rtol=0, atol=1e-5 * peak,
                                            err_msg=name)
+
+
+def _pol_renders(dev):
+    """Every polarization render of the octree (render/polarization.py)
+    with a tangled field, |B| <= 1, and a `threshold`-like mask of the
+    root level."""
+    from soc_tpu_torch.render import mapping as m
+    from soc_tpu_torch.render import polarization as p
+    grid, emit, ext = _render_inputs(dev)
+    rng = np.random.default_rng(5)
+    b = np.asarray([0.1, 0.5, 0.2]) + rng.normal(0, 0.25, (grid.cells, 3))
+    b = torch.as_tensor((b / np.maximum(1.0, np.linalg.norm(b, axis=1))
+                         [:, None]).astype(np.float32), device=dev)
+    cell_w = (torch.arange(grid.cells, device=dev) >= 512).to(torch.float32)
+    odir, ra, de = m.observer_basis(np.radians(70.0), np.radians(10.0))
+    c, obs, npix = (4.0, 4.0, 4.0), (3.3, 4.1, 4.7), (12, 10)
+    out = {}
+    for name, kw in (("plain", {}), ("polred", dict(polred=True)),
+                     ("rho", dict(rho_weight=True)),
+                     ("window", dict(minlos=2.0, maxlos=6.5)),
+                     ("shear", dict(use_shear=True, y_shear=2.0,
+                                    maxlos=16.0))):
+        out["pol_" + name] = p.render_pol(grid, emit, ext, b, 0.2, odir, ra,
+                                          de, c, 0.5, npix, **kw)
+    for mode in (0, 1, 2, 3):
+        out["pol_hp%d" % mode] = p.render_pol_healpix(
+            grid, emit, ext, b, 0.2, obs, 4, interpolate=mode)
+    for name, w in (("stat", None), ("stat_w", cell_w)):
+        out[name] = p.render_polstat(grid, emit, ext, b, odir, ra, de, c,
+                                     0.5, npix, cell_w=w)
+    out["stat_hp"] = p.render_polstat_healpix(grid, emit, ext, b, obs, 4,
+                                              maxlos=5.0)
+    out["stat_hp_shear"] = p.render_polstat_healpix(
+        grid, emit, ext, b, obs, 4, use_shear=True, y_shear=2.0,
+        maxlos=16.0)
+    return {k: ({kk: t.cpu().numpy() for kk, t in v.items()}
+                if isinstance(v, dict) else [t.cpu().numpy() for t in v])
+            for k, v in out.items()}
+
+
+def test_polarization_renders_on_card_match_cpu(cuda):
+    """Every polarization render on the card against the CPU, at
+    tests/test_torch_polarization.py's tolerances: Stokes planes and
+    column densities 1e-5 of each plane's peak (for `interpolate 3` 0.5%
+    of the entries up to 1e-3, as test_renderers_on_card_match_cpu); rT
+    and jT 1e-4 rad on all but 1% of the pixels; rI and jI as cos^2 at
+    1e-5, B, B_LOS, B_POS, tau and N at 1e-5 of the peak (under the mask
+    on all but 1% of the pixels, none beyond ten times that)."""
+    gpu, cpu = _pol_renders(cuda), _pol_renders(torch.device("cpu"))
+    for name in cpu:
+        if isinstance(cpu[name], dict):
+            masked = name == "stat_w"
+            for key, c in cpu[name].items():
+                g = gpu[name][key]
+                assert np.isfinite(g).all(), (name, key)
+                if key in ("rT", "jT"):
+                    assert (np.abs(g - c) > 1e-4).mean() <= 0.01, (name, key)
+                    continue
+                if key in ("rI", "jI"):
+                    g, c = np.cos(g) ** 2, np.cos(c) ** 2
+                    tol = 1e-5
+                else:
+                    tol = 1e-5 * max(np.abs(c).max(), 1e-30)
+                assert (np.abs(g - c) > tol).mean() <= \
+                    (0.01 if masked else 0.0), (name, key)
+                np.testing.assert_allclose(g, c, rtol=0, atol=10 * tol,
+                                           err_msg="%s %s" % (name, key))
+            continue
+        for k, (g, c) in enumerate(zip(gpu[name], cpu[name])):
+            assert np.isfinite(g).all(), name
+            for gp, cp in (zip(g, c) if k < 3 else [(g, c)]):
+                peak = max(np.abs(cp).max(), 1e-30)
+                if name == "pol_hp3":
+                    assert (np.abs(gp - cp) > 1e-5 * peak).mean() <= 0.005
+                    np.testing.assert_allclose(gp, cp, rtol=0,
+                                               atol=1e-3 * peak)
+                else:
+                    np.testing.assert_allclose(gp, cp, rtol=0,
+                                               atol=1e-5 * peak,
+                                               err_msg="%s %d" % (name, k))
+
+
+def test_pipeline_polarisation_on_card(cuda, tmp_path):
+    """The `pipeline` verb with `polarisation` and `polmap` on a 16^3
+    cloud (4,096 cells): a2e_all_sizes launched once a card, with the
+    align weights; PEMITTED within REL_TOL of the plain twin's polarised
+    sum over the same absorptions, <emitted>.P equal to it, at most
+    EMITTED; the polarization map finite."""
+    from soc_tpu_torch.io.fields import read_cell_frequency_array
+    from soc_tpu_torch.solve.solver_file import read_solver
+    ini = write_model(str(tmp_path), 16, kind="gset", nfreq=16, nsize=6,
+                      bfield="tangled", polarisation=True,
+                      extra="nenumber 32\npolmap Bx.bin By.bin Bz.bin\n")
+    n0, a0 = a2e_kernel.launches, a2e_kernel.align_launches
+    res_rt, emitted, res_map = full.run_pipeline(ini, device=cuda,
+                                                 lanes=1 << 12)
+    ncard = torch.cuda.device_count()
+    assert (a2e_kernel.launches - n0, a2e_kernel.align_launches - a0) == \
+        (ncard, ncard)
+    pem = res_map.pemitted
+    assert pem.shape == (4096, 16) and np.isfinite(pem).all()
+    np.testing.assert_array_equal(
+        read_cell_frequency_array(str(tmp_path / "emitted.data.P")), pem)
+    assert (pem <= emitted * (1 + 1e-5)).all() and pem.max() > 0
+    sol = read_solver(str(tmp_path / "gs_TST.solver"))
+    aalg = np.fromfile(str(tmp_path / "aalg.bin"), np.float32)[1:]
+    _, ref = stochastic.solve_emission(sol, res_rt.absorbed,
+                                       torch.device("cpu"), aalg=aalg)
+    assert _max_rel(torch.as_tensor(pem), torch.as_tensor(ref)) < REL_TOL
+    assert np.isfinite(res_map.maps[("pol", 0)][0]).all()

@@ -99,8 +99,8 @@ def test_cli_rt_on_cpu_and_verbs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,name", [
-    ("polstat 1\n", "polstat"),
-    ("Bfiles bx.bin by.bin bz.bin\n", "polmap / polstat"),
+    ("libmaps 100.0 250.0\n", "libmaps"),
+    ("library x.lib\n", "library"),
     ("libabs 100.0 250.0\n", "libabs"), ("nnmake x.nn\n", "nnmake"),
     ("absthin 4\n", "absthin"), ("hpbg sky.bin\ndevices 2\n", "hpbg"),
     ("mirror xX\ndevices 2\n", "mirror"),
@@ -112,7 +112,8 @@ def test_cli_rt_on_cpu_and_verbs(tmp_path, capsys):
     ("stepweight 1 0.5\ndevices 2\n", "stepweight"),
     ("split 8\ndevices 2\n", "split"),
     ("checkpoint c.ckpt\n", "checkpoint"), ("nnsolve x\n", "nnsolve"),
-    ("CR_HEATING 1\n", "CR_HEATING"), ("polmap 1\n", "polmap"),
+    ("nnsolve x\nnnabs 100.0 250.0\n", "nnsolve"),
+    ("checkpoint c.ckpt\ndevices 2\n", "checkpoint"),
     ("mmapabs\ndevices 2\n", "mmapabs"), ("domains 2\n", "domains")])
 def test_unsupported_keywords_raise(tmp_path, extra, name):
     ini = write_model(str(tmp_path), 4, kind="eqdust", nfreq=6, extra=extra)
