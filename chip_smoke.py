@@ -110,14 +110,19 @@ Phases (any failure exits non-zero before the final line):
      against phase 10 (a)'s split-free background (the same packets'
      streams) within five times the spread of 64 cell groups'
      differences; (b) the `pipeline` verb with the GSET dust (phase 4's
-     .solver reused): the split background, the weighted Healpix sky
+     .solver reused) at a quarter of `bgpackets` (one batch of the
+     background, 8,650,752 packets, and 249,999 a channel of the sky: its
+     gates hold for any count, and the cut keeps the smoke under 800 s
+     with phase 15): the split background, the weighted Healpix sky
      (`hpbgw`), a diffuse field and `saveint 2`: the balance per
      channel, the (I, Ix, Iy, Iz) intensity file finite with I equal to
      the absorbed file times PLANCK f gl_cm / (ABS_f FACTOR) (1e-5
      relative), the parents' emission zero, one A2E launch a card, then
      a2e_all_sizes on these absorptions against its plain twin, timed;
      (c) the `rt` verb with two dusts and `abundance` (MSF on, one
-     scattering function a dust), `simum` selecting about half of the
+     scattering function a dust) at half of `bgpackets` (three batches of
+     the background, cut with (b) to keep the smoke under 800 s), `simum`
+     selecting about half of the
      channels, without and with `optishalf`: the masked channels absorb
      nothing, the balance per selected channel, and the temperatures of
      the two runs within 1% (bfloat16 keeps 8 bits)
@@ -143,8 +148,11 @@ Phases (any failure exits non-zero before the final line):
      variance at these packets), their mean |relative difference| within
      2e-2, each level's signed mean within 1e-3, 3e-3 and 3e-2 (levels
      0-2), each lit channel's absorption over the leaf cells within 1%
-     (bounds from profile_phase13's seed-to-seed readings); (c2) `rt` with `mirror xyz` (the three low faces, an octant of
-     a symmetric cloud): the balance per channel within 0.5%, absorbed at
+     (bounds from profile_phase13's seed-to-seed readings); (c2) `rt`
+     with `mirror xyz` (the three low faces, an octant of a symmetric
+     cloud) at a quarter of `bgpackets` (one batch of the background, a
+     fifth of (a)'s packets; cut with 12 (b) and (c) to keep the smoke
+     under 800 s): the balance per channel within 0.5%, absorbed at
      least (a)'s in every channel; (d) from (a)'s temperatures (loadtemp):
      the orthographic map from theta 70 deg with FITS, `savetau` at 100
      and 850 um and column density and `pssavetau` for phase 12's point
@@ -184,11 +192,42 @@ Phases (any failure exits non-zero before the final line):
      (a)'s by more than 1e-4 (phase 4's rerun bound), the coldest decile's
      mean raised; each run's seconds, each render's seconds, rays and
      steps
+ 15. scattered light (the `sca` verb, cli.main) on BASELINE config 4's
+     model, phase 10's octree with the equilibrium dust, `ffs 1`: (a) the
+     isotropic background (one batch, 196,608 packets a channel), phase
+     12's two point sources (20,000 packets each a channel) and the
+     Healpix sky (NSIDE 16, 50,000 a channel) over `simum 0.1 3.0` (15
+     channels), three directions, 64x64 maps, each source one mixed pool;
+     the background on two channels as one mixed pool, as a pool a
+     channel (soc_tpu's schedule) and under `devices 2` on this card, the
+     last two held to the first (phase 9's rerun bound, and 2e-4); the
+     three pools' seconds printed; a thin uniform 64^3
+     cloud: the single-scattering normalisation within 4%; (b) the
+     internal observer at the centre (`outnside 64`): the background and
+     the diffuse field (one packet a cell) over 4 channels; (c) two dusts
+     with abundances (WITH_MSF), one direction, `fits 1`, 5 channels; (d)
+     the cell emission of phase 14 (a)'s emitted file, one packet a cell,
+     `simum 3 200` (17 channels), with `ffs 1` and `ffs 0`: with FFS every
+     packet gives an event, and the thin channels' flux (scattering depth
+     below 0.1 across the cloud) is at least the ffs 0 run's less five of
+     that run's standard errors (sqrt(2 / its events): the two estimate
+     the same flux, FFS with far less variance); (e) both A2E kernels'
+     global-memory form beyond the shared form's ceiling, NE 1856 at
+     NFREQ 44 and NFREQ 1088 at NE 256, one size of seeded stacks
+     (example_model.seeded_a2e_stacks), 512 cells, the align weights:
+     launched through the wrappers, then held to the plain twin (REL_TOL)
+     and timed (the kernel the mean of 3 calls after a warm-up, the twin
+     one call). Every map finite and non-negative, outcoming.socs read back
+     (header, frequencies, maps), the FITS cube read back bit for bit,
+     every event peeled toward every observer (none dropped); each source
+     pass's seconds, packets, events, transport and peel-off lane steps
 The kernels line gives each kernel's launches on its path (phase 4 for the
 A2E kernel, and under octree_* its launches, time, plain time and bound
 on phase 11's octree, under sources_* on phase 12 (b)'s, under pol_* on
 phase 14 (a)'s with the align weights; 6 for the clamp kernel, 7 for the probes, 9 for the
-sharded A2E, whose other numbers phase 8 takes over the same six shards),
+sharded A2E, whose other numbers phase 8 takes over the same six shards;
+15 (e) for the two kernels' global-memory forms, a2e_all_sizes_global and
+a2e_clamp_global, at NE 1856 and under nf1088_* at NFREQ 1088),
 its time, its plain version's, its library call's where one exists, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s (an H100 SXM's published peaks). The
@@ -265,6 +304,18 @@ HP_NSIDE = 64           # phases 13 (d), 14 (b): the all-sky maps' resolution
 POL_RTOL = 1e-5         # phase 14: the formulas' bounds, relative slack
 POL_CHECK_CELLS = 16384  # phase 14 (a): PEMITTED against the plain twin
 HIER_TOL = 1e-5         # (d) the MAP_HIER planes summed, of the peak
+# phase 15: scattered light on the octree (BASELINE config 4)
+SCA_SIMUM = (0.1, 3.0)      # (a): 15 channels, 0.10-2.87 um
+SCA_SIMUM_2 = (0.2, 0.3)    # (a) on 2 channels (0.21, 0.26 um): the pools
+SCA_SIMUM_B = (1.2, 3.0)    # (b): 4 channels
+SCA_SIMUM_C = (0.3, 1.0)    # (c): 5 channels
+SCA_SIMUM_D = (3.0, 200.0)  # (d): 17 channels, 3.6-169 um
+SCA_BGPACKETS = 50000       # the sky's packets a channel; the background
+                            # sends its one batch, 8 AREA = 196,608
+SCA_PSPACKETS = 20000       # (a): packets a point source and channel
+SCA_DIRS = ((0.0, 0.0), (70.0, 30.0), (120.0, -45.0))   # (a): degrees
+A2E_BEYOND = ((44, 1856), (1088, 256))   # (e): (NFREQ, NE), beyond both
+                                         # kernels' shared forms
 SOURCES = ("a2e", "probe_gather", "probe_scatter", "probe_onehot")
 PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
     "probe_gather": ("soc_tpu_torch/csrc/probe_gather.cu",
@@ -1240,10 +1291,15 @@ def sources_phase(dev, work, args, report, plain_bg):
     # (b) the pipeline with the split background, the weighted sky, a
     # diffuse field and saveint 2
     sub = os.path.join(work, "sources_pipeline")
+    # a fifth of the background's packets and a quarter of the sky's:
+    # the gates (balance, the intensity identity, the parents, the A2E
+    # launch) hold for any count, and the cut keeps the smoke under 800 s
+    # now that phase 15 runs
     ini = write_model(sub, N, kind="gset", nfreq=44, nsize=24,
                       hpbg=SKY_NSIDE, hpbg_weighted=True,
                       diffuse=DIFFUSE_SHARE, dfpackets=2 * OCTREE_CELLS,
-                      split=SPLIT, saveint=2, **common)
+                      split=SPLIT, saveint=2,
+                      **dict(common, bgpac=args.bgpackets // 4))
     shutil.copy(os.path.join(work, "gs_TST.solver"), sub)
     results = {}
     a2e_kernel.launches = a2e_kernel.clamp_launches = 0
@@ -1331,12 +1387,16 @@ def sources_phase(dev, work, args, report, plain_bg):
         passes={k: (v["packets"], v["seconds"], v["clones"])
                 for k, v in passes.items()})
 
-    # (c) two dusts with per-cell abundances and MSF, half the channels
+    # (c) two dusts with per-cell abundances and MSF, half the channels, at
+    # three batches of the background (three fifths of the packets): both
+    # runs trace the same packets, so their 1% bound holds with room (2.8e-3
+    # at five batches), and the cut keeps the smoke under 800 s
     temps = {}
     for half in (False, True):
         d = os.path.join(work, "sources_abu_%d" % half)
         ini = write_model(d, N, kind="eqdust", nfreq=44, abundance=True,
-                          simum=SIMUM, optishalf=half, **common)
+                          simum=SIMUM, optishalf=half,
+                          **dict(common, bgpac=args.bgpackets // 2))
         results = {}
         t0 = time.time()
         rc = cli.main(["rt", ini, "--device", str(dev)], results)
@@ -1559,9 +1619,14 @@ def slice_phase(dev, work, args, report, plain_bg=None):
         fail("phase 13: (c1) the weighted run split, or it is biased or "
              "scattered against (a)")
 
-    # (c2) mirrored low faces: an octant of a symmetric cloud
-    res_r, wall = _rt(dev, _variant(base, "c2", add="mirror %s\n" % MIRROR),
-                      "c2", card)
+    # (c2) mirrored low faces: an octant of a symmetric cloud, one batch of
+    # the background (a fifth of (a)'s packets, the same injected weight):
+    # the mirrors add 4-74% a channel, far above the sampling noise, and
+    # the cut keeps the smoke under 800 s with phase 15
+    one_batch = (("bgpackets       %d" % args.bgpackets,
+                  "bgpackets       %d" % (args.bgpackets // 4)),)
+    res_r, wall = _rt(dev, _variant(base, "c2", subs=one_batch,
+                                    add="mirror %s\n" % MIRROR), "c2", card)
     out["c2"] = wall
     source_balance("c2", res_r, card, "phase 13")
     more = res_r.absorbed_photons / res_a.absorbed_photons
@@ -1983,6 +2048,316 @@ def polarization_phase(dev, work, args, report, plain_a):
     out["c"] = time.time() - t0
 
 
+def _sca_check(tag, maps, passes, ndir, card):
+    """Phase 15's gates on one `sca` run: every map finite and
+    non-negative with light in it, every source pass's events all peeled
+    (rays = events x observers: none dropped); prints each pass's seconds,
+    packets, events and the lane steps of the transport and of the
+    peel-off."""
+    if not (np.isfinite(maps).all() and (maps >= 0).all()
+            and maps.max() > 0):
+        fail("phase 15: (%s) the maps are not finite and non-negative with "
+             "a positive peak" % tag)
+    for p in passes:
+        print("phase 15: (%s) %s: %d channels, %d pool(s), %d packets, "
+              "%.2f s (%.0f packets/s), %d events, %d peel-off rays, %d "
+              "transport lane steps (%d bodies), %d peel-off lane steps "
+              "(%d bodies) [%s]"
+              % (tag, p["source"], p["channels"], p["pools"], p["packets"],
+                 p["seconds"], p["packets"] / max(p["seconds"], 1e-9),
+                 p["events"], p["rays"], p["lane_steps"], p["sca_iters"],
+                 p["peel_lane_steps"], p["peel_iters"], card), flush=True)
+        if p["rays"] != p["events"] * ndir or p["events"] < 1:
+            fail("phase 15: (%s) %s: %d rays for %d events x %d observers"
+                 % (tag, p["source"], p["rays"], p["events"], ndir))
+
+
+def _sca_verb(dev, ini, tag, card):
+    """The `sca` verb (cli.main) on ini: (maps, source passes, wall s)."""
+    import torch
+    from soc_tpu_torch import cli
+    results = {}
+    t0 = time.time()
+    rc = cli.main(["sca", ini, "--device", str(dev)], results)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if rc != 0:
+        fail("phase 15: (%s) sca verb returned %d" % (tag, rc))
+    print("phase 15: (%s) sca verb %.2f s, maps %s [%s]"
+          % (tag, wall, results["sca"].shape, card), flush=True)
+    return results["sca"], results["sca_passes"], wall
+
+
+def _sca_container(d, maps, head):
+    """outcoming.socs read back: its int32 header, its frequencies (the
+    dust file's) and its maps, equal to the returned array."""
+    from soc_tpu_torch.io.dust import read_simple_dust
+    raw = np.fromfile(os.path.join(d, "outcoming.socs"), np.uint8)
+    nh = 4 * len(head)
+    got = raw[:nh].view(np.int32).tolist()
+    ffreq = raw[nh:nh + 4 * 44].view(np.float32)
+    body = raw[nh + 4 * 44:].view(np.float32)
+    freq = read_simple_dust(os.path.join(d, "tst.dust"), 0.01).freq
+    if got != list(head) or not np.array_equal(
+            ffreq, np.asarray(freq, np.float32)) \
+            or not np.array_equal(body, maps.reshape(-1)):
+        fail("phase 15: %s/outcoming.socs does not read back (header %s)"
+             % (os.path.basename(d), got))
+
+
+def _within(got, ref, rtol, atol_share):
+    """max |got - ref| beyond rtol |ref| + atol_share max|ref| (0 when
+    within)."""
+    excess = np.abs(got - ref) - (rtol * np.abs(ref)
+                                  + atol_share * np.abs(ref).max())
+    return float(max(excess.max(), 0.0))
+
+
+def _beyond_ceiling(dev, report):
+    """Phase 15 (e): both A2E kernels' global form beyond the shared
+    form's ceiling, on seeded stacks of one size and 512 cells with the
+    align weights (example_model.seeded_a2e_stacks): the solve through the
+    wrappers with the counts zeroed (the global form must launch), then
+    against the plain twin at REL_TOL and timed."""
+    import torch
+    from soc_tpu_torch.example_model import (seeded_a2e_stacks,
+                                             with_negative_entries)
+    from soc_tpu_torch.solve import a2e_kernel
+    card = report["card"]
+    lib = a2e_kernel._lib()
+    for kernel, name in (("fold", "a2e_all_sizes_global"),
+                         ("clamp", "a2e_clamp_global")):
+        clamp = kernel == "clamp"
+        solve = a2e_kernel.solve_all_sizes_clamp if clamp \
+            else a2e_kernel.solve_all_sizes
+        pick = a2e_kernel.pick_clamp_config if clamp \
+            else a2e_kernel.pick_fold_config
+        count = "clamp_global_launches" if clamp else "global_launches"
+        entry = report[name] = dict(library_ms=None)
+        cases = []
+        for nf, ne in A2E_BEYOND:
+            stacks, ab = seeded_a2e_stacks(ne + nf, ne, nf, dev, clamp=clamp,
+                                           negate=clamp)
+            rng = np.random.default_rng(ne + nf)
+            if clamp:
+                ab = with_negative_entries(rng, ab)
+            ab = torch.as_tensor(ab, device=dev)
+            align = torch.as_tensor(rng.uniform(0, 1, (1, ab.shape[0]))
+                                    .astype(np.float32), device=dev)
+            cases.append((nf, ne, stacks, ab, align,
+                          pick(lib, nf, ne, dev.index or 0)))
+        # the path: the wrappers the solve calls, counts zeroed
+        setattr(a2e_kernel, count, 0)
+        for nf, ne, stacks, ab, align, config in cases:
+            solve(stacks, ab, align)
+        torch.cuda.synchronize()
+        launches = getattr(a2e_kernel, count)
+        if launches != len(cases) or any(c[5].form != "global"
+                                         for c in cases):
+            fail("phase 15: (e) %s: %d global-form launches for %d shapes "
+                 "beyond the ceiling" % (name, launches, len(cases)))
+        entry["launches"] = launches
+        for k, (nf, ne, stacks, ab, align, config) in enumerate(cases):
+            ms_k, (tot_k, ptot_k) = timed(lambda: solve(stacks, ab, align), 3)
+            # the plain twin once, no warm-up: it runs its solve after the
+            # kernel's on the same stacks (1.5-2.2 s a call at NE 1856)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            tot_p, ptot_p = a2e_kernel.solve_all_sizes_plain(stacks, ab,
+                                                             align, batch=64)
+            e1.record()
+            torch.cuda.synchronize()
+            ms_p = e0.elapsed_time(e1)
+            rel = max(max_rel(tot_k, tot_p), max_rel(ptot_k, ptot_p))
+            abs_err = float(torch.abs(tot_k - tot_p).max())
+            b_ms, b_by = bound(*a2e_work(ab.shape[0], 1, ne, nf, clamp,
+                                         True))
+            print("phase 15: (e) %s at NE %d, NFREQ %d (%d cells, one "
+                  "size, align): global form, %d cells a block, staged run "
+                  "%d, %d warps per SM; kernel %.2f ms, plain %.2f ms, "
+                  "bound %.3f ms (%s); max rel err %.3e, max abs err %.3e "
+                  "[%s]" % (name, ne, nf, ab.shape[0], config.tile,
+                            config.run, config[2], ms_k, ms_p, b_ms, b_by,
+                            rel, abs_err, card), flush=True)
+            if not rel <= REL_TOL:
+                fail("phase 15: (e) %s at NE %d, NFREQ %d differs from the "
+                     "plain twin (%.3e)" % (name, ne, nf, rel))
+            pre = "" if k == 0 else "nf%d_" % nf
+            entry.update({pre + "ms": ms_k, pre + "plain_ms": ms_p,
+                          pre + "bound_ms": b_ms, pre + "bound_by": b_by,
+                          pre + "max_abs_err": abs_err})
+
+
+def scattering_phase(dev, work, args, report):
+    """Phase 15: scattered light (the `sca` verb) on BASELINE config 4's
+    model, phase 10's octree, and the A2E kernels beyond their shared-form
+    ceiling (see the module docstring)."""
+    import torch
+    from soc_tpu_torch.example_model import write_sca_model
+    from soc_tpu_torch.grid import uniform_grid
+    from soc_tpu_torch.io.dust import hg_scattering_function
+    from soc_tpu_torch.io.fits import read_fits_image
+    from soc_tpu_torch.pipeline import scattering
+    from soc_tpu_torch.render import scattered
+    from soc_tpu_torch.render.mapping import observer_basis
+    card = report["card"]
+    out = report["sca"] = {}
+    common = dict(nfreq=44, npix=64, map_dx=N / 64.0, octree=OCTREE)
+
+    def model(tag, subs=(), **kw):
+        d = os.path.join(work, "sca_" + tag)
+        ini = write_sca_model(d, N, **common, **kw)
+        with open(ini) as fp:
+            text = fp.read()
+        for old, new in subs:
+            text = text.replace(old, new)
+        with open(ini, "w") as fp:
+            fp.write(text)
+        return d, ini
+
+    # (a) config 4: the background, two point sources and the sky, ffs 1,
+    # three directions
+    t0 = time.time()
+    dirs = (("directions      0.0 0.0",
+             "directions      " + " ".join("%r %r" % v for v in SCA_DIRS)),)
+    src = dict(bgpac=SCA_BGPACKETS, point_sources=POINT_SOURCES,
+               pspackets=SCA_PSPACKETS, hpbg=SKY_NSIDE, ffs=1)
+    d, ini = model("a", dirs, simum=SCA_SIMUM, **src)
+    maps, passes, wall = _sca_verb(dev, ini, "a", card)
+    _sca_check("a", maps, passes, len(SCA_DIRS), card)
+    if maps.shape != (44, len(SCA_DIRS), 64, 64) \
+            or sorted(p["source"] for p in passes) \
+            != ["sca_bg", "sca_hpbg", "sca_ps"]:
+        fail("phase 15: (a) maps %s, sources %s" % (
+            maps.shape, [p["source"] for p in passes]))
+    _sca_container(d, maps, (64, 64, 44))
+    lit = np.nonzero(maps.reshape(44, -1).max(1) > 0)[0]
+    print("phase 15: (a) %d channels lit (%s) [%s]"
+          % (len(lit), lit.tolist(), card), flush=True)
+    out["a"] = wall
+
+    # (a)'s background on two channels: the mixed pool, a pool a channel,
+    # devices 2 (the background alone: its pools' cost is what this
+    # measures, and the three runs of all three sources took 133 s)
+    d2, ini2 = model("a2", dirs, simum=SCA_SIMUM_2, bgpac=SCA_BGPACKETS,
+                     ffs=1)
+    times = {}
+    runs = {}
+    for how, kw in (("mixed", {}), ("channel", dict(per_channel=True)),
+                    ("devices 2", dict(devices=[dev, dev]))):
+        ps2 = []
+        t1 = time.time()
+        runs[how] = scattering.run(ini2, device=dev, passes=ps2, **kw)
+        torch.cuda.synchronize()
+        times[how] = time.time() - t1
+        _sca_check("a, 2 channels, " + how, runs[how], ps2, len(SCA_DIRS),
+                   card)
+    ex_ch = _within(runs["channel"], runs["mixed"], PRODUCT_RTOL,
+                    PRODUCT_ATOL)
+    ex_dev = _within(runs["devices 2"], runs["mixed"], 2e-4, 1e-6)
+    print("phase 15: (a) 2 channels: one mixed pool a source %.2f s, a pool "
+          "a channel and source %.2f s, devices 2 on this card %.2f s; a "
+          "pool a channel against the mixed pool: excess over 1e-4 "
+          "relative or 1e-6 of the peak %.3e; devices 2 over 2e-4: %.3e "
+          "[%s]" % (times["mixed"], times["channel"], times["devices 2"],
+                    ex_ch, ex_dev, card), flush=True)
+    if ex_ch > 0 or ex_dev > 0:
+        fail("phase 15: (a) the pools a channel or devices 2 differ from "
+             "the mixed pool")
+    out["a_2ch"] = sum(times.values())
+
+    # a thin uniform cloud: single-scattering normalisation (soc_tpu's
+    # tests/test_scattered.py), on the card at 64^3
+    t1 = time.time()
+    grid = uniform_grid(N, N, N, dev, 1.0)
+    dsc, csc = hg_scattering_function([0.0], 256)
+    ksca = 2.0e-3 * 8 / N
+    phys = dict(kabs=torch.zeros(1, device=dev),
+                ksca=torch.full((1,), ksca, device=dev),
+                csc=torch.as_tensor(csc, device=dev),
+                dsc=torch.as_tensor(dsc, device=dev))
+    n = 8 * int(grid.area)
+    odir, ra, de = observer_basis(0.0, 0.0)
+    thin, st = scattered.simulate_scattering(
+        grid, phys, dict(photons=torch.ones(1, device=dev), ifreq=0,
+                         per_freq=n, hi_base=0), n, odir, ra, de,
+        (N / 2,) * 3, 1.0, (N + 16, N + 16), 5, nlanes=1 << 18,
+        return_stats=True)
+    got = float(thin.sum())
+    expect = n * ksca * 4.0 * N ** 3 / (6 * N ** 2) / (4.0 * np.pi)
+    print("phase 15: thin %d^3 cloud, %d packets: peel-off sum %.6e against "
+          "the single-scattering %.6e (%.4f), %d events, %.2f s [%s]"
+          % (N, n, got, expect, got / expect, st["events"], time.time() - t1,
+             card), flush=True)
+    if not abs(got / expect - 1) < 0.04:
+        fail("phase 15: the thin cloud's single-scattering normalisation is "
+             "off by %.4f" % (got / expect - 1))
+
+    # (b) the internal observer at the centre: background + diffuse field
+    d, ini = model("b", simum=SCA_SIMUM_B, bgpac=SCA_BGPACKETS,
+                   intobs=(N / 2,) * 3, outnside=HP_NSIDE,
+                   diffuse=DIFFUSE_SHARE, dfpackets=OCTREE_CELLS)
+    maps, passes, out["b"] = _sca_verb(dev, ini, "b", card)
+    _sca_check("b", maps, passes, 1, card)
+    if maps.shape != (44, 12 * HP_NSIDE ** 2) \
+            or [p["source"] for p in passes] != ["sca_bg", "diffuse"]:
+        fail("phase 15: (b) maps %s" % (maps.shape,))
+    _sca_container(d, maps, (HP_NSIDE, 44))
+
+    # (c) two dusts with abundances (MSF), one direction, FITS
+    d, ini = model("c", simum=SCA_SIMUM_C, bgpac=SCA_BGPACKETS,
+                   abundance=True, fits=True)
+    maps, passes, out["c"] = _sca_verb(dev, ini, "c", card)
+    _sca_check("c", maps, passes, 1, card)
+    data, _ = read_fits_image(os.path.join(d, "scattering.fits"))
+    if os.path.exists(os.path.join(d, "outcoming.socs")) \
+            or not np.array_equal(data, maps[:, 0]):
+        fail("phase 15: (c) scattering.fits does not read back as the "
+             "returned maps")
+
+    # (d) cell emission from phase 14 (a)'s emitted file, FFS on and off
+    emitted = os.path.join(work, "pol", "emitted.data")
+    d, ini = model("d", simum=SCA_SIMUM_D, bgpac=0,
+                   cellpackets=OCTREE_CELLS, ffs=1)
+    shutil.copy(emitted, d)
+    ini0 = os.path.join(d, "ffs0.ini")
+    with open(ini) as fp:
+        text = fp.read()
+    with open(ini0, "w") as fp:
+        fp.write(text.replace("ffs             1", "ffs             0"))
+    flux = {}
+    for tag, path in (("d, ffs 1", ini), ("d, ffs 0", ini0)):
+        maps, passes, wall = _sca_verb(dev, path, tag, card)
+        _sca_check(tag, maps, passes, 1, card)
+        out[tag] = wall
+        flux[tag] = (maps.reshape(44, -1).sum(1, dtype=np.float64),
+                     passes[0])
+    (f1, p1), (f0, p0) = flux["d, ffs 1"], flux["d, ffs 0"]
+    # the thin channels: scattering depth below 0.1 across the cloud
+    from soc_tpu_torch.io.dust import read_simple_dust
+    dust = read_simple_dust(os.path.join(d, "tst.dust"), 0.01)
+    sel = np.nonzero((f0 > 0) | (f1 > 0))[0]
+    thin_ch = [i for i in sel if dust.sca_gl[i] * 3.0e4 * N < 0.1]
+    slack = 5.0 * np.sqrt(2.0 / max(p0["events"], 1))
+    ratio = f1[thin_ch].sum() / max(f0[thin_ch].sum(), 1e-300)
+    print("phase 15: (d) thin channels %s: flux with FFS / without %.4f "
+          "(bound 1 - %.4f: five of the ffs 0 run's standard errors); "
+          "events %d with FFS for %d packets, %d without [%s]"
+          % ([int(i) for i in thin_ch], ratio, slack, p1["events"],
+             p1["packets"],
+             p0["events"], card), flush=True)
+    if not thin_ch or not (f1[thin_ch] > 0).all() or ratio < 1.0 - slack \
+            or p1["events"] < 0.99 * p1["packets"]:
+        fail("phase 15: (d) FFS lost flux or packets in the thin channels")
+
+    # (e) A1: the A2E kernels beyond the shared form's ceiling
+    t1 = time.time()
+    _beyond_ceiling(dev, report)
+    out["e"] = time.time() - t1
+    out["total"] = time.time() - t0
+
+
 def probes_phase(dev, report):
     """Phase 7: the three probe modules, each row through its kernel."""
     import torch
@@ -2174,15 +2549,20 @@ def main():
         slice_phase(dev, work, args, report, plain["a"])
         t4 = time.time()
         polarization_phase(dev, work, args, report, plain["a"])
+        t5 = time.time()
+        scattering_phase(dev, work, args, report)
         print("phase 10: %.2f s; phase 11: %.2f s; phase 12: %.2f s; phase "
-              "13: %.2f s (%s); phase 14: %.2f s (%s); the smoke so far "
-              "%.2f s"
+              "13: %.2f s (%s); phase 14: %.2f s (%s); phase 15: %.2f s "
+              "(%s); the smoke so far %.2f s"
               % (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["slice"].items()),
-                 time.time() - t4,
+                 t5 - t4,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["pol"].items()),
+                 time.time() - t5,
+                 ", ".join("%s %.2f s" % kv
+                           for kv in report["sca"].items()),
                  time.time() - T_START), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2192,15 +2572,26 @@ def main():
         a2e_clamp=("soc_tpu_torch/csrc/a2e.cu",
                    "soc_tpu/solve/stochastic.py:100 (exact path, XLA)"),
         a2e_sharded=("soc_tpu_torch/csrc/a2e.cu",
-                     "soc_tpu/solve/pallas_a2e.py:193"))
-    order = ["a2e_all_sizes", "a2e_clamp", *PROBE_KERNELS, "a2e_sharded"]
+                     "soc_tpu/solve/pallas_a2e.py:193"),
+        a2e_all_sizes_global=(
+            "soc_tpu_torch/csrc/a2e.cu",
+            "soc_tpu/solve/pallas_a2e.py:111 (beyond the shared form's "
+            "ceiling)"),
+        a2e_clamp_global=(
+            "soc_tpu_torch/csrc/a2e.cu",
+            "soc_tpu/solve/stochastic.py:100 (exact path, XLA; beyond the "
+            "shared form's ceiling)"))
+    order = ["a2e_all_sizes", "a2e_clamp", *PROBE_KERNELS, "a2e_sharded",
+             "a2e_all_sizes_global", "a2e_clamp_global"]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     extra = ("shards", "octree_launches", "octree_ms", "octree_plain_ms",
              "octree_bound_ms", "octree_max_abs_err", "sources_launches",
              "sources_ms", "sources_plain_ms", "sources_bound_ms",
              "sources_max_abs_err", "pol_launches", "pol_ms",
-             "pol_plain_ms", "pol_bound_ms", "pol_max_abs_err")
+             "pol_plain_ms", "pol_bound_ms", "pol_max_abs_err",
+             "nf1088_ms", "nf1088_plain_ms", "nf1088_bound_ms",
+             "nf1088_bound_by", "nf1088_max_abs_err")
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=sources[name][0],
         replaces=sources[name][1],

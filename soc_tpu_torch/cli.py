@@ -4,24 +4,28 @@
                                         ~  ASOC.py soc.ini
   python -m soc_tpu_torch pipeline soc.ini [--device D] [--lanes N]
                                         ~  ASOC_driver.py soc.ini
+  python -m soc_tpu_torch sca soc.ini [--device D] [--lanes N]
+                                        ~  ASOCS.py soc.ini
 
 --device is a torch device name (default 'cuda'); pass '--device cpu' to
-run on the CPU. The ini keyword `devices N` runs the product path over N
-devices (cuda:0 .. cuda:N-1, or the CPU N times with '--device cpu').
-soc_tpu's other verbs (sca, a2e_pre, a2e, eqsolve, a2e_lib, mabu, dust,
-bench, sampleini) are not ported yet: see ROADMAP.md.
+run on the CPU. The ini keyword `devices N` runs the product path (for
+`sca`, each source's packets split) over N devices (cuda:0 .. cuda:N-1,
+or the CPU N times with '--device cpu'). `sca` writes outcoming.socs (or,
+with `fits 1`, <scattering>.fits). soc_tpu's other verbs (a2e_pre, a2e,
+eqsolve, a2e_lib, mabu, dust, bench, sampleini) are not ported yet: see
+ROADMAP.md.
 """
 
 import argparse
 import sys
 
-_VERBS_ITEM = "queue item 7 (surrogates, pipeline modes and the other verbs)"
+_HOST_VERBS = "'The host-only verbs on modules the port already has'"
+_SURROGATES = "'The surrogates and the pipeline modes'"
 _LATER = {
-    "sca": "queue item 6 (scattered light)",
-    "a2e_pre": _VERBS_ITEM, "a2e": _VERBS_ITEM, "eqsolve": _VERBS_ITEM,
-    "mabu": _VERBS_ITEM, "a2e_lib": _VERBS_ITEM, "dust": _VERBS_ITEM,
-    "sampleini": _VERBS_ITEM,
-    "bench": "the benchmark, " + _VERBS_ITEM,
+    "a2e_pre": _HOST_VERBS, "eqsolve": _HOST_VERBS, "mabu": _HOST_VERBS,
+    "dust": _HOST_VERBS, "sampleini": _HOST_VERBS,
+    "a2e": _SURROGATES, "a2e_lib": _SURROGATES,
+    "bench": "'The `bench` verb for the port'",
 }
 
 
@@ -38,7 +42,8 @@ def _parse(argv):
 def main(argv=None, results=None):
     """Run one verb; returns the exit code. ``results``, a dict if given,
     receives the verb's RunResult objects ('rt'; 'absorption', 'emitted'
-    and 'map' for the pipeline) for callers that check them."""
+    and 'map' for the pipeline; for `sca` the maps array 'sca' and its
+    source passes' stats 'sca_passes') for callers that check them."""
     argv = sys.argv[1:] if argv is None else list(argv)
     results = {} if results is None else results
     if not argv or argv[0] in ("-h", "--help"):
@@ -49,7 +54,7 @@ def main(argv=None, results=None):
               "use python -m soc_tpu %s" % (argv[0], _LATER[argv[0]],
                                             argv[0]), file=sys.stderr)
         return 2
-    if argv[0] not in ("rt", "pipeline"):
+    if argv[0] not in ("rt", "pipeline", "sca"):
         print(__doc__)
         return 1
     args = _parse(argv)
@@ -60,6 +65,14 @@ def main(argv=None, results=None):
         print("soc_tpu_torch: no CUDA device; pass --device cpu to run on "
               "the CPU", file=sys.stderr)
         return 2
+    if args.verb == "sca":
+        from .pipeline import scattering
+        passes = results["sca_passes"] = []
+        out = results["sca"] = scattering.run(
+            args.ini, device=device,
+            lanes=args.lanes or scattering.DEFAULT_LANES, passes=passes)
+        print("soc_tpu_torch sca done: outcoming.socs shape", out.shape)
+        return 0
     lanes = args.lanes or driver.DEFAULT_LANES
     if args.verb == "rt":
         if args.mode is not None:

@@ -86,9 +86,27 @@
 // alone). A
 // cell's sums run in one order whatever the tile, the run length and the
 // cell's place in the launch, so shards add up as one launch does.
+//
+// The global-memory form of both kernels (template argument G). The shared
+// form's ceiling is a cell's populations, 4 NE bytes a thread, and, beyond
+// one register chunk, its ABS, 4 NFP bytes a thread, in shared memory: at
+// tile 32 about NE 1790 at NFREQ 44 and NFREQ 1000 at NE 256 on an H100.
+// Beyond it (a2e_kernel._pick_config takes this form only where no tile
+// and run fit) the populations (the clamp kernel's slots) live in a scratch
+// [NE][CP] in device memory that the wrapper allocates, CP the cell count
+// rounded up to whole blocks, indexed l * CP + c so that a warp's reads
+// coalesce, and ABS is read from a transposed, zero-padded copy [NFP][CP]
+// (also coalesced; chosen over [C, NF], whose per-thread rows a warp reads
+// 4 NF bytes apart), one register chunk of at most 48 frequencies at a
+// time. Shared memory holds the two staging buffers alone, in runs that
+// shrink until both fit; where not even a run of 8 fits (NFREQ above about
+// 3200), a unit is a whole row (column) read through L2 without staging.
+// The arithmetic, and the order of every sum, is the shared form's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -96,25 +114,26 @@ constexpr int FOLD_THREADS = 128;  // the largest tile (cells per block)
 constexpr int FOLD_C4 = 12;        // float4 groups in a register chunk
 constexpr int FOLD_CH = 4 * FOLD_C4;
 
-// Normalises a cell's populations x (s_x[l * T + tid]) and adds size s's
+// Normalises a cell's populations x (xp[l * xs]) and adds size s's
 // emission EA x into tot (and align[s, c] times it into ptot), summing the
 // sizes in a fixed order: size 0 writes, the later ones add.
+template <typename I>
 __device__ __forceinline__ void emit_size(
-    float* s_x, int T, int tid, int64_t c, bool valid, int s,
+    float* xp, I xs, int64_t c, bool valid, int s,
     const float* __restrict__ ea, const float* __restrict__ align,
     float* __restrict__ tot, float* __restrict__ ptot, int nf, int ne,
     int ncells) {
   float sum = 0.0f;
-  for (int l = 0; l < ne; ++l) sum += s_x[l * T + tid];
+  for (int l = 0; l < ne; ++l) sum += xp[l * xs];
   const float denom = fmaxf(sum, 1.0e-35f);
-  for (int l = 0; l < ne; ++l) s_x[l * T + tid] = s_x[l * T + tid] / denom;
+  for (int l = 0; l < ne; ++l) xp[l * xs] = xp[l * xs] / denom;
   if (!valid) return;
   const float* E = ea + (int64_t)s * nf * ne;
   const float al = align ? align[(int64_t)s * ncells + c] : 0.0f;
   for (int f = 0; f < nf; ++f) {
     float em = 0.0f;
     for (int l = 0; l < ne; ++l)
-      em = fmaf(E[f * ne + l], s_x[l * T + tid], em);
+      em = fmaf(E[f * ne + l], xp[l * xs], em);
     const int64_t o = c * nf + f;
     tot[o] = (s == 0 ? 0.0f : tot[o]) + em;
     if (ptot) ptot[o] = (s == 0 ? 0.0f : ptot[o]) + em * al;
@@ -176,22 +195,22 @@ __device__ __forceinline__ void stage_unit(float4* buf,
   cp_async_commit();
 }
 
-// One register chunk, float4 groups [g0, g0 + C4), of a staged unit:
-// adds sum_f ABS[f] sum_l W'[f, j, l] x_l over the unit's columns into
-// dot and, with `bottom`, sum_f ABS[f] W'[f, NE-1, j-1] into bot. `a` holds
-// the chunk's ABS; with `multi` (more than one chunk) it is loaded here
-// from s_abs [NFP][T].
-template <int C4>
+// One register chunk, float4 groups [g0, g0 + C4), of a unit (staged, or
+// in device memory): adds sum_f ABS[f] sum_l W'[f, j, l] x_l over the
+// unit's columns (wrow, the column l0 first) into dot and, with `bottom`,
+// sum_f ABS[f] W'[f, NE-1, j-1] (wbot) into bot. `a` holds the chunk's ABS;
+// with `multi` (more than one chunk) it is loaded here from ap[f * xs].
+template <int C4, typename I>
 __device__ __forceinline__ void chunk_unit(
-    const float4* buf, int nfp4, int g0, const float* s_x, int T, int tid,
-    int l0, int ncols, bool bottom, int lc, bool multi, const float* s_abs,
+    const float4* wrow, const float4* wbot, int nfp4, int g0, const float* xp,
+    I xs, int l0, int ncols, bool bottom, bool multi, const float* ap,
     float (&a)[FOLD_CH], float& dot, float& bot) {
   if (multi) {
 #pragma unroll
-    for (int k = 0; k < 4 * C4; ++k) a[k] = s_abs[(4 * g0 + k) * T + tid];
+    for (int k = 0; k < 4 * C4; ++k) a[k] = ap[(4 * g0 + k) * xs];
   }
   if (bottom) {
-    const float4* wb = buf + lc * nfp4 + g0;
+    const float4* wb = wbot + g0;
     float b0 = 0.0f, b1 = 0.0f, b2 = 0.0f, b3 = 0.0f;
 #pragma unroll
     for (int k = 0; k < C4; ++k) {
@@ -207,11 +226,11 @@ __device__ __forceinline__ void chunk_unit(
   float r[4 * C4];
 #pragma unroll
   for (int k = 0; k < 4 * C4; ++k) r[k] = 0.0f;
-  const float* xp = s_x + l0 * T + tid;
-  const float4* wl = buf + g0;
+  const float* xq = xp + l0 * xs;
+  const float4* wl = wrow + g0;
 #pragma unroll 2
   for (int l = 0; l < ncols; ++l) {
-    const float xl = xp[l * T];
+    const float xl = xq[l * xs];
 #pragma unroll
     for (int k = 0; k < C4; ++k) {
       const float4 w4 = wl[l * nfp4 + k];
@@ -232,15 +251,22 @@ __device__ __forceinline__ void chunk_unit(
   dot += (d0 + d1) + (d2 + d3);
 }
 
+// G = false: the shared form (populations, and ABS beyond one chunk, in
+// shared memory). G = true: the global form (the populations in scratch
+// [NE][cp], ABS transposed [NFP][cp]; lc == 0 reads W' without staging).
+template <bool G>
 __global__ void __launch_bounds__(FOLD_THREADS, 2) a2e_all_sizes_kernel(
     const float4* __restrict__ w_fold,   // [S, NE, NE, NFP/4]
     const float* __restrict__ tdown,     // [S, NE]
     const float* __restrict__ ea,        // [S, NF, NE]
-    const float* __restrict__ absorbed,  // [C, NF]
+    const float* __restrict__ absorbed,  // [C, NF]; G: [NFP][cp]
     const float* __restrict__ align,     // [S, C] or nullptr
     float* __restrict__ tot,             // [C, NF]
     float* __restrict__ ptot,            // [C, NF] or nullptr
-    int nsize, int nf, int ne, int ncells, int lc) {
+    int nsize, int nf, int ne, int ncells, int lc,
+    float* __restrict__ scratch,         // G: [NE][cp]; else nullptr
+    int64_t cp) {
+  using I = typename std::conditional<G, int64_t, int>::type;
   extern __shared__ float4 smem4[];
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -249,42 +275,67 @@ __global__ void __launch_bounds__(FOLD_THREADS, 2) a2e_all_sizes_kernel(
   const int nfp4 = (nf + 3) / 4;
   const int nch = (nfp4 + FOLD_C4 - 1) / FOLD_C4;
   const bool multi = nch > 1;
-  const int stage = (lc + 1) * nfp4;
+  const bool staged = !G || lc > 0;
+  const int run = staged ? lc : max(ne - 2, 1);   // columns a unit
+  const int stage = (run + 1) * nfp4;
   float4* bufs = smem4;                                   // 2 x [lc+1][nfp4]
-  float* s_x = reinterpret_cast<float*>(smem4 + 2 * stage);  // [ne][T]
-  float* s_abs = s_x + ne * T;             // [4 nfp4][T], only when multi
-
+  float* xp;        // this cell's x_0; x_l at xp[l * xs]
+  const float* ap;  // with multi, this cell's ABS[0]; ABS[f] at ap[f * xs]
+  I xs;
   float a[FOLD_CH];
+  if constexpr (G) {
+    xp = scratch + c;
+    ap = absorbed + c;
+    xs = cp;
 #pragma unroll
-  for (int k = 0; k < FOLD_CH; ++k)
-    a[k] = (!multi && valid && k < nf) ? absorbed[c * nf + k] : 0.0f;
-  if (multi)
-    for (int f = 0; f < 4 * nfp4; ++f)
-      s_abs[f * T + tid] = (valid && f < nf) ? absorbed[c * nf + f] : 0.0f;
-  for (int l = 0; l < ne; ++l) s_x[l * T + tid] = (l == 0) ? 1.0e-20f : 0.0f;
+    for (int k = 0; k < FOLD_CH; ++k)
+      a[k] = (!multi && valid && k < nf) ? absorbed[k * cp + c] : 0.0f;
+  } else {
+    float* s_x = reinterpret_cast<float*>(smem4 + 2 * stage);  // [ne][T]
+    float* s_abs = s_x + ne * T;           // [4 nfp4][T], only when multi
+    xp = s_x + tid;
+    ap = s_abs + tid;
+    xs = T;
+#pragma unroll
+    for (int k = 0; k < FOLD_CH; ++k)
+      a[k] = (!multi && valid && k < nf) ? absorbed[c * nf + k] : 0.0f;
+    if (multi)
+      for (int f = 0; f < 4 * nfp4; ++f)
+        s_abs[f * T + tid] = (valid && f < nf) ? absorbed[c * nf + f] : 0.0f;
+  }
+  for (int l = 0; l < ne; ++l) xp[l * xs] = (l == 0) ? 1.0e-20f : 0.0f;
 
   float q = 0.0f;    // sum_{l<j} S[NE-1, l] x_l
   float dot = 0.0f;  // row j's sum_f ABS[f] r[f] over the units so far
   Unit t = {0, 1, 0};
-  stage_unit(bufs, w_fold, t, ne, nfp4, lc, tid, T);
+  if (staged) stage_unit(bufs, w_fold, t, ne, nfp4, run, tid, T);
   for (int it = 0; t.s < nsize; ++it) {
-    cp_async_wait_all();
-    __syncthreads();  // unit t staged; every thread done with unit it-1
-    const Unit nx = next_unit(t, ne, lc);
-    if (nx.s < nsize)
-      stage_unit(bufs + ((it + 1) & 1) * stage, w_fold, nx, ne, nfp4, lc,
-                 tid, T);
-    const float4* buf = bufs + (it & 1) * stage;
-    const int ncols = unit_cols(t, ne, lc);
+    const Unit nx = next_unit(t, ne, run);
+    const float4* wrow;
+    const float4* wbot;
+    if (staged) {
+      cp_async_wait_all();
+      __syncthreads();  // unit t staged; every thread done with unit it-1
+      if (nx.s < nsize)
+        stage_unit(bufs + ((it + 1) & 1) * stage, w_fold, nx, ne, nfp4, run,
+                   tid, T);
+      wrow = bufs + (it & 1) * stage;
+      wbot = wrow + run * nfp4;
+    } else {
+      const float4* W = w_fold + (int64_t)t.s * ne * ne * nfp4;
+      wrow = W + ((int64_t)t.j * ne + t.u * run) * nfp4;
+      wbot = W + ((int64_t)(ne - 1) * ne + (t.j - 1)) * nfp4;
+    }
+    const int ncols = unit_cols(t, ne, run);
     const bool bottom = t.u == 0;
     float bot = 0.0f;
     for (int k = 0; k < nch; ++k) {
       const int g0 = k * nfp4 / nch;
       switch ((k + 1) * nfp4 / nch - g0) {
-#define A2E_CHUNK(C4)                                                   \
-  case C4:                                                              \
-    chunk_unit<C4>(buf, nfp4, g0, s_x, T, tid, t.u * lc, ncols, bottom, \
-                   lc, multi, s_abs, a, dot, bot);                      \
+#define A2E_CHUNK(C4)                                                    \
+  case C4:                                                               \
+    chunk_unit<C4>(wrow, wbot, nfp4, g0, xp, xs, t.u * run, ncols,       \
+                   bottom, multi, ap, a, dot, bot);                      \
     break;
         A2E_CHUNK(1) A2E_CHUNK(2) A2E_CHUNK(3) A2E_CHUNK(4)
         A2E_CHUNK(5) A2E_CHUNK(6) A2E_CHUNK(7) A2E_CHUNK(8)
@@ -292,24 +343,23 @@ __global__ void __launch_bounds__(FOLD_THREADS, 2) a2e_all_sizes_kernel(
 #undef A2E_CHUNK
       }
     }
-    if (bottom) q = fmaf(bot, s_x[(t.j - 1) * T + tid], q);
-    if (last_unit_of_row(t, ne, lc)) {
+    if (bottom) q = fmaf(bot, xp[(t.j - 1) * xs], q);
+    if (last_unit_of_row(t, ne, run)) {
       const int j = t.j;
       const float sj = j < ne - 1 ? dot - q : q;
       dot = 0.0f;
       const float td = tdown[(int64_t)t.s * ne + j];
       float xj = fminf(fmaxf(sj / (td + 1.0e-30f), 0.0f), 3.0e37f);
       if (xj > 1.0e20f) {
-        for (int l = 0; l < j; ++l) s_x[l * T + tid] *= 1.0e-20f;
+        for (int l = 0; l < j; ++l) xp[l * xs] *= 1.0e-20f;
         q *= 1.0e-20f;
         xj *= 1.0e-20f;
       }
-      s_x[j * T + tid] = xj;
+      xp[j * xs] = xj;
       if (j == ne - 1) {
-        emit_size(s_x, T, tid, c, valid, t.s, ea, align, tot, ptot, nf, ne,
+        emit_size(xp, xs, c, valid, t.s, ea, align, tot, ptot, nf, ne,
                   ncells);
-        for (int l = 0; l < ne; ++l)
-          s_x[l * T + tid] = (l == 0) ? 1.0e-20f : 0.0f;
+        for (int l = 0; l < ne; ++l) xp[l * xs] = (l == 0) ? 1.0e-20f : 0.0f;
         q = 0.0f;
       }
     }
@@ -352,18 +402,18 @@ __device__ __forceinline__ void stage_cunit(float4* buf,
   cp_async_commit();
 }
 
-// One register chunk, float4 groups [g0, g0 + C4), of CLAMP_ROWS staged
-// rows (row r at rows[r]): adds sum_f ABS[f] W[u, j, f] into d[r], each
-// row's sum in four independent parts. `a` holds the chunk's ABS; with
-// `multi` (more than one chunk) it is loaded here from s_abs [NFP][T].
-template <int C4>
+// One register chunk, float4 groups [g0, g0 + C4), of CLAMP_ROWS rows
+// (row r at rows[r], staged or in device memory): adds sum_f ABS[f]
+// W[u, j, f] into d[r], each row's sum in four independent parts. `a` holds
+// the chunk's ABS; with `multi` (more than one chunk) it is loaded here
+// from ap[f * xs].
+template <int C4, typename I>
 __device__ __forceinline__ void chunk_rows(
     const float4* const (&rows)[CLAMP_ROWS], int g0, bool multi,
-    const float* s_abs, int T, int tid, float (&a)[FOLD_CH],
-    float (&d)[CLAMP_ROWS]) {
+    const float* ap, I xs, float (&a)[FOLD_CH], float (&d)[CLAMP_ROWS]) {
   if (multi) {
 #pragma unroll
-    for (int k = 0; k < 4 * C4; ++k) a[k] = s_abs[(4 * g0 + k) * T + tid];
+    for (int k = 0; k < 4 * C4; ++k) a[k] = ap[(4 * g0 + k) * xs];
   }
 #pragma unroll
   for (int r = 0; r < CLAMP_ROWS; ++r) {
@@ -382,27 +432,36 @@ __device__ __forceinline__ void chunk_rows(
 
 // x_j = clip(s_j / (tdown_j + 1e-30), 0, 3e37) with the 1e-20 rescale of
 // every other slot (x_l for l < j, p[u] for u > j); stores it in slot j.
-__device__ __forceinline__ float set_population(float* slot, int T, int ne,
+template <typename I>
+__device__ __forceinline__ float set_population(float* slot, I xs, int ne,
                                                 int j, float sj, float td) {
   float xj = fminf(fmaxf(sj / (td + 1.0e-30f), 0.0f), 3.0e37f);
   if (xj > 1.0e20f) {
     for (int l = 0; l < ne; ++l)
-      if (l != j) slot[l * T] *= 1.0e-20f;
+      if (l != j) slot[l * xs] *= 1.0e-20f;
     xj *= 1.0e-20f;
   }
-  slot[j * T] = xj;
+  slot[j * xs] = xj;
   return xj;
 }
 
-__global__ void __launch_bounds__(FOLD_THREADS, 3) a2e_clamp_kernel(
+// G as for a2e_all_sizes_kernel: the slots in scratch [NE][cp], ABS
+// transposed [NFP][cp]; lr == 0 reads W without staging. The global form
+// asks for two blocks an SM, not three: its 64-bit strides spill at 170
+// registers.
+template <bool G>
+__global__ void __launch_bounds__(FOLD_THREADS, G ? 2 : 3) a2e_clamp_kernel(
     const float4* __restrict__ w_unf,    // [S, NE (l), NE (u), NFP/4]
     const float* __restrict__ tdown,     // [S, NE]
     const float* __restrict__ ea,        // [S, NF, NE]
-    const float* __restrict__ absorbed,  // [C, NF]
+    const float* __restrict__ absorbed,  // [C, NF]; G: [NFP][cp]
     const float* __restrict__ align,     // [S, C] or nullptr
     float* __restrict__ tot,             // [C, NF]
     float* __restrict__ ptot,            // [C, NF] or nullptr
-    int nsize, int nf, int ne, int ncells, int lr) {
+    int nsize, int nf, int ne, int ncells, int lr,
+    float* __restrict__ scratch,         // G: [NE][cp]; else nullptr
+    int64_t cp) {
+  using I = typename std::conditional<G, int64_t, int>::type;
   extern __shared__ float4 smem4[];
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -411,40 +470,60 @@ __global__ void __launch_bounds__(FOLD_THREADS, 3) a2e_clamp_kernel(
   const int nfp4 = (nf + 3) / 4;
   const int nch = (nfp4 + FOLD_C4 - 1) / FOLD_C4;
   const bool multi = nch > 1;
-  const int stage = lr * nfp4;
+  const bool staged = !G || lr > 0;
+  const int run = staged ? lr : ne - 1;   // rows a unit
+  const int stage = run * nfp4;
   float4* bufs = smem4;                                   // 2 x [lr][nfp4]
-  float* s_slot = reinterpret_cast<float*>(smem4 + 2 * stage);  // [ne][T]
-  float* s_abs = s_slot + ne * T;          // [4 nfp4][T], only when multi
-  float* slot = s_slot + tid;              // this cell's slots, stride T
-
+  float* slot;      // this cell's slot 0; slot u at slot[u * xs]
+  const float* ap;  // with multi, this cell's ABS[0]; ABS[f] at ap[f * xs]
+  I xs;
   float a[FOLD_CH];
+  if constexpr (G) {
+    slot = scratch + c;
+    ap = absorbed + c;
+    xs = cp;
 #pragma unroll
-  for (int k = 0; k < FOLD_CH; ++k)
-    a[k] = (!multi && valid && k < nf) ? absorbed[c * nf + k] : 0.0f;
-  if (multi)
-    for (int f = 0; f < 4 * nfp4; ++f)
-      s_abs[f * T + tid] = (valid && f < nf) ? absorbed[c * nf + f] : 0.0f;
-  for (int l = 0; l < ne; ++l) slot[l * T] = (l == 0) ? 1.0e-20f : 0.0f;
+    for (int k = 0; k < FOLD_CH; ++k)
+      a[k] = (!multi && valid && k < nf) ? absorbed[k * cp + c] : 0.0f;
+  } else {
+    float* s_slot = reinterpret_cast<float*>(smem4 + 2 * stage);  // [ne][T]
+    float* s_abs = s_slot + ne * T;        // [4 nfp4][T], only when multi
+    slot = s_slot + tid;
+    ap = s_abs + tid;
+    xs = T;
+#pragma unroll
+    for (int k = 0; k < FOLD_CH; ++k)
+      a[k] = (!multi && valid && k < nf) ? absorbed[c * nf + k] : 0.0f;
+    if (multi)
+      for (int f = 0; f < 4 * nfp4; ++f)
+        s_abs[f * T + tid] = (valid && f < nf) ? absorbed[c * nf + f] : 0.0f;
+  }
+  for (int l = 0; l < ne; ++l) slot[l * xs] = (l == 0) ? 1.0e-20f : 0.0f;
 
   float xj = 1.0e-20f;  // the population of the column being formed
   float sacc = 0.0f;    // s_{j+1}: sum of the new p[u], j < u <= NE-2
   CUnit t = {0, 0, 0};
-  stage_cunit(bufs, w_unf, t, ne, nfp4, lr, tid, T);
+  if (staged) stage_cunit(bufs, w_unf, t, ne, nfp4, run, tid, T);
   for (int it = 0; t.s < nsize; ++it) {
-    cp_async_wait_all();
-    __syncthreads();  // unit t staged; every thread done with unit it-1
-    const CUnit nx = next_cunit(t, ne, lr);
-    if (nx.s < nsize)
-      stage_cunit(bufs + ((it + 1) & 1) * stage, w_unf, nx, ne, nfp4, lr,
-                  tid, T);
-    const float4* buf = bufs + (it & 1) * stage;
+    const CUnit nx = next_cunit(t, ne, run);
+    const int u0 = cunit_row0(t, run);
+    const float4* buf;
+    if (staged) {
+      cp_async_wait_all();
+      __syncthreads();  // unit t staged; every thread done with unit it-1
+      if (nx.s < nsize)
+        stage_cunit(bufs + ((it + 1) & 1) * stage, w_unf, nx, ne, nfp4, run,
+                    tid, T);
+      buf = bufs + (it & 1) * stage;
+    } else {
+      buf = w_unf + (((int64_t)t.s * ne + t.j) * ne + u0) * nfp4;
+    }
     const float* td = tdown + (int64_t)t.s * ne;
     if (t.k == 0 && t.j > 0) {
-      xj = set_population(slot, T, ne, t.j, sacc, td[t.j]);
+      xj = set_population(slot, xs, ne, t.j, sacc, td[t.j]);
       sacc = 0.0f;
     }
-    const int u0 = cunit_row0(t, lr);
-    const int nrows = min(u0 + lr, ne) - u0;
+    const int nrows = min(u0 + run, ne) - u0;
     for (int i = 0; i < nrows; i += CLAMP_ROWS) {
       // a short last pass re-reads its last row and drops the sum
       const float4* rows[CLAMP_ROWS];
@@ -457,9 +536,9 @@ __global__ void __launch_bounds__(FOLD_THREADS, 3) a2e_clamp_kernel(
       for (int k = 0; k < nch; ++k) {
         const int g0 = k * nfp4 / nch;
         switch ((k + 1) * nfp4 / nch - g0) {
-#define A2E_ROWS(C4)                                      \
-  case C4:                                                \
-    chunk_rows<C4>(rows, g0, multi, s_abs, T, tid, a, d); \
+#define A2E_ROWS(C4)                                  \
+  case C4:                                            \
+    chunk_rows<C4>(rows, g0, multi, ap, xs, a, d);    \
     break;
           A2E_ROWS(1) A2E_ROWS(2) A2E_ROWS(3) A2E_ROWS(4)
           A2E_ROWS(5) A2E_ROWS(6) A2E_ROWS(7) A2E_ROWS(8)
@@ -471,18 +550,18 @@ __global__ void __launch_bounds__(FOLD_THREADS, 3) a2e_clamp_kernel(
       for (int r = 0; r < CLAMP_ROWS; ++r) {
         const int u = u0 + i + r;
         if (i + r < nrows) {
-          const float p = fmaf(fmaxf(d[r], 0.0f), xj, slot[u * T]);
-          slot[u * T] = p;
+          const float p = fmaf(fmaxf(d[r], 0.0f), xj, slot[u * xs]);
+          slot[u * xs] = p;
           if (u <= ne - 2) sacc += p;
         }
       }
     }
-    if (t.j == ne - 2 && last_cunit_of_col(t, ne, lr)) {
+    if (t.j == ne - 2 && last_cunit_of_col(t, ne, run)) {
       // the last step: x_{NE-1} from row NE-1 alone, then the emission
-      set_population(slot, T, ne, ne - 1, slot[(ne - 1) * T], td[ne - 1]);
-      emit_size(s_slot, T, tid, c, valid, t.s, ea, align, tot, ptot, nf, ne,
+      set_population(slot, xs, ne, ne - 1, slot[(ne - 1) * xs], td[ne - 1]);
+      emit_size(slot, xs, c, valid, t.s, ea, align, tot, ptot, nf, ne,
                 ncells);
-      for (int l = 0; l < ne; ++l) slot[l * T] = (l == 0) ? 1.0e-20f : 0.0f;
+      for (int l = 0; l < ne; ++l) slot[l * xs] = (l == 0) ? 1.0e-20f : 0.0f;
       xj = 1.0e-20f;
       sacc = 0.0f;
     }
@@ -522,8 +601,21 @@ size_t a2e_fold_smem_bytes(int nf, int ne, int tile, int lc) {
 // Blocks of a2e_all_sizes that fit on one SM of the current device at
 // (tile, lc), by its registers and shared memory; negative: a CUDA error.
 int a2e_fold_blocks_per_sm(int nf, int ne, int tile, int lc) {
-  return blocks_per_sm(a2e_all_sizes_kernel,
+  return blocks_per_sm(a2e_all_sizes_kernel<false>,
                        a2e_fold_smem_bytes(nf, ne, tile, lc), tile);
+}
+
+// The global form's dynamic shared memory, in bytes: the two staging
+// buffers [lc + 1][NFP] alone, none when lc == 0 (W' read unstaged).
+size_t a2e_fold_global_smem_bytes(int nf, int lc) {
+  const size_t nfp4 = (nf + 3) / 4;
+  return lc > 0 ? sizeof(float4) * 2 * (size_t)(lc + 1) * nfp4 : 0;
+}
+
+// Blocks of the global form of a2e_all_sizes on one SM at (tile, lc).
+int a2e_fold_global_blocks_per_sm(int nf, int ne, int tile, int lc) {
+  return blocks_per_sm(a2e_all_sizes_kernel<true>,
+                       a2e_fold_global_smem_bytes(nf, lc), tile);
 }
 
 // Dynamic shared memory, in bytes, of a2e_clamp with `tile` cells a block
@@ -539,8 +631,21 @@ size_t a2e_clamp_smem_bytes(int nf, int ne, int tile, int lr) {
 // Blocks of a2e_clamp that fit on one SM of the current device at
 // (tile, lr); negative: a CUDA error.
 int a2e_clamp_blocks_per_sm(int nf, int ne, int tile, int lr) {
-  return blocks_per_sm(a2e_clamp_kernel, a2e_clamp_smem_bytes(nf, ne, tile, lr),
-                       tile);
+  return blocks_per_sm(a2e_clamp_kernel<false>,
+                       a2e_clamp_smem_bytes(nf, ne, tile, lr), tile);
+}
+
+// The global form's dynamic shared memory, in bytes: the two staging
+// buffers [lr][NFP] alone, none when lr == 0 (W read unstaged).
+size_t a2e_clamp_global_smem_bytes(int nf, int lr) {
+  const size_t nfp4 = (nf + 3) / 4;
+  return sizeof(float4) * 2 * (size_t)lr * nfp4;
+}
+
+// Blocks of the global form of a2e_clamp on one SM at (tile, lr).
+int a2e_clamp_global_blocks_per_sm(int nf, int ne, int tile, int lr) {
+  return blocks_per_sm(a2e_clamp_kernel<true>,
+                       a2e_clamp_global_smem_bytes(nf, lr), tile);
 }
 
 // Largest dynamic shared memory a block may use on this device (bytes).
@@ -560,13 +665,35 @@ int a2e_all_sizes(const float* w_fold, const float* tdown, const float* ea,
                   int tile, int lc, void* stream) {
   const size_t smem = a2e_fold_smem_bytes(nf, ne, tile, lc);
   cudaError_t err = cudaFuncSetAttribute(
-      a2e_all_sizes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      a2e_all_sizes_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (ncells + tile - 1) / tile;
-  a2e_all_sizes_kernel<<<blocks, tile, smem, (cudaStream_t)stream>>>(
+  a2e_all_sizes_kernel<false><<<blocks, tile, smem, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(w_fold), tdown, ea, absorbed, align,
-      tot, ptot, nsize, nf, ne, ncells, lc);
+      tot, ptot, nsize, nf, ne, ncells, lc, nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// The global form: the arguments of a2e_all_sizes with abs_t, ABS
+// transposed and zero-padded [NFP][cp], in place of absorbed, the scratch
+// [NE][cp] for the populations, and cp = the cells rounded up to a
+// multiple of tile; lc == 0 reads W' unstaged.
+int a2e_all_sizes_global(const float* w_fold, const float* tdown,
+                         const float* ea, const float* abs_t,
+                         const float* align, float* tot, float* ptot,
+                         float* scratch, int nsize, int nf, int ne,
+                         int ncells, long long cp, int tile, int lc,
+                         void* stream) {
+  const size_t smem = a2e_fold_global_smem_bytes(nf, lc);
+  cudaError_t err = cudaFuncSetAttribute(
+      a2e_all_sizes_kernel<true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  a2e_all_sizes_kernel<true><<<(int)(cp / tile), tile, smem,
+                                (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(w_fold), tdown, ea, abs_t, align, tot,
+      ptot, nsize, nf, ne, ncells, lc, scratch, (int64_t)cp);
   return (int)cudaGetLastError();
 }
 
@@ -579,13 +706,32 @@ int a2e_clamp(const float* w_unf, const float* tdown, const float* ea,
               int lr, void* stream) {
   const size_t smem = a2e_clamp_smem_bytes(nf, ne, tile, lr);
   cudaError_t err = cudaFuncSetAttribute(
-      a2e_clamp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      a2e_clamp_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (ncells + tile - 1) / tile;
-  a2e_clamp_kernel<<<blocks, tile, smem, (cudaStream_t)stream>>>(
+  a2e_clamp_kernel<false><<<blocks, tile, smem, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(w_unf), tdown, ea, absorbed, align,
-      tot, ptot, nsize, nf, ne, ncells, lr);
+      tot, ptot, nsize, nf, ne, ncells, lr, nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// The clamp kernel's global form; the arguments of a2e_all_sizes_global
+// with w_unf in place of w_fold and runs of `lr` rows (0: unstaged).
+int a2e_clamp_global(const float* w_unf, const float* tdown, const float* ea,
+                     const float* abs_t, const float* align, float* tot,
+                     float* ptot, float* scratch, int nsize, int nf, int ne,
+                     int ncells, long long cp, int tile, int lr,
+                     void* stream) {
+  const size_t smem = a2e_clamp_global_smem_bytes(nf, lr);
+  cudaError_t err = cudaFuncSetAttribute(
+      a2e_clamp_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  a2e_clamp_kernel<true><<<(int)(cp / tile), tile, smem,
+                            (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(w_unf), tdown, ea, abs_t, align, tot,
+      ptot, nsize, nf, ne, ncells, lr, scratch, (int64_t)cp);
   return (int)cudaGetLastError();
 }
 

@@ -156,6 +156,61 @@ def with_negative_entries(rng, absorbed, share=0.2):
     return out
 
 
+def seeded_a2e_stacks(seed, ne, nfreq, device, clamp=False, negate=False):
+    """(A2EStacks of one size, absorbed [512, NFREQ] float32 host array)
+    from a seed, for shapes where build_solver's host cost (NE^2 NFREQ,
+    about 70 s at NE 1856) is too slow. The heating weights are positive
+    and, like a grain's, fall off with the jump u - l > 0 (zero for
+    u <= l): W[u, l, f] = h_f p_l exp(-((u - l - c_f) / w)^2) with the
+    photon's jump c_f = 1 + (NE / 8) f / NFREQ, w = 1 + NE / 32, so no
+    entry of the fold's S[j] - S[NE-1] cancels beyond float32's reach. The
+    cooling rates are the mean cell's heating out of each level times
+    10^U(-0.3, 0.3), so the populations stay within a few decades; the
+    emission EA is U(0.5, 1.5). Built on ``device`` in float64: the fold
+    W'[j] = sum_{u>=j} W[u] as soc_tpu's host fold, then cast. The stacks
+    carry w_flat (the plain twin's) and w_fold, or with ``clamp`` w_unf;
+    ``negate`` flips the sign of one weight (the clamp path's input)."""
+    import torch
+    from .solve import a2e_kernel
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    h = torch.as_tensor(10.0 ** rng.uniform(-1.0, 1.0, nfreq), device=dev)
+    p = torch.as_tensor(rng.uniform(0.5, 1.5, ne), device=dev)
+    c = 1.0 + (ne / 8.0) * torch.arange(nfreq, device=dev,
+                                        dtype=torch.float64) / nfreq
+    d = (torch.arange(ne, device=dev, dtype=torch.float64)[:, None]
+         - torch.arange(ne, device=dev, dtype=torch.float64)[None, :])
+    w = torch.exp(-((d[..., None] - c) / (1.0 + ne / 32.0)) ** 2) \
+        * (d > 0)[..., None] * p[None, :, None] * h         # [u, l, f]
+    if negate:
+        w[ne // 2, ne // 4, nfreq // 2] *= -1.0
+    absorbed = (10.0 ** rng.uniform(-1.0, 1.0, (512, 1))
+                * rng.uniform(0.5, 1.5, (512, nfreq))).astype(np.float32)
+    # cooling: the mean cell's fold, row by row (l < j)
+    a = torch.einsum("ulf,f->ul", w, torch.as_tensor(
+        absorbed.mean(0), dtype=torch.float64, device=dev))
+    s = torch.flip(torch.cumsum(torch.flip(a, [0]), 0), [0])
+    b = s - a[ne - 1:ne]
+    b[ne - 1] = a[ne - 1]
+    tdown = (torch.tril(b, -1).sum(1) * torch.as_tensor(
+        10.0 ** rng.uniform(-0.3, 0.3, ne), device=dev)).clamp_min(1e-30)
+    nfp = a2e_kernel.padded_nfreq(nfreq)
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, nfp - nfreq)).float()[None] \
+            .contiguous()
+    fold = None if clamp else pad(
+        torch.flip(torch.cumsum(torch.flip(w, [0]), 0), [0]))
+    unf = pad(w.transpose(0, 1)) if clamp else None
+    stacks = a2e_kernel.A2EStacks(
+        w_flat=w.reshape(ne * ne, nfreq).float()[None].contiguous(),
+        w_fold=fold, tdown=tdown.float()[None].contiguous(),
+        ea=torch.as_tensor(rng.uniform(0.5, 1.5, (1, nfreq, ne)),
+                           dtype=torch.float32, device=dev),
+        ne=ne, w_unf=unf)
+    return stacks, absorbed
+
+
 def octree_cloud(n, block, cascade, depth=3):
     """(lcells, per-level values) of BASELINE config 2's grid, rebuilt
     from bench.py's recipe: an n^3 root of densities U(0.5, 1.5) whose
@@ -263,6 +318,89 @@ def write_diffuse(d, freq, gl_pc, area, lcells, share=0.5, nf=None,
         field.astype(np.float32).tofile(fp)
     return "diffuse         %s\n" % path + (
         "diffpackets     %d\n" % packets if packets is not None else "")
+
+
+def write_emitted(d, freq, gl_pc, area, lcells, values, kdensity=3.0e4,
+                  share=0.5, path="emitted.data"):
+    """An emitted file [CELLS, NFREQ] for the `sca` verb's cell source:
+    cells times U(0.5, 1.5), the leaves emitting ``share`` of the
+    background's photons a channel after the scattering run's weighting
+    EMITTED 1e-20 GL PARSEC / 8^level DENS (DENS the cloud's values
+    times ``kdensity``, the ini's `density`); parents emit nothing."""
+    from .io.fields import write_cell_frequency_array
+    rng = np.random.default_rng(11)
+    dens = np.concatenate(values).astype(np.float64) * kdensity
+    weight = np.where(dens > 0, dens * 8.0 ** -_cell_levels(lcells), 0.0)
+    bg = np.pi * area * background(freq) / (PLANCK * freq)
+    per = share * bg / (1.0e-20 * gl_pc * PARSEC * weight.sum())
+    emitted = rng.uniform(0.5, 1.5, len(dens))[:, None] * per[None, :]
+    emitted[dens <= 0] = 0.0
+    write_cell_frequency_array(os.path.join(d, path),
+                               emitted.astype(np.float32))
+    return path
+
+
+def write_roi_load(d, freq, dims, area, nside=2, share=0.5,
+                   path="roi.photons"):
+    """A ROI photon file for `roiload` on a model of ``dims`` root cells
+    (the whole model's surface as the ROI's): every (surface element,
+    Healpix direction) pair U(0.5, 1.5), a channel summing to ``share`` of
+    the background's photons; returns its ini line (the packets are the
+    caller's `roipackets`)."""
+    from .transport.roi import roi_nelem, write_roi_file
+    rng = np.random.default_rng(13)
+    nelem = roi_nelem(*dims)
+    npix = 12 * nside * nside
+    data = rng.uniform(0.5, 1.5, (len(freq), nelem * npix))
+    bg = np.pi * area * background(freq) / (PLANCK * freq)
+    data *= (share * bg / data.sum(1))[:, None]
+    write_roi_file(os.path.join(d, path), *dims, nside,
+                   data.astype(np.float32))
+    return "roiload         %s 1.0\n" % path
+
+
+def write_sca_model(d, n, nfreq=8, emitted=None, roiload=None, intobs=None,
+                    outnside=None, ffs=None, fits=False, background=True,
+                    extra="", **kw):
+    """Write a scattered-light (`sca` verb) model and return its ini path:
+    write_model's equilibrium-dust model (its `bgpackets`, point sources
+    and `pspackets`, `hpbg` sky, `cellpackets`, `diffuse` field,
+    `abundance` second dust with its dsc file (WITH_MSF), `simum` band)
+    and the scattered-light lines: ``emitted`` the share of the cell
+    source (write_emitted; `cellpackets` then gives its packets),
+    ``roiload`` (share, packets) of a ROI load over the model's surface
+    (write_roi_load), ``intobs`` the internal observer (`perspective x y
+    z`, with `outnside` outnside), `ffs`, `fits 1`; ``background`` False
+    leaves out the isotropic background (for the sky alone)."""
+    lines = []
+    if intobs is not None:
+        lines.append("perspective     %r %r %r\n" % tuple(map(float, intobs)))
+    if outnside is not None:
+        lines.append("outnside        %d\n" % outnside)
+    if ffs is not None:
+        lines.append("ffs             %d\n" % ffs)
+    if fits:
+        lines.append("fits            1\n")
+    freq = frequencies(nfreq)
+    os.makedirs(d, exist_ok=True)
+    if roiload is not None:
+        lines.append(write_roi_load(d, freq, (n, n, n), 6 * n * n,
+                                    share=roiload[0]))
+        lines.append("roipackets      %d\n" % roiload[1])
+    ini = write_model(d, n, kind="eqdust", nfreq=nfreq,
+                      extra="".join(lines) + extra, **kw)
+    if emitted is not None:
+        lcells, values = ([n ** 3], [np.ones(n ** 3, np.float32)]) \
+            if kw.get("octree") is None else octree_cloud(n, *kw["octree"])
+        write_emitted(d, freq, kw.get("gl_pc", 0.01), 6 * n * n, lcells,
+                      values, share=emitted)
+    if not background:
+        with open(ini) as fp:
+            text = fp.read()
+        with open(ini, "w") as fp:
+            fp.write("".join(line for line in text.splitlines(True)
+                             if not line.startswith("background")))
+    return ini
 
 
 B_MEAN = (0.3, 0.5, 0.2)     # the tangled field's mean part

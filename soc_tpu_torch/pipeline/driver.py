@@ -1168,7 +1168,7 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
                 _write_intensity(cfg.file_intensity, res.intensity)
         if not cfg.noabsorbed:
             host = absorbed if isinstance(absorbed, np.ndarray) \
-                else np.array(absorbed.cpu(), np.float32)
+                else np.array(absorbed.cpu().numpy(), np.float32)
             res.absorbed = _scale_absorbed(grid, host, gl_cm, cfg.nnn_limit)
             if write_files and cfg.file_absorbed:
                 write_cell_frequency_array(cfg.file_absorbed, res.absorbed)

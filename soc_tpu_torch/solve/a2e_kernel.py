@@ -12,7 +12,11 @@ shard, as soc_tpu's ``solve_all_chunks_sharded`` splits its chunks over a
 device mesh.
 
 The wrappers launch their kernel for CUDA tensors, or raise; only for CPU
-tensors do they run the plain twin. The plain twin ``solve_batch`` is
+tensors do they run the plain twin. A shape whose populations (and
+ABS) do not fit a block's shared memory at any tile goes to the kernels'
+global-memory form (csrc/a2e.cu): the same arithmetic, with the
+populations in a scratch the wrapper allocates in device memory, never to
+the plain twin. The plain twin ``solve_batch`` is
 soc_tpu's exact XLA path written in torch: the heating matrix with each
 entry clamped at zero, the fold, the forward substitution with the
 overflow rescale, and the emission, in float32 matrix products (no TF32).
@@ -29,8 +33,10 @@ import numpy as np
 import torch
 
 launches = 0           # a2e_all_sizes launches made by solve_all_sizes
-align_launches = 0     # those of them with the align weights (PEMIT)
+align_launches = 0     # launches of either form with the align weights
 clamp_launches = 0     # a2e_clamp launches made by solve_all_sizes_clamp
+global_launches = 0    # a2e_all_sizes' global-memory form's launches
+clamp_global_launches = 0   # a2e_clamp's global-memory form's launches
 _count_lock = threading.Lock()   # the counts may be added to from threads
 
 
@@ -139,11 +145,19 @@ def _lib():
         lib.a2e_all_sizes.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.a2e_clamp.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.a2e_all_sizes.restype = lib.a2e_clamp.restype = i
+        for name in ("a2e_all_sizes_global", "a2e_clamp_global"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p] * 8 + [i] * 4 + [ctypes.c_longlong, i, i, p]
+            fn.restype = i
         for kernel in ("fold", "clamp"):
             smem = getattr(lib, "a2e_%s_smem_bytes" % kernel)
             blocks = getattr(lib, "a2e_%s_blocks_per_sm" % kernel)
             smem.argtypes = blocks.argtypes = [i, i, i, i]
             smem.restype, blocks.restype = ctypes.c_size_t, i
+            gsmem = getattr(lib, "a2e_%s_global_smem_bytes" % kernel)
+            gblocks = getattr(lib, "a2e_%s_global_blocks_per_sm" % kernel)
+            gsmem.argtypes, gblocks.argtypes = [i, i], [i, i, i, i]
+            gsmem.restype, gblocks.restype = ctypes.c_size_t, i
         lib.a2e_max_smem.argtypes = [i]
         lib.a2e_max_smem.restype = i
         lib.a2e_error_string.argtypes = [i]
@@ -159,18 +173,46 @@ def _smem_cap(lib, device_index):
     return cap
 
 
-def _too_large(kernel, nfreq, ne, cap):
-    return ValueError("A2E kernel %s: NE=%d with NFREQ=%d needs more shared "
-                      "memory than a block may use (%d bytes)"
-                      % (kernel, ne, nfreq, cap))
+class Config(tuple):
+    """(tile, run, resident warps per SM) of an A2E launch, with ``form``:
+    "shared" (the populations, and ABS beyond one register chunk, in a
+    block's shared memory) or "global" (both in device memory, shared
+    memory holding the staged runs alone; run 0 reads the weights
+    unstaged). Compares equal to the plain triple."""
+
+    def __new__(cls, tile, run, warps, form="shared"):
+        self = super().__new__(cls, (tile, run, warps))
+        self.form = form
+        return self
+
+    @property
+    def tile(self):
+        return self[0]
+
+    @property
+    def run(self):
+        return self[1]
+
+
+GLOBAL_TILE = 128       # cells a block of the global form
+
+
+def _query(name, blocks, lib):
+    if blocks < 0:
+        raise RuntimeError("A2E kernel %s: occupancy query failed: %s"
+                           % (name, lib.a2e_error_string(-blocks).decode()))
+    return blocks
 
 
 def _pick_config(lib, kernel, nfreq, ne, device_index, whole, aim):
-    """(tile, run, resident warps per SM) of ``kernel`` ("fold" or
-    "clamp"): the first (tile, run), tiles from 128 down and staged runs
-    from ``whole`` down through 64, 32, 16 and 8, that keeps ``aim``
-    warps on an SM; else the one that keeps the most. Cached per device
-    and shape; raises for a shape the kernel cannot take."""
+    """Config of ``kernel`` ("fold" or "clamp"): the first (tile, run),
+    tiles from 128 down and staged runs from ``whole`` down through 64,
+    32, 16 and 8, that keeps ``aim`` warps on an SM; else the one that
+    keeps the most. Where no (tile, run) fits the block's shared memory,
+    the global form at GLOBAL_TILE cells a block with the longest run of
+    those whose two staging buffers fit, or run 0 (unstaged) where none
+    does. Cached per device and shape: the choice depends on the shape and
+    the device alone."""
     key = (kernel, device_index, nfreq, ne)
     if key in _CONFIG:
         return _CONFIG[key]
@@ -183,24 +225,28 @@ def _pick_config(lib, kernel, nfreq, ne, device_index, whole, aim):
     for tile, run in itertools.product((128, 64, 32), runs):
         if smem_bytes(nfreq, ne, tile, run) > cap:
             continue
-        blocks = blocks_per_sm(nfreq, ne, tile, run)
-        if blocks < 0:
-            raise RuntimeError("A2E kernel %s: occupancy query failed: %s"
-                               % (name, lib.a2e_error_string(-blocks)
-                                  .decode()))
+        blocks = _query(name, blocks_per_sm(nfreq, ne, tile, run), lib)
         if blocks * tile // 32 > best[2]:
             best = (tile, run, blocks * tile // 32)
         if best[2] >= aim:
             break
-    if best[2] == 0:
-        raise _too_large(name, nfreq, ne, cap)
-    _CONFIG[key] = best
-    return best
+    if best[2] > 0:
+        config = Config(*best)
+    else:
+        gsmem = getattr(lib, "a2e_%s_global_smem_bytes" % kernel)
+        run = next((r for r in runs if gsmem(nfreq, r) <= cap), 0)
+        blocks = _query(name, getattr(
+            lib, "a2e_%s_global_blocks_per_sm" % kernel)(
+                nfreq, ne, GLOBAL_TILE, run), lib)
+        config = Config(GLOBAL_TILE, run, blocks * GLOBAL_TILE // 32,
+                        "global")
+    _CONFIG[key] = config
+    return config
 
 
 def pick_fold_config(lib, nfreq, ne, device_index):
-    """a2e_all_sizes: (tile, lc, resident warps per SM). lc is the number
-    of a row's columns staged at a time: the whole row (NE - 2) where
+    """a2e_all_sizes: Config (tile, lc, resident warps per SM). lc is the
+    number of a row's columns staged at a time: the whole row (NE - 2) where
     shared memory allows, else 64, 32, 16 or 8. A larger tile reads W' from
     L2 fewer times; a larger lc needs fewer barriers. The choice depends
     on the shape and the device alone, never on the cell count: lc sets
@@ -210,7 +256,7 @@ def pick_fold_config(lib, nfreq, ne, device_index):
 
 
 def pick_clamp_config(lib, nfreq, ne, device_index):
-    """a2e_clamp: (tile, lr, resident warps per SM). lr is the number of
+    """a2e_clamp: Config (tile, lr, resident warps per SM). lr is the number of
     a column's rows staged at a time: the longest column's NE - 1, else
     64, 32, 16 or 8, the first that keeps CLAMP_WARPS warps on an SM;
     chosen, as for pick_fold_config, from the shape and the device
@@ -221,26 +267,24 @@ def pick_clamp_config(lib, nfreq, ne, device_index):
 
 def shape_ceiling(lib, kernel, device_index, nfreq=None, ne=None):
     """The largest NE at ``nfreq`` (or, given ``ne``, the largest NFREQ)
-    that ``kernel``'s picker ("fold": a2e_all_sizes, "clamp": a2e_clamp)
-    admits on the device, by doubling and then bisection over the picker
-    itself: its shared memory grows with both, so the shapes it takes end
-    at one edge. The A2E kernels' limit: one step beyond raises the
-    ValueError that names the shape."""
+    that ``kernel``'s shared form ("fold": a2e_all_sizes, "clamp":
+    a2e_clamp) takes on the device, by doubling and then bisection over the
+    picker itself: its shared memory grows with both, so the shapes it
+    takes end at one edge. One step beyond, the picker turns to the global
+    form."""
     pick = pick_fold_config if kernel == "fold" else pick_clamp_config
     if (nfreq is None) == (ne is None):
         raise ValueError("shape_ceiling: give nfreq or ne, not both")
 
     def admits(x):
-        try:
-            pick(lib, nfreq or x, ne or x, device_index)
-        except ValueError:
-            return False
-        return True
+        return pick(lib, nfreq or x, ne or x, device_index).form == "shared"
     lo = 2 if ne is None else 1           # NE >= 2, NFREQ >= 1
     if not admits(lo):
-        raise _too_large("a2e_all_sizes" if kernel == "fold"
-                         else "a2e_clamp", nfreq or lo, ne or lo,
-                         _smem_cap(lib, device_index))
+        raise ValueError("A2E kernel %s: NE=%d with NFREQ=%d needs more "
+                         "shared memory than a block may use (%d bytes)"
+                         % ("a2e_all_sizes" if kernel == "fold"
+                            else "a2e_clamp", ne or lo, nfreq or lo,
+                            _smem_cap(lib, device_index)))
     hi = 2 * lo
     while admits(hi):
         lo, hi = hi, 2 * hi
@@ -292,17 +336,49 @@ def _launch(kernel, weights_name, stacks, absorbed, align):
     with torch.cuda.device(device):
         pick = pick_fold_config if kernel == "a2e_all_sizes" \
             else pick_clamp_config
-        config = pick(lib, nfreq, ne, index)[:2]
-        err = getattr(lib, kernel)(
-            weights.data_ptr(), stacks.tdown.data_ptr(),
-            stacks.ea.data_ptr(), absorbed.data_ptr(),
-            align.data_ptr() if align is not None else None,
-            tot.data_ptr(), ptot.data_ptr() if ptot is not None else None,
-            nsize, nfreq, ne, cells, *config, stream)
+        config = pick(lib, nfreq, ne, index)
+        args = (weights.data_ptr(), stacks.tdown.data_ptr(),
+                stacks.ea.data_ptr())
+        tail = (align.data_ptr() if align is not None else None,
+                tot.data_ptr(), ptot.data_ptr() if ptot is not None else None)
+        if config.form == "shared":
+            err = getattr(lib, kernel)(
+                *args, absorbed.data_ptr(), *tail, nsize, nfreq, ne, cells,
+                config.tile, config.run, stream)
+        else:
+            abs_t, scratch = _global_buffers(kernel, absorbed, ne,
+                                             config.tile)
+            err = getattr(lib, kernel + "_global")(
+                *args, abs_t.data_ptr(), *tail, scratch.data_ptr(), nsize,
+                nfreq, ne, cells, scratch.shape[1], config.tile, config.run,
+                stream)
     if err != 0:
         raise RuntimeError("A2E kernel %s launch failed: %s"
                            % (kernel, lib.a2e_error_string(err).decode()))
-    return tot, ptot
+    return (tot, ptot), config.form
+
+
+def _global_buffers(kernel, absorbed, ne, tile):
+    """The global form's device buffers: ABS transposed and zero-padded
+    [NFP, CP] and the populations' scratch [NE, CP], CP the cells rounded
+    up to whole blocks of ``tile``. Raises torch.cuda.OutOfMemoryError
+    naming the scratch size when the card cannot hold them."""
+    cells, nfreq = absorbed.shape
+    cp = -(-cells // tile) * tile
+    nbytes = 4 * cp * (ne + padded_nfreq(nfreq))
+    try:
+        abs_t = torch.zeros((padded_nfreq(nfreq), cp), dtype=torch.float32,
+                            device=absorbed.device)
+        abs_t[:nfreq, :cells] = absorbed.T
+        scratch = torch.empty((ne, cp), dtype=torch.float32,
+                              device=absorbed.device)
+    except torch.cuda.OutOfMemoryError as err:
+        raise torch.cuda.OutOfMemoryError(
+            "A2E kernel %s (global form): NE=%d, NFREQ=%d over %d cells "
+            "needs %d bytes of scratch in device memory (the populations "
+            "[NE, %d] and ABS [NFP, %d]): %s"
+            % (kernel, ne, nfreq, cells, nbytes, cp, cp, err)) from None
+    return abs_t, scratch
 
 
 def solve_all_sizes(stacks, absorbed, align=None):
@@ -311,12 +387,13 @@ def solve_all_sizes(stacks, absorbed, align=None):
     Returns (tot, ptot or None).
 
     CUDA tensors: the pre-folded kernel a2e_all_sizes (exact only for
-    non-negative weights and absorbed values). CPU tensors: the plain
+    non-negative weights and absorbed values), in its global-memory form
+    where the shape does not fit shared memory. CPU tensors: the plain
     twin."""
     if absorbed.device.type == "cpu":
         return solve_all_sizes_plain(stacks, absorbed, align)
-    out = _launch("a2e_all_sizes", "w_fold", stacks, absorbed, align)
-    _count("launches")
+    out, form = _launch("a2e_all_sizes", "w_fold", stacks, absorbed, align)
+    _count("launches" if form == "shared" else "global_launches")
     if align is not None:
         _count("align_launches")
     return out
@@ -328,8 +405,8 @@ def solve_all_sizes_clamp(stacks, absorbed, align=None):
     tensors run the plain twin."""
     if absorbed.device.type == "cpu":
         return solve_all_sizes_plain(stacks, absorbed, align)
-    out = _launch("a2e_clamp", "w_unf", stacks, absorbed, align)
-    _count("clamp_launches")
+    out, form = _launch("a2e_clamp", "w_unf", stacks, absorbed, align)
+    _count("clamp_launches" if form == "shared" else "clamp_global_launches")
     return out
 
 

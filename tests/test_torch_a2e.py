@@ -208,6 +208,22 @@ class _FakeLib:
         smem = self.a2e_clamp_smem_bytes(nf, ne, tile, lr) + 1024
         return min(self.sm // smem, 65536 // (self.regs * tile))
 
+    def a2e_fold_global_smem_bytes(self, nf, lc):
+        return 16 * 2 * (lc + 1) * -(-nf // 4) if lc > 0 else 0
+
+    def a2e_fold_global_blocks_per_sm(self, nf, ne, tile, lc):
+        self.queries += 1
+        smem = self.a2e_fold_global_smem_bytes(nf, lc) + 1024
+        return min(self.sm // smem, 65536 // (self.regs * tile))
+
+    def a2e_clamp_global_smem_bytes(self, nf, lr):
+        return 16 * 2 * lr * -(-nf // 4)
+
+    def a2e_clamp_global_blocks_per_sm(self, nf, ne, tile, lr):
+        self.queries += 1
+        smem = self.a2e_clamp_global_smem_bytes(nf, lr) + 1024
+        return min(self.sm // smem, 65536 // (self.regs * tile))
+
 
 @pytest.mark.parametrize("nfreq,ne,want", [
     (44, 128, (128, 126, 8)),     # the pipeline: whole rows, 2 blocks
@@ -251,30 +267,32 @@ def test_clamp_config_choice(monkeypatch, nfreq, ne, want):
     assert lib.queries > n
 
 
-# the A2E kernels' shape ceiling on an H100 (232,448 bytes of shared
+# the A2E kernels' shared-form ceiling on an H100 (232,448 bytes of shared
 # memory a block) by a2e.cu's sizing formulas: (kernel, NFREQ, NE) with
-# the one given and the largest other that the picker admits
+# the one given and the largest other that the shared form takes, and the
+# staged run of the global form one step beyond (two buffers of it fit)
 H100_CEILING = [
-    ("fold", 44, 1791), ("fold", 256, 1416), ("fold", 1000, 253),
-    ("fold", None, (256, 996)), ("fold", None, (32, 1140)),
-    ("clamp", 44, 1794), ("clamp", 256, 1432), ("clamp", 1000, 316),
-    ("clamp", None, (256, 1040)), ("clamp", None, (32, 1188)),
+    ("fold", 44, 1791, 64), ("fold", 256, 1416, 64), ("fold", 1000, 253, 16),
+    ("fold", None, (256, 996), 16), ("fold", None, (32, 1140), 16),
+    ("clamp", 44, 1794, 64), ("clamp", 256, 1432, 64),
+    ("clamp", 1000, 316, 16), ("clamp", None, (256, 1040), 16),
+    ("clamp", None, (32, 1188), 16),
 ]
 
 
-@pytest.mark.parametrize("kernel,nfreq,want", H100_CEILING)
-def test_kernel_shape_ceiling_on_h100(monkeypatch, kernel, nfreq, want):
+@pytest.mark.parametrize("kernel,nfreq,want,run", H100_CEILING)
+def test_kernel_shape_ceiling_on_h100(monkeypatch, kernel, nfreq, want, run):
     """shape_ceiling finds, through the picker, the largest NE at a given
-    NFREQ (or the largest NFREQ at a given NE) that a kernel takes in an
-    H100's shared memory; one step beyond raises the ValueError that
-    names the kernel, the shape and the cap. No configuration of the repo
-    comes near it (NE 128-256 at NFREQ 44-100)."""
+    NFREQ (or the largest NFREQ at a given NE) that a kernel's shared form
+    takes in an H100's shared memory; one step beyond, the picker turns to
+    the global form (128 cells a block, the longest run whose two staging
+    buffers fit) instead of raising. No configuration of the repo comes
+    near it (NE 128-256 at NFREQ 44-100)."""
     monkeypatch.setattr(a2e_kernel, "_CONFIG", {})
     monkeypatch.setattr(a2e_kernel, "_SMEM_CAP", {})
     lib = _FakeLib(cap=232448)
     pick = a2e_kernel.pick_fold_config if kernel == "fold" \
         else a2e_kernel.pick_clamp_config
-    name = "a2e_all_sizes" if kernel == "fold" else "a2e_clamp"
     if nfreq is None:
         ne, top = want
         assert a2e_kernel.shape_ceiling(lib, kernel, 0, ne=ne) == top
@@ -282,26 +300,63 @@ def test_kernel_shape_ceiling_on_h100(monkeypatch, kernel, nfreq, want):
     else:
         assert a2e_kernel.shape_ceiling(lib, kernel, 0, nfreq=nfreq) == want
         shape, beyond = (nfreq, want), (nfreq, want + 1)
-    assert pick(lib, *shape, 0)[2] > 0
-    with pytest.raises(ValueError, match=r"%s: NE=%d with NFREQ=%d .*232448"
-                       % (name, beyond[1], beyond[0])):
-        pick(lib, *beyond, 0)
+    at = pick(lib, *shape, 0)
+    assert at.form == "shared" and at[2] > 0
+    over = pick(lib, *beyond, 0)
+    assert over.form == "global"
+    assert (over.tile, over.run) == (a2e_kernel.GLOBAL_TILE, run)
+    assert over[2] > 0
 
 
 def test_kernel_shape_limits_name_the_shape(monkeypatch):
-    """A shape a kernel cannot take raises, naming the kernel, NE, NFREQ
-    and the cap; both take NE 64 in 16 KB."""
+    """In 16 KB of shared memory neither kernel's shared form takes NE
+    1024 (fold) or NE 256 (clamp) at NFREQ 44: both pick the global form,
+    staging runs of 32; both take NE 64 in the shared form. Above about
+    NFREQ 3200 not even a run of 8 fits an H100's two buffers: run 0, the
+    weights read unstaged."""
     monkeypatch.setattr(a2e_kernel, "_CONFIG", {})
     monkeypatch.setattr(a2e_kernel, "_SMEM_CAP", {})
     lib = _FakeLib(cap=16384, sm=20000)
-    with pytest.raises(ValueError, match=r"a2e_all_sizes: NE=1024 with "
-                       r"NFREQ=44 .*16384"):
-        a2e_kernel.pick_fold_config(lib, 44, 1024, 0)
-    with pytest.raises(ValueError, match=r"a2e_clamp: NE=256 with NFREQ=44 "
-                       r".*16384"):
-        a2e_kernel.pick_clamp_config(lib, 44, 256, 0)
+    got = a2e_kernel.pick_fold_config(lib, 44, 1024, 0)
+    assert (got.form, got.tile, got.run) == ("global", 128, 32)
+    got = a2e_kernel.pick_clamp_config(lib, 44, 256, 0)
+    assert (got.form, got.tile, got.run) == ("global", 128, 32)
+    assert a2e_kernel.pick_fold_config(lib, 44, 64, 0).form == "shared"
     assert a2e_kernel.pick_fold_config(lib, 44, 64, 0)[2] > 0
+    assert a2e_kernel.pick_clamp_config(lib, 44, 64, 0).form == "shared"
     assert a2e_kernel.pick_clamp_config(lib, 44, 64, 0)[2] > 0
+    monkeypatch.setattr(a2e_kernel, "_CONFIG", {})
+    monkeypatch.setattr(a2e_kernel, "_SMEM_CAP", {})
+    lib = _FakeLib(cap=232448)
+    for pick, nf, run in ((a2e_kernel.pick_fold_config, 3228, 8),
+                          (a2e_kernel.pick_fold_config, 3232, 0),
+                          (a2e_kernel.pick_clamp_config, 3632, 8),
+                          (a2e_kernel.pick_clamp_config, 3636, 0)):
+        got = pick(lib, nf, 16, 0)
+        assert (got.form, got.run) == ("global", run), (nf, got)
+
+
+def test_global_form_scratch_names_its_size(monkeypatch):
+    """The global form's buffers: ABS transposed and zero-padded [NFP, CP]
+    and the populations' scratch [NE, CP], CP the cells rounded up to whole
+    blocks; a card that cannot hold them raises torch.cuda.OutOfMemoryError
+    naming the kernel, the shape and the scratch's bytes (no ValueError
+    from the picker, no fallback)."""
+    rng = np.random.default_rng(3)
+    ab = torch.as_tensor(rng.random((300, 45)).astype(np.float32))
+    abs_t, scratch = a2e_kernel._global_buffers("a2e_clamp", ab, 70, 128)
+    assert abs_t.shape == (48, 384) and scratch.shape == (70, 384)
+    np.testing.assert_array_equal(abs_t[:45, :300].numpy(), ab.numpy().T)
+    assert not abs_t[45:].any() and not abs_t[:, 300:].any()
+
+    def no_room(*args, **kw):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+    monkeypatch.setattr(torch, "empty", no_room)
+    with pytest.raises(torch.cuda.OutOfMemoryError,
+                       match=r"a2e_all_sizes \(global form\): NE=70, "
+                       r"NFREQ=45 over 300 cells needs %d bytes"
+                       % (4 * 384 * (70 + 48))):
+        a2e_kernel._global_buffers("a2e_all_sizes", ab, 70, 128)
 
 
 @pytest.mark.parametrize("nfreq", [8, 5])

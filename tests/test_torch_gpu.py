@@ -2,7 +2,8 @@
 against their plain twin, the wrapper's checks, the sharded A2E solve
 against one launch, the probes' four kernels against their plain
 versions, the slice on the card against the slice on the CPU, and the
-`devices N` path over cuda:0 three times against the one-device run.
+`devices N` path over cuda:0 three times against the one-device run,
+and the scattered-light runs on the card against the CPU's.
 Every test here carries the ``gpu`` marker and skips where there is no
 CUDA device. This file imports no jax, so it runs on a
 machine without it; tests/conftest.py does import jax, hence on the card:
@@ -27,7 +28,9 @@ import pytest
 import torch
 
 from soc_tpu_torch.example_model import (gset_solver, negate_one_weight,
+                                         seeded_a2e_stacks,
                                          synthetic_absorbed,
+                                         write_sca_model,
                                          with_negative_entries, write_model)
 from soc_tpu_torch.parallel import mesh as tmesh
 from soc_tpu_torch.pipeline import driver, full
@@ -114,6 +117,42 @@ def test_kernel_matches_plain_twin(cuda, tmp_path, ne, nfreq, cells, scale):
     assert torch.equal(tot2, tot)
 
 
+def solve_beyond(device, kernel, nfreq, ne, seed):
+    """An A2E kernel on one size of seeded stacks (example_model.
+    seeded_a2e_stacks: 512 cells, the align weights; the clamp kernel with a
+    negative weight and negative absorbed values) at a shape its picker
+    sends to the global form, against the plain twin; returns (max
+    relative difference of EMIT, of PEMIT, the kernel's config). Raises
+    if the shared form was picked or the launch was not counted."""
+    clamp = kernel == "clamp"
+    stacks, ab = seeded_a2e_stacks(seed, ne, nfreq, device, clamp=clamp,
+                                   negate=clamp)
+    rng = np.random.default_rng(seed)
+    if clamp:
+        ab = with_negative_entries(rng, ab)
+    ab = torch.as_tensor(ab, device=device)
+    align = torch.as_tensor(rng.uniform(0, 1, (1, ab.shape[0]))
+                            .astype(np.float32), device=device)
+    pick = a2e_kernel.pick_clamp_config if clamp \
+        else a2e_kernel.pick_fold_config
+    config = pick(a2e_kernel._lib(), nfreq, ne, device.index or 0)
+    if config.form != "global":
+        raise AssertionError("NE %d, NFREQ %d: %s picked the %s form"
+                             % (ne, nfreq, kernel, config.form))
+    count = "clamp_global_launches" if clamp else "global_launches"
+    n0 = getattr(a2e_kernel, count)
+    solve = a2e_kernel.solve_all_sizes_clamp if clamp \
+        else a2e_kernel.solve_all_sizes
+    tot, ptot = solve(stacks, ab, align)
+    if getattr(a2e_kernel, count) != n0 + 1:
+        raise AssertionError("the global form's launch was not counted")
+    tot_p, ptot_p = a2e_kernel.solve_all_sizes_plain(stacks, ab, align,
+                                                     batch=64)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(tot).all()) and bool(torch.isfinite(ptot).all())
+    return _max_rel(tot, tot_p), _max_rel(ptot, ptot_p), config
+
+
 # (kernel, NFREQ, NE): one of the two given, the other the largest that
 # the kernel's picker admits on this card (a2e_kernel.shape_ceiling): NE
 # at NFREQ 1000, NFREQ at NE 256 and at NE 32
@@ -123,12 +162,12 @@ CEILING_CASES = [(k, nf, ne) for k in ("fold", "clamp")
 
 @pytest.mark.parametrize("kernel,nfreq,ne", CEILING_CASES)
 def test_kernel_at_its_shape_ceiling(cuda, tmp_path, kernel, nfreq, ne):
-    """Each A2E kernel at the largest shape it takes in this card's shared
-    memory, found through its picker (the library's own sizing and cap):
-    one size, 300 cells, against the plain twin (1e-4 relative; the clamp
-    kernel on a negative weight and negative absorbed values); one step
-    beyond raises the ValueError that names the kernel, NE, NFREQ and
-    the cap."""
+    """Each A2E kernel at the largest shape its shared form takes in this
+    card's shared memory, found through its picker (the library's own
+    sizing and cap): one size, 300 cells, against the plain twin (1e-4
+    relative; the clamp kernel on a negative weight and negative absorbed
+    values); one step beyond, the picker turns to the global form, which
+    solves seeded stacks of that shape within the same tolerance."""
     lib, index = a2e_kernel._lib(), cuda.index or 0
     top = a2e_kernel.shape_ceiling(lib, kernel, index, nfreq=nfreq, ne=ne)
     nfreq, ne, beyond = (nfreq, top, (nfreq, top + 1)) if ne is None \
@@ -146,19 +185,33 @@ def test_kernel_at_its_shape_ceiling(cuda, tmp_path, kernel, nfreq, ne):
                             device=cuda)
     solve = a2e_kernel.solve_all_sizes_clamp if clamp \
         else a2e_kernel.solve_all_sizes
+    pick = a2e_kernel.pick_clamp_config if clamp \
+        else a2e_kernel.pick_fold_config
+    assert pick(lib, nfreq, ne, index).form == "shared"
     tot, ptot = solve(stacks, ab, align)
     tot_p, ptot_p = a2e_kernel.solve_all_sizes_plain(stacks, ab, align)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(tot).all()) and bool(torch.isfinite(ptot).all())
     assert _max_rel(tot, tot_p) < REL_TOL
     assert _max_rel(ptot, ptot_p) < REL_TOL
-    pick = a2e_kernel.pick_clamp_config if clamp \
-        else a2e_kernel.pick_fold_config
-    name = "a2e_clamp" if clamp else "a2e_all_sizes"
-    with pytest.raises(ValueError, match=r"%s: NE=%d with NFREQ=%d .*\(%d "
-                       % (name, beyond[1], beyond[0],
-                          a2e_kernel._smem_cap(lib, index))):
-        pick(lib, *beyond, index)
+    rel, prel, _ = solve_beyond(cuda, kernel, beyond[0], beyond[1],
+                                ne + nfreq)
+    assert rel < REL_TOL and prel < REL_TOL, (rel, prel)
+
+
+@pytest.mark.parametrize("kernel,nfreq,ne,run", [
+    ("fold", 44, 1856, 64), ("fold", 1088, 256, 16),
+    ("clamp", 44, 1856, 64), ("clamp", 1088, 256, 16),
+    ("fold", 3300, 16, 0), ("clamp", 3700, 16, 0)])
+def test_kernel_beyond_its_ceiling(cuda, kernel, nfreq, ne, run):
+    """Both A2E kernels' global form at shapes beyond the shared form's
+    ceiling: NE 1856 at NFREQ 44 and NFREQ 1088 at NE 256 (staged runs of
+    64 and 16), and above NFREQ 3200 at NE 16, where not even two runs of
+    8 fit and the weights are read unstaged (run 0): one size, 512 cells,
+    the align weights, against the plain twin at 1e-4 relative."""
+    rel, prel, config = solve_beyond(cuda, kernel, nfreq, ne, ne + nfreq)
+    assert config.run == run, config
+    assert rel < REL_TOL and prel < REL_TOL, (rel, prel)
 
 
 def test_wrapper_checks_inputs(cuda, tmp_path):
@@ -258,7 +311,7 @@ def test_clamp_kernel_shapes(cuda, tmp_path, monkeypatch, ne, nfreq, cells,
             a2e_kernel._lib(), nfreq, ne, cuda.index or 0)
         monkeypatch.setitem(a2e_kernel._CONFIG,
                             ("clamp", cuda.index or 0, nfreq, ne),
-                            (tile, lr, warps))
+                            a2e_kernel.Config(tile, lr, warps))
         got = a2e_kernel.solve_all_sizes_clamp(stacks, ab, align)
         assert torch.equal(got[0], tot) and torch.equal(got[1], ptot)
 
@@ -1014,3 +1067,76 @@ def test_pipeline_polarisation_on_card(cuda, tmp_path):
                                        torch.device("cpu"), aalg=aalg)
     assert _max_rel(torch.as_tensor(pem), torch.as_tensor(ref)) < REL_TOL
     assert np.isfinite(res_map.maps[("pol", 0)][0]).all()
+
+
+# scattered light (the `sca` verb): the cases of test_torch_sca_pipeline.py
+SCA_PS = [(8.1, 7.9, 8.2, 0.3), (7.5, 8.3, 30.0, 1.0)]
+SCA_CASES = {
+    "bg": dict(n=16),
+    "hpbg": dict(n=16, hpbg=4, background=False),
+    "ps": dict(n=16, bgpac=0, point_sources=SCA_PS, pspackets=3000),
+    "cell": dict(n=16, bgpac=0, emitted=0.5, cellpackets=2 * 4096),
+    "roi": dict(n=16, bgpac=0, roiload=(0.5, 30000)),
+    "diffuse": dict(n=16, bgpac=0, diffuse=0.5, dfpackets=2 * 4096),
+    "all_octree": dict(n=8, octree=(2, 8, 3), hpbg=4,
+                       point_sources=[(4.1, 3.9, 4.2, 0.3)], pspackets=2000,
+                       emitted=0.3, cellpackets=1280, diffuse=0.3,
+                       dfpackets=1280),
+    "msf_octree": dict(n=8, octree=(2, 8, 3), abundance=True),
+    "intobs": dict(n=16, intobs=(8.3, 7.7, 8.1), outnside=8),
+    "fits": dict(n=16, fits=True),
+    "ffs0": dict(n=16, ffs=0),
+}
+
+
+def _sca_model(d, name):
+    kw = dict(SCA_CASES[name])
+    n = kw.pop("n")
+    return write_sca_model(str(d), n, nfreq=8, simum=(0.05, 3.0), **kw)
+
+
+def _sca_close(got, ref):
+    """Each lit channel within 1e-4 of its peak but for 3% of the pixels
+    (a packet whose path an ulp of the card's exp/log turns elsewhere),
+    its sum within 1e-3 (tests/test_torch_sca_pipeline.py's bound)."""
+    assert got.shape == ref.shape
+    for f in range(ref.shape[0]):
+        if not ref[f].any():
+            assert not got[f].any()
+            continue
+        diff = np.abs(got[f] - ref[f])
+        assert (diff > 1e-4 * ref[f].max()).mean() <= 0.03, f
+        assert abs(got[f].sum() / ref[f].sum() - 1) < 1e-3, f
+
+
+@pytest.mark.parametrize("name", list(SCA_CASES))
+def test_scattering_on_card_matches_cpu(cuda, tmp_path, name):
+    """scattering.run on the card against the same run on the CPU (the
+    same packets; the card's ulps and atomics), every source alone and
+    together, MSF, the internal observer, FITS and ffs 0; then a same-seed
+    rerun on the card within the atomics bound (1e-4 relative or 1e-6 of
+    the peak) and every event's rays deposited."""
+    from soc_tpu_torch.pipeline import scattering
+    ini = _sca_model(tmp_path, name)
+    ref = scattering.run(ini, device="cpu", lanes=4096)
+    passes = []
+    got = scattering.run(ini, device=cuda, lanes=4096, passes=passes)
+    assert np.isfinite(got).all() and (got >= 0).all()
+    _sca_close(got, ref)
+    ndir = got.shape[1] if got.ndim == 4 else 1
+    assert all(p["rays"] == p["events"] * ndir > 0 for p in passes)
+    again = scattering.run(ini, device=cuda, lanes=4096)
+    np.testing.assert_allclose(again, got, rtol=1e-4, atol=1e-6 * got.max())
+
+
+@pytest.mark.parametrize("name", ["bg", "intobs"])
+def test_scattering_devices_on_card(cuda, tmp_path, name):
+    """`devices 2` as cuda:0 twice (the shards share the card): equal to
+    the one-pool run within soc_tpu's sharded bound (rtol 2e-4, atol 1e-6
+    of the peak)."""
+    from soc_tpu_torch.pipeline import scattering
+    ini = _sca_model(tmp_path, name)
+    one = scattering.run(ini, device=cuda, lanes=4096)
+    two = scattering.run(ini, device=cuda, lanes=4096,
+                         devices=[cuda, cuda])
+    np.testing.assert_allclose(two, one, rtol=2e-4, atol=1e-6 * one.max())

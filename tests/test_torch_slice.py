@@ -13,6 +13,7 @@ per-cell fields at 1e-4 for 99% of the entries, temperatures at 1e-4.
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -93,9 +94,26 @@ def test_cli_rt_on_cpu_and_verbs(tmp_path, capsys):
     assert cli.main(["rt", ini, "--device", "cpu", "--lanes", "2048"]) == 0
     assert "soc_tpu_torch rt done" in capsys.readouterr().out
     assert (tmp_path / "tmp.T").exists()
-    for verb in ("sca", "a2e", "mabu", "dust", "bench"):
+    for verb in ("eqsolve", "a2e", "mabu", "dust", "bench"):
         assert cli.main([verb, ini]) != 0
     assert cli.main([]) != 0
+
+
+def test_rt_absorbed_file_takes_no_tensor_array(tmp_path, monkeypatch):
+    """`rt` with the absorbed file (noabsorbed 0) on the CPU turns the
+    tally into a host array without Tensor.__array__ (np.array(tensor,
+    dtype), which NumPy 2 warns about: its `copy` keyword), under
+    DeprecationWarnings made errors."""
+    ini = write_model(str(tmp_path), 6, kind="eqdust", nfreq=8)
+
+    def no_array(self, *args, **kw):
+        raise DeprecationWarning("Tensor.__array__ called")
+    monkeypatch.setattr(torch.Tensor, "__array__", no_array)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", DeprecationWarning)
+        res = tdriver.run(ini, device=CPU, lanes=2048)
+    assert res.absorbed.shape == (216, 8)
+    assert (tmp_path / "absorbed.data").exists()
 
 
 @pytest.mark.parametrize("extra,name", [
