@@ -94,7 +94,8 @@ Phases (any failure exits non-zero before the final line):
      ALI: tabs_noali within 1e-4 relative or 1e-6 of the maximum of
      tabs_ali + xab, xab a nonzero, partial share
  11. the `pipeline` verb (cli.main) on the same octree with the GSET dust
-     (phase 4's .solver file reused): absorption run -> A2E (one launch a
+     (phase 4's .solver file reused; a quarter of `bgpackets` since phase
+     16 runs, as in 14 (a)): absorption run -> A2E (one launch a
      card, every cell, the 576 parent cells' rows zero) -> map: energy
      balance, emitted.data zero on the parents, the map finite; then the
      A2E kernel on those absorptions against its plain twin, timed
@@ -114,7 +115,8 @@ Phases (any failure exits non-zero before the final line):
      background, 8,650,752 packets, and 249,999 a channel of the sky: its
      gates hold for any count, and the cut keeps the smoke under 800 s
      with phase 15): the split background, the weighted Healpix sky
-     (`hpbgw`), a diffuse field and `saveint 2`: the balance per
+     (`hpbgw`), a diffuse field (one packet a cell and channel since
+     phase 16 runs, two before) and `saveint 2`: the balance per
      channel, the (I, Ix, Iy, Iz) intensity file finite with I equal to
      the absorbed file times PLANCK f gl_cm / (ABS_f FACTOR) (1e-5
      relative), the parents' emission zero, one A2E launch a card, then
@@ -221,13 +223,52 @@ Phases (any failure exits non-zero before the final line):
      (header, frequencies, maps), the FITS cube read back bit for bit,
      every event peeled toward every observer (none dropped); each source
      pass's seconds, packets, events, transport and peel-off lane steps
+ 16. BASELINE config 5 ("Full ASOC_driver pipeline: multi-population dust
+     with spatially varying abundances (A2E_MABU) + library lookup
+     acceleration (A2E_LIB)") on phase 10's octree: two GSET dusts (tst,
+     tst2, 24 sizes, NE 128; phase 4's .solver for the first) with
+     per-cell abundances, 44 channels, a quarter of `bgpackets` as in
+     phase 12 (b) (every gate holds for any count; cut for time). (a) the
+     `pipeline` verb in makelib mode: one A2E launch a dust and card, the
+     energy balance per channel within 0.5%, the parents' emission zero,
+     the library written with its occupancy in (0, 1]; the stage seconds,
+     each dust's A2E seconds, build_library's (host NumPy); a2e_all_sizes
+     timed on the first dust's share, held to the plain twin on 16,384
+     leaves. (b) uselib: only the 3 FSELECT channels simulated, a
+     3-column absorbed.data; the lookup on the card timed with CUDA events
+     (cells/s), the same bin as its NumPy twin in >= 99.9% of the cells,
+     emitted.data the twin's lookup of (a)'s absorptions in >= 99.9% of
+     the leaves, and against (a) at >= 100 um over the entries above 1e-3
+     of the peak: the median and 90th percentile of the relative
+     difference (LIB_MEDIAN, LIB_P90); the map finite. (c) nnmake then
+     nnsolve (nnabs at the FSELECT wavelengths, nnemit 8 FIR channels,
+     nnthin 4, nnnet 13 17 13) through the `mabu` verb on (a)'s
+     absorbed.data (A2E_MABU's NN paths; a pipeline run would simulate
+     the absorptions twice more): two A2E launches, then none; nn_fit's
+     seconds and Adam steps/s on the card; the columns outside nnemit
+     exactly 0, the median against (a) in the nnemit columns
+     (NN_MEDIAN). (d) the host verbs through
+     cli.main on (a)'s files: a2e_pre for tst2 at NE 128 (the .solver bit
+     for bit the pipeline's); a2e on the first dust's share under
+     --profile (one launch a chunk; the Chrome trace names a2e_all_sizes;
+     the output the in-memory solve's bit for bit), the streamed solve in
+     65,536-row chunks (a launch each), IFREQ with aalg (one column, a
+     .P file); a2e_lib makelib (the real solve), uselib on the full and
+     on the 3-column file (equal), ofreq; mabu on (a)'s absorbed.data
+     (equal bit for bit to (a)'s emitted.data) and with an ofreq file;
+     eqsolve on the equilibrium dust (<dust>.T finite, the leaves within
+     1-200 K with a median of 3-30 K: the background alone heats them);
+     dust and sampleini in a scratch directory
 The kernels line gives each kernel's launches on its path (phase 4 for the
 A2E kernel, and under octree_* its launches, time, plain time and bound
 on phase 11's octree, under sources_* on phase 12 (b)'s, under pol_* on
 phase 14 (a)'s with the align weights; 6 for the clamp kernel, 7 for the probes, 9 for the
 sharded A2E, whose other numbers phase 8 takes over the same six shards;
 15 (e) for the two kernels' global-memory forms, a2e_all_sizes_global and
-a2e_clamp_global, at NE 1856 and under nf1088_* at NFREQ 1088),
+a2e_clamp_global, at NE 1856 and under nf1088_* at NFREQ 1088; under
+config5_* phase 16 (a)'s launches, the kernel's time on the first dust's
+share, its bound, and on 16,384 leaves (config5_check_cells) the kernel's
+and the plain twin's times and the largest difference),
 its time, its plain version's, its library call's where one exists, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s (an H100 SXM's published peaks). The
@@ -316,6 +357,21 @@ SCA_PSPACKETS = 20000       # (a): packets a point source and channel
 SCA_DIRS = ((0.0, 0.0), (70.0, 30.0), (120.0, -45.0))   # (a): degrees
 A2E_BEYOND = ((44, 1856), (1088, 256))   # (e): (NFREQ, NE), beyond both
                                          # kernels' shared forms
+# phase 16 (b), (c): the surrogates' envelope against the full solve, the
+# median and 90th percentile of the relative difference at >= 100 um. The
+# library's p90 is soc_tpu's for a steep octree (tests/test_library.py:
+# 172-173). soc_tpu's medians, 0.12 for the library and 0.1 for the NN
+# (tests/test_pipeline_modes.py:90-94), do not hold on this model for
+# soc_tpu's own algorithms: at a quarter of `bgpackets` a cell's
+# absorption in a reference channel is noisy, 1.5e-4 of the leaves absorb
+# nothing in one (which floors that library axis at log10 1e-33), and the
+# two dusts' abundances vary cell to cell. On an H100 the library reads a
+# median of 0.1703, the NN 0.1767-0.1785 with three or four nnabs
+# channels (`python -m soc_tpu_torch.profile_surrogates`, PERF.md, PR 12):
+# each median bound is that reading with soc_tpu's ~50% headroom.
+# NN_EMIT_CHANNELS: the FIR channels of nnemit
+LIB_MEDIAN, LIB_P90 = 0.25, 0.7
+NN_MEDIAN, NN_EMIT_CHANNELS = 0.25, 8
 SOURCES = ("a2e", "probe_gather", "probe_scatter", "probe_onehot")
 PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
     "probe_gather": ("soc_tpu_torch/csrc/probe_gather.cu",
@@ -1110,8 +1166,12 @@ def octree_pipeline_phase(dev, work, args, report):
     from soc_tpu_torch.solve.solver_file import read_solver
     card = report["card"]
     sub = os.path.join(work, "octree_pipeline")
+    # a quarter of the background's packets since phase 16 runs: every
+    # gate here (the balance, the launch, the parents' rows, the kernel
+    # against its twin) holds for any count
     ini = write_model(sub, N, kind="gset", nfreq=44, nsize=24, npix=64,
-                      bgpac=args.bgpackets, map_dx=N / 64.0, octree=OCTREE)
+                      bgpac=args.bgpackets // 4, map_dx=N / 64.0,
+                      octree=OCTREE)
     # phase 4's A2E_pre output for the same dust, channels and NE
     shutil.copy(os.path.join(work, "gs_TST.solver"), sub)
     results = {}
@@ -1297,7 +1357,7 @@ def sources_phase(dev, work, args, report, plain_bg):
     # now that phase 15 runs
     ini = write_model(sub, N, kind="gset", nfreq=44, nsize=24,
                       hpbg=SKY_NSIDE, hpbg_weighted=True,
-                      diffuse=DIFFUSE_SHARE, dfpackets=2 * OCTREE_CELLS,
+                      diffuse=DIFFUSE_SHARE, dfpackets=OCTREE_CELLS,
                       split=SPLIT, saveint=2,
                       **dict(common, bgpac=args.bgpackets // 4))
     shutil.copy(os.path.join(work, "gs_TST.solver"), sub)
@@ -1796,9 +1856,12 @@ def polarization_phase(dev, work, args, report, plain_a):
     d = os.path.join(work, "pol")
     t0 = time.time()
 
-    # (a) the pipeline with `polarisation` and `polmap`
+    # (a) the pipeline with `polarisation` and `polmap`, a quarter of the
+    # background's packets since phase 16 runs (the gates of (a), (b) and
+    # phase 15 (d) on its emission hold for any count)
     ini = write_model(d, N, kind="gset", nfreq=44, nsize=24, npix=64,
-                      bgpac=args.bgpackets, map_dx=N / 64.0, octree=OCTREE,
+                      bgpac=args.bgpackets // 4, map_dx=N / 64.0,
+                      octree=OCTREE,
                       bfield="tangled", polarisation=True,
                       extra="polmap          Bx.bin By.bin Bz.bin\n")
     shutil.copy(os.path.join(work, "gs_TST.solver"), d)
@@ -2484,6 +2547,384 @@ def random_atomics(dev, card):
         fail("phase 7: random atomics differ from the plain version")
 
 
+def config5_phase(dev, work, args, report):
+    """Phase 16: BASELINE config 5 on phase 10's octree with two GSET
+    dusts, per-cell abundances and 44 channels (see the module
+    docstring): (a) the `pipeline` verb's makelib mode, (b) its uselib
+    mode, (c) nnmake then nnsolve through the `mabu` verb, (d) the host
+    verbs on (a)'s files.
+    The background runs a quarter of `bgpackets`, as phase 12 (b)'s:
+    every gate holds for any count."""
+    import torch
+    from soc_tpu_torch import cli
+    from soc_tpu_torch.config import RunConfig
+    from soc_tpu_torch.constants import f2um
+    from soc_tpu_torch.example_model import (GRAIN_LINE, _dustem_files,
+                                             frequencies, write_model)
+    from soc_tpu_torch.io.fields import write_cell_frequency_array
+    from soc_tpu_torch.pipeline import mabu
+    from soc_tpu_torch.pipeline.full import build_components, \
+        read_abundances
+    from soc_tpu_torch.solve import a2e_kernel, library, stochastic
+    card = report["card"]
+    out = report["config5"] = {}
+    ncard = torch.cuda.device_count()
+    sub = os.path.join(work, "config5")
+    ini = write_model(sub, N, kind="gset", nfreq=44, nsize=24, npix=64,
+                      bgpac=args.bgpackets // 4, map_dx=N / 64.0,
+                      octree=OCTREE, abundance=True)
+    with open(ini) as fp:
+        base_ini = fp.read()
+    # phase 4's A2E_pre output for the first dust (same channels, NE 128)
+    shutil.copy(os.path.join(work, "gs_TST.solver"), sub)
+
+    def pipeline(tag, mode=None, extra=""):
+        with open(ini, "w") as fp:
+            fp.write(base_ini + extra)
+        results = {}
+        a2e_kernel.launches = a2e_kernel.clamp_launches = 0
+        t0 = time.time()
+        rc = cli.main(["pipeline", ini] + ([mode] if mode else [])
+                      + ["--device", str(dev)], results)
+        torch.cuda.synchronize()
+        out[tag] = time.time() - t0
+        if rc != 0:
+            fail("phase 16: (%s) pipeline verb returned %d" % (tag, rc))
+        return results, (a2e_kernel.launches, a2e_kernel.clamp_launches)
+
+    def verb(argv, results=None):
+        t0 = time.time()
+        rc = cli.main(argv, results)
+        if rc != 0:
+            fail("phase 16: %s returned %d" % (" ".join(argv), rc))
+        return time.time() - t0
+
+    # ---- (a) makelib: the full solve, then the library
+    res, launches = pipeline("a", "makelib")
+    res_rt, tm = res["absorption"], res["map"].timings
+    freq = res_rt.freq
+    if launches != (2 * ncard, 0):
+        fail("phase 16: (a) A2E launches %s, expected one a dust and card"
+             % (launches,))
+    bal = (res_rt.absorbed_photons + res_rt.escaped) / res_rt.injected - 1
+    if np.abs(bal).max() > BALANCE_TOL:
+        fail("phase 16: (a) energy balance off (%.3e)" % np.abs(bal).max())
+    os.chdir(sub)
+    try:
+        absorbed = read_cell_frequency_array("absorbed.data")
+        e_a = read_cell_frequency_array("emitted.data")
+        parents = absorbed[:, 0] < -1e19
+        if absorbed.shape != (OCTREE_CELLS, 44) or \
+                int(parents.sum()) != OCTREE_PARENTS:
+            fail("phase 16: (a) absorbed.data has shape %s with %d parent "
+                 "rows" % (absorbed.shape, int(parents.sum())))
+        if not (np.isfinite(e_a).all() and (e_a[parents] == 0).all()
+                and e_a[~parents].max() > 0):
+            fail("phase 16: (a) emitted.data not finite, or not zero on "
+                 "the parents")
+        lib = library.load_library("gs_TST.lib")
+        if not 0.0 < lib["occupancy"] <= 1.0:
+            fail("phase 16: (a) library occupancy %r" % lib["occupancy"])
+        shutil.copy("absorbed.data", "absorbed_full.data")
+        print("phase 16: (a) pipeline makelib on the octree (%d cells, two "
+              "GSET dusts with abundances, 44 channels): absorption %.2f s "
+              "(%d packets), A2E prep %.2f s, emission stage %.2f s (A2E "
+              "gs_TST %.2f s, gs_TST2 %.2f s; %d launches), build_library "
+              "%.2f s (host NumPy; 64 bins an axis, occupancy %.4f), maps "
+              "%.2f s, total %.2f s; energy balance %.3e [%s]"
+              % (OCTREE_CELLS, res_rt.timings["constant_sources"],
+                 res_rt.packets, tm["a2e_prep"], tm["a2e"], tm["a2e_gs_TST"],
+                 tm["a2e_gs_TST2"], launches[0], tm["library_build"],
+                 lib["occupancy"], tm["maps"], out["a"], np.abs(bal).max(),
+                 card), flush=True)
+
+        # the kernel at this shape: dust gs_TST's share of the absorptions
+        cfg = RunConfig(ini).validate()
+        cfg.freq = freq
+        comps = build_components(cfg, freq)
+        abu = read_abundances(cfg, OCTREE_CELLS, len(comps))
+        clean = np.where(parents[:, None], 0.0, absorbed).astype(np.float32)
+        abs_tst = mabu.split_absorbed(
+            clean, mabu.relative_cross_sections(comps, 44), abu,
+            0).astype(np.float32)
+        sol = comps[0].solver
+        clipped = abs_tst.copy()
+        clipped[:, -1] = np.clip(clipped[:, -1], 0.0, 0.2 * clipped[:, -2])
+        stacks = stochastic.get_fused_stacks(sol, dev, plain=True)
+        ab = torch.as_tensor(clipped, device=dev)
+        ms_k, _ = timed(lambda: a2e_kernel.solve_all_sizes(stacks, ab), 3)
+        leaves = np.nonzero(~parents)[0]
+        pick = torch.as_tensor(leaves[::len(leaves) // POL_CHECK_CELLS]
+                               [:POL_CHECK_CELLS], device=dev)
+        abp = ab[pick]
+        ms_kc, (tot_k, _) = timed(
+            lambda: a2e_kernel.solve_all_sizes(stacks, abp), 3)
+        ms_pc, (tot_p, _) = timed(
+            lambda: a2e_kernel.solve_all_sizes_plain(stacks, abp), 1)
+        rel = max_rel(tot_k, tot_p)
+        if rel > REL_TOL:
+            fail("phase 16: a2e_all_sizes differs from the plain twin "
+                 "(%.3e)" % rel)
+        b_ms, b_by = bound(*a2e_work(len(leaves), sol.nsize, sol.ne, 44,
+                                     False, False))
+        report["a2e_all_sizes"].update(
+            config5_launches=launches[0], config5_ms=ms_k,
+            config5_bound_ms=b_ms, config5_check_cells=POL_CHECK_CELLS,
+            config5_check_ms=ms_kc, config5_check_plain_ms=ms_pc,
+            config5_max_abs_err=float(torch.abs(tot_k - tot_p).max()))
+        print("phase 16: a2e_all_sizes on gs_TST's share (%d cells, bound "
+              "over the %d leaves): kernel %.2f ms, bound %.2f ms (%s); on "
+              "%d leaves kernel %.2f ms, plain %.2f ms, max rel err %.3e "
+              "[%s]" % (OCTREE_CELLS, len(leaves), ms_k, b_ms, b_by,
+                        POL_CHECK_CELLS, ms_kc, ms_pc, rel, card), flush=True)
+        del stacks, ab, abp
+        torch.cuda.empty_cache()
+
+        # ---- (b) uselib: the 3 FSELECT channels, the library's lookup
+        res, launches = pipeline("b", "uselib")
+        res_rt = res["absorption"]
+        ab3 = read_cell_frequency_array("absorbed.data")
+        e_b = read_cell_frequency_array("emitted.data")
+        maps = read_map_file("map_dir_00.bin")
+        if launches != (0, 0) or np.count_nonzero(res_rt.injected) != 3 \
+                or ab3.shape != (OCTREE_CELLS, 3):
+            fail("phase 16: (b) A2E launches %s, %d channels simulated, "
+                 "absorbed.data of shape %s" % (
+                     launches, np.count_nonzero(res_rt.injected),
+                     ab3.shape))
+        if not (np.isfinite(maps).all() and maps.max() > 0):
+            fail("phase 16: (b) the map is not finite with a positive peak")
+        fir = f2um(freq) >= 100.0
+        t, p = e_a[:, fir], e_b[:, fir]
+        m = t > 1e-3 * t.max()
+        rel = np.abs(p[m] / t[m] - 1.0)
+        med, p90 = float(np.median(rel)), float(np.percentile(rel, 90))
+        lib3 = dict(lib, ref_indices=[0, 1, 2])
+        clean3 = np.where(parents[:, None], 0.0, ab3).astype(np.float32)
+        table, lo, span = library.device_table(lib3, dev)
+        aref = torch.as_tensor(clean3, device=dev)
+        ms_l, got = timed(lambda: library.lookup_torch(
+            table, lo, span, aref, lib["nbins"]), 10)
+        same = float(np.mean(np.all(got.cpu().numpy()
+                                    == library.lookup_numpy(lib3, clean3),
+                                    axis=1)))
+        # uselib's emission is the library's lookup of (a)'s absorptions:
+        # the same packets in the 3 channels, added in another order
+        same_a = float(np.mean(np.all(
+            e_b[~parents] == library.lookup_numpy(lib, clean)[~parents],
+            axis=1)))
+        print("phase 16: (b) pipeline uselib: absorption %.2f s (%d packets "
+              "over 3 channels), lookup in the pipeline %.3f s, maps %.2f s, "
+              "total %.2f s; the lookup on the card %.4f ms for %d cells "
+              "(CUDA events, mean of 10): %.4e cells/s; the same bin as the "
+              "NumPy twin in %.6f of the cells; emitted.data the twin's "
+              "lookup of (a)'s absorptions in %.6f of the leaves; against "
+              "(a) at >= 100 um "
+              "over %d entries above 1e-3 of the peak: median relative "
+              "difference %.4f (limit %.2f), 90th percentile %.4f (limit "
+              "%.2f) [%s]" % (res_rt.timings["constant_sources"],
+                              res_rt.packets, res["map"].timings["lookup"],
+                              res["map"].timings["maps"], out["b"], ms_l,
+                              OCTREE_CELLS, OCTREE_CELLS / ms_l * 1e3, same,
+                              same_a, int(m.sum()), med, LIB_MEDIAN, p90,
+                              LIB_P90, card), flush=True)
+        out["lookup_cells_per_s"] = OCTREE_CELLS / ms_l * 1e3
+        if med >= LIB_MEDIAN or p90 >= LIB_P90 or same < 0.999 \
+                or same_a < 0.999:
+            fail("phase 16: (b) the library's emission is off")
+
+        # ---- (c) nnmake, then nnsolve: the `mabu` verb (A2E_MABU's NN
+        # paths) on (a)'s absorbed.data, which a pipeline run would
+        # simulate again
+        dv = ["--device", str(dev)]
+        emit_ch = np.nonzero(fir)[0][-NN_EMIT_CHANNELS:]
+        nn_lines = ("nnabs %s\nnnemit %s\nnnthin 4\nnnnet 13 17 13\n"
+                    % (" ".join("%.9g" % u
+                                for u in f2um(freq[lib["ref_indices"]])),
+                       " ".join("%.9g" % u for u in f2um(freq[emit_ch]))))
+        launches = []
+        for tag, line in (("c_make", "nnmake surro\n"),
+                          ("c_solve", "nnsolve surro\n")):
+            with open(ini, "w") as fp:
+                fp.write(base_ini + line + nn_lines)
+            a2e_kernel.launches = a2e_kernel.clamp_launches = 0
+            res = {}
+            out[tag] = verb(["mabu", ini, "absorbed_full.data",
+                             tag + ".data"] + dv, res)
+            launches.append((a2e_kernel.launches, a2e_kernel.clamp_launches))
+            tm = dict(tm, **res["mabu"]) if tag == "c_solve" else res["mabu"]
+        if launches != [(2 * ncard, 0), (0, 0)] or not all(
+                os.path.exists("surro_%s.nn" % c.name) for c in comps):
+            fail("phase 16: (c) A2E launches %s, surrogates %s"
+                 % (launches, sorted(f for f in os.listdir(".")
+                                     if f.endswith(".nn"))))
+        e_c = read_cell_frequency_array("c_solve.data")
+        others = np.ones(44, bool)
+        others[emit_ch] = False
+        a, b = e_c[:, emit_ch], e_a[:, emit_ch]
+        pos = b > 0
+        med_nn = float(np.median(np.abs(a[pos] - b[pos]) / b[pos]))
+        out["nn_fit_steps_per_s"] = tm["nn_fit_steps"] / tm["nn_fit"]
+        print("phase 16: (c) the mabu verb with nnmake %.2f s (nn_fit %.2f s "
+              "on the card: %d Adam steps over both dusts, %.1f steps/s), "
+              "with nnsolve %.2f s (nn_solve %.3f s); in the %d nnemit "
+              "columns the median relative difference against (a) %.4f "
+              "(limit %.2f) [%s]"
+              % (out["c_make"], tm["nn_fit"], tm["nn_fit_steps"],
+                 out["nn_fit_steps_per_s"], out["c_solve"], tm["nn_solve"],
+                 len(emit_ch), med_nn, NN_MEDIAN, card), flush=True)
+        if np.abs(e_c[:, others]).max() != 0.0 or med_nn >= NN_MEDIAN:
+            fail("phase 16: (c) nnsolve: other columns non-zero or the "
+                 "surrogate off")
+        with open(ini, "w") as fp:
+            fp.write(base_ini)
+
+        # ---- (d) the host verbs on (a)'s files
+        t_d = time.time()
+        np.savetxt("freq.dat", freq)
+        secs = verb(["a2e_pre", "gs_TST2.dust", "freq.dat", "tst2_pre.solver",
+                     "128"])
+        with open("tst2_pre.solver", "rb") as f1, \
+                open("gs_TST2.solver", "rb") as f2:
+            if f1.read() != f2.read():
+                fail("phase 16: (d) a2e_pre's solver differs from the "
+                     "pipeline's")
+        print("phase 16: (d) a2e_pre gs_TST2 at NE 128: %.2f s, the .solver "
+              "equal bit for bit to the pipeline's" % secs, flush=True)
+
+        write_cell_frequency_array("tst_abs.data", abs_tst)
+        ref = stochastic.solve_emission(sol, abs_tst, dev)
+        # the profiler's CUDA activity is at times missing from a
+        # session: up to 3 tries, as phase 7's device timing takes
+        for tries in range(1, 4):
+            a2e_kernel.launches = 0
+            secs = verb(["a2e", "gs_TST.solver", "tst_abs.data",
+                         "tst_emit.data", "--profile=a2e_profile"] + dv)
+            n_cli = a2e_kernel.launches
+            with open(os.path.join("a2e_profile", "trace_a2e.json")) as fp:
+                named = "a2e_all_sizes" in fp.read()
+            if named:
+                break
+        batch = max(1 << 16, (64 << 20) // (44 * 4) // 16384 * 16384)
+        got = read_cell_frequency_array("tst_emit.data")
+        a2e_kernel.launches = 0
+        stochastic.solve_emission_streaming(
+            sol, "tst_abs.data", "tst_emit64k.data", dev, batch=1 << 16)
+        n_64k = a2e_kernel.launches
+        got64 = read_cell_frequency_array("tst_emit64k.data")
+        rng = np.random.default_rng(args.seed)
+        aalg = np.exp(rng.uniform(np.log(sol.size_a[0] / 3.0),
+                                  np.log(3.0 * sol.size_a[-1]),
+                                  OCTREE_CELLS)).astype(np.float32)
+        with open("aalg_a2e.bin", "wb") as fp:
+            np.int32(OCTREE_CELLS).tofile(fp)
+            aalg.tofile(fp)
+        ifreq = int(emit_ch[0])
+        verb(["a2e", "gs_TST.solver", "tst_abs.data", "tst_emit1.data", "0",
+              "999", str(ifreq), "aalg_a2e.bin"] + dv)
+        one = read_cell_frequency_array("tst_emit1.data")
+        pone = read_cell_frequency_array("tst_emit1.data.P")
+        errs = (float(np.abs(got - ref).max() / ref.max()),
+                float(np.abs(got64 - ref).max() / ref.max()),
+                float(np.abs(one[:, 0] - ref[:, ifreq]).max()
+                      / ref[:, ifreq].max()))
+        chunks = (-(-OCTREE_CELLS // batch), -(-OCTREE_CELLS // (1 << 16)))
+        print("phase 16: (d) a2e on gs_TST's share: %.2f s under --profile "
+              "(%d launch(es) for %d chunk(s) of %d rows; the trace names "
+              "a2e_all_sizes: %s, try %d); in 65,536-row chunks %d launches "
+              "for %d; IFREQ %d with aalg: %s and .P %s; max |diff| / max "
+              "against the in-memory solve %.3e, %.3e, %.3e" % (
+                  secs, n_cli, chunks[0], batch, named, tries, n_64k,
+                  chunks[1], ifreq, one.shape, pone.shape, *errs),
+              flush=True)
+        if (n_cli, n_64k) != chunks or not named or max(errs) > 1e-6 \
+                or one.shape != (OCTREE_CELLS, 1) \
+                or pone.shape != (OCTREE_CELLS, 1) \
+                or not (np.isfinite(pone).all() and pone.min() >= 0.0):
+            fail("phase 16: (d) the a2e verb is off")
+
+        ref_idx = list(lib["ref_indices"])
+        np.savetxt("lfreq.dat", freq[ref_idx])
+        np.savetxt("ofreq.dat", freq[emit_ch[:2]])
+        write_cell_frequency_array("tst_abs3.data",
+                                   np.ascontiguousarray(abs_tst[:, ref_idx]))
+        lib_args = ["a2e_lib", "gs_TST.solver", "tst.lib", "freq.dat",
+                    "lfreq.dat"]
+        secs = verb(lib_args + ["tst_abs.data", "lib_full.data", "makelib"]
+                    + dv)
+        secs += verb(lib_args + ["tst_abs.data", "lib_use.data"] + dv)
+        secs += verb(lib_args + ["tst_abs3.data", "lib_use3.data"] + dv)
+        secs += verb(lib_args + ["tst_abs.data", "lib_sel.data", "ofreq.dat"]
+                     + dv)
+        full = read_cell_frequency_array("lib_full.data")
+        use = read_cell_frequency_array("lib_use.data")
+        use3 = read_cell_frequency_array("lib_use3.data")
+        lsel = read_cell_frequency_array("lib_sel.data")
+        errs = (float(np.abs(full - ref).max() / ref.max()),
+                float(np.abs(use3 - use).max() / use.max()),
+                float(np.abs(lsel - use[:, emit_ch[:2]]).max() / use.max()))
+        print("phase 16: (d) a2e_lib makelib, uselib on the full and on the "
+              "3-column file, ofreq: %.2f s; max |diff| / max: makelib "
+              "against the solve %.3e, the 3-column file against the full "
+              "%.3e, ofreq's columns %.3e" % (secs, *errs), flush=True)
+        if max(errs) > 1e-6 or lsel.shape != (OCTREE_CELLS, 2):
+            fail("phase 16: (d) the a2e_lib verb is off")
+
+        secs = verb(["mabu", ini, "absorbed_full.data", "mabu_emit.data"]
+                    + dv)
+        secs += verb(["mabu", ini, "absorbed_full.data", "mabu_sel.data",
+                      "ofreq.dat"] + dv)
+        e_m = read_cell_frequency_array("mabu_emit.data")
+        e_ms = read_cell_frequency_array("mabu_sel.data")
+        print("phase 16: (d) mabu, then with an ofreq file: %.2f s; (a)'s "
+              "emitted.data equal bit for bit: %s; ofreq's columns: %s"
+              % (secs, np.array_equal(e_m, e_a),
+                 np.array_equal(e_ms, e_a[:, emit_ch[:2]])), flush=True)
+        if not (np.array_equal(e_m, e_a)
+                and np.array_equal(e_ms, e_a[:, emit_ch[:2]])):
+            fail("phase 16: (d) the mabu verb differs from (a)'s emission")
+
+        write_cell_frequency_array("abs_clean.data", clean)
+        secs = verb(["eqsolve", "TST_simple.dust", "abs_clean.data",
+                     "eq_emit.data"])
+        temp = np.fromfile("TST_simple.dust.T", np.float32)
+        e_eq = read_cell_frequency_array("eq_emit.data")
+        t_leaf = temp[~parents]
+        pct = np.percentile(t_leaf, (1, 50, 99))
+        print("phase 16: (d) eqsolve on the equilibrium dust: %.2f s, leaf "
+              "temperatures %.2f-%.2f K (1st, 50th, 99th percentiles %.2f, "
+              "%.2f, %.2f K)" % (secs, t_leaf.min(), t_leaf.max(), *pct),
+              flush=True)
+        # the background alone heats these cells (no dust self-heating, as
+        # in phase 10's rt): the shielded core falls below phase 10's
+        # 3.1 K, to the E<->T table's 1 K floor at worst
+        if not (np.isfinite(e_eq).all() and 1.0 <= t_leaf.min()
+                and t_leaf.max() <= 200.0 and 3.0 <= pct[1] <= 30.0):
+            fail("phase 16: (d) eqsolve's temperatures are off")
+
+        dd = os.path.join(sub, "dustem")
+        os.makedirs(dd)
+        _dustem_files(dd, np.logspace(np.log10(0.1), np.log10(3000.0), 16))
+        with open(os.path.join(dd, "GRAIN.DAT"), "w") as fp:
+            fp.write("# a DustEM grain model\n%s\n" % GRAIN_LINE.format(
+                nsize=8))
+        np.savetxt(os.path.join(dd, "freq.dat"), frequencies(16))
+        os.chdir(dd)
+        secs = verb(["dust", "GRAIN.DAT", "freq.dat", "32", "0.01"])
+        secs += verb(["sampleini", "sample.ini"])
+        made = [f for f in ("TST_simple.dust", "TST.dsc", "gs_TST.dust",
+                            "TST.solver", "tmp.dust", "tmp.dsc", "sample.ini")
+                if os.path.exists(f) and os.path.getsize(f) > 0]
+        out["d"] = time.time() - t_d
+        print("phase 16: (d) dust and sampleini in a scratch directory: "
+              "%.2f s, wrote %s; (d) %.2f s in all" % (secs, made, out["d"]),
+              flush=True)
+        if len(made) != 7:
+            fail("phase 16: (d) dust / sampleini wrote %s" % made)
+    finally:
+        os.chdir(HERE)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bgpackets", type=int, default=FULL_BGPACKETS)
@@ -2551,19 +2992,24 @@ def main():
         polarization_phase(dev, work, args, report, plain["a"])
         t5 = time.time()
         scattering_phase(dev, work, args, report)
+        t6 = time.time()
+        config5_phase(dev, work, args, report)
         print("phase 10: %.2f s; phase 11: %.2f s; phase 12: %.2f s; phase "
               "13: %.2f s (%s); phase 14: %.2f s (%s); phase 15: %.2f s "
-              "(%s); the smoke so far %.2f s"
+              "(%s); phase 16: %.2f s (%s); the smoke so far %.2f s [%s]"
               % (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["slice"].items()),
                  t5 - t4,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["pol"].items()),
-                 time.time() - t5,
+                 t6 - t5,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["sca"].items()),
-                 time.time() - T_START), flush=True)
+                 time.time() - t6,
+                 ", ".join("%s %.4g" % kv
+                           for kv in report["config5"].items()),
+                 time.time() - T_START, card), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2591,7 +3037,10 @@ def main():
              "sources_max_abs_err", "pol_launches", "pol_ms",
              "pol_plain_ms", "pol_bound_ms", "pol_max_abs_err",
              "nf1088_ms", "nf1088_plain_ms", "nf1088_bound_ms",
-             "nf1088_bound_by", "nf1088_max_abs_err")
+             "nf1088_bound_by", "nf1088_max_abs_err", "config5_launches",
+             "config5_ms", "config5_bound_ms", "config5_check_cells",
+             "config5_check_ms", "config5_check_plain_ms",
+             "config5_max_abs_err")
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=sources[name][0],
         replaces=sources[name][1],

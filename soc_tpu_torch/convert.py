@@ -17,6 +17,11 @@ given device, so that both packages can compute on identical inputs:
       w_fold None for clamp-kernel stacks, which carry w_unf instead: the
       dense prepare_size_arrays weights [S, NE*NE, NFREQ] again, which
       a2e_kernel.unfold_cols lays out column by column, [S, NE, NE, NFP])
+  mlp_from_flax_params(params, hidden, n_out, device)           -> EmissionMLP
+  flax_params_from_mlp(mlp)                                      -> params
+      (the NN surrogate's weights: soc_tpu's flax layout {"params":
+      {"Dense_i": {"kernel": [in, out], "bias"}}} as NumPy arrays, the
+      format of its pickled .nn files)
 """
 
 import numpy as np
@@ -28,7 +33,8 @@ from .solve.equilibrium import TemperatureTable
 from .transport.medium import medium_from_numpy
 
 __all__ = ["grid_from_numpy", "medium_from_numpy",
-           "temperature_table_from_numpy", "stacks_from_numpy"]
+           "temperature_table_from_numpy", "stacks_from_numpy",
+           "mlp_from_flax_params", "flax_params_from_mlp"]
 
 
 def temperature_table_from_numpy(ttt, emin, ke, ne, device):
@@ -36,3 +42,32 @@ def temperature_table_from_numpy(ttt, emin, ke, ne, device):
     return TemperatureTable(
         ttt=torch.tensor(np.asarray(ttt, np.float32), device=device),
         emin=float(emin), ke=float(ke), ne=int(ne))
+
+
+def mlp_from_flax_params(params, hidden, n_out, device):
+    """EmissionMLP on ``device`` from soc_tpu's flax-layout weights
+    ({"params": {"Dense_i": {"kernel": [in, out], "bias": [out]}}}, NumPy
+    or anything np.asarray takes): Linear i's weight is kernel i
+    transposed."""
+    from .solve.nn import EmissionMLP
+    dense = params["params"]
+    kernels = [np.asarray(dense["Dense_%d" % i]["kernel"], np.float32)
+               for i in range(len(hidden) + 1)]
+    mlp = EmissionMLP(kernels[0].shape[0], hidden, n_out)
+    with torch.no_grad():
+        for i, layer in enumerate(mlp.layers):
+            layer.weight.copy_(torch.tensor(kernels[i].T))
+            layer.bias.copy_(torch.tensor(np.asarray(
+                dense["Dense_%d" % i]["bias"], np.float32)))
+    return mlp.to(device)
+
+
+def flax_params_from_mlp(mlp):
+    """The inverse of mlp_from_flax_params: soc_tpu's flax-layout weights
+    as NumPy float32 arrays."""
+    return {"params": {
+        "Dense_%d" % i: {
+            "kernel": np.ascontiguousarray(
+                layer.weight.detach().cpu().numpy().T),
+            "bias": layer.bias.detach().cpu().numpy().copy()}
+        for i, layer in enumerate(mlp.layers)}}

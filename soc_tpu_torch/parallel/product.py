@@ -153,7 +153,7 @@ class ProductMesh:
 
 
 def run_freqs(pm, grid, medium, kind, photons, per_freq, tabs, intf, seed,
-              lanes, per_freq_tally, phase=None, iteration=0):
+              lanes, per_freq_tally, phase=None, iteration=0, sel=None):
     """The sharded transport of one source over every channel.
 
     Shard (dp, fq) drains one mixed-frequency pool over the channels
@@ -169,7 +169,10 @@ def run_freqs(pm, grid, medium, kind, photons, per_freq, tabs, intf, seed,
     long as one pool per shard (PERF.md). The tallies of the two forms
     differ only in the order of the additions.
 
-    The shards' pools are stepped in turn (pm.map_steps).
+    The shards' pools are stepped in turn (pm.map_steps). ``sel`` (the
+    channels to simulate, all by default; `libabs`'s FSELECT) leaves the
+    other channels out of every shard's pool, each kept channel's packets
+    unchanged.
 
     photons [NFREQ] host array of per-packet weights; tabs [CELLS] on the
     caller's device; intf the slabs of pm.zeros_intf (ignored when
@@ -184,14 +187,19 @@ def run_freqs(pm, grid, medium, kind, photons, per_freq, tabs, intf, seed,
         return tabs, intf, escaped
     hi0 = stream_hi_base(phase or kind, iteration)
     q, r = divmod(total, n_dp)
-    nlanes = pool_lanes(lanes, (q + int(r > 0)) * L)
+    keep = np.ones(nfreq, bool) if sel is None else np.isin(
+        np.arange(nfreq), sel)
+    nlanes = pool_lanes(lanes, (q + int(r > 0))
+                        * max(int(keep[f * L:f * L + L].sum())
+                              for f in range(F)))
     photons = np.asarray(photons, np.float32)
 
     def shard(i, dev):
         dp, fq = divmod(i, F)
         mine = q + int(dp < r)
         dtabs = torch.zeros(grid.cells, dtype=torch.float32, device=dev)
-        if mine == 0:
+        local = np.nonzero(keep[fq * L:fq * L + L])[0]
+        if mine == 0 or len(local) == 0:
             return dtabs, np.zeros(L)
         block = slice(fq * L, fq * L + L)
         med = pm.replica(medium, dev)
@@ -200,10 +208,13 @@ def run_freqs(pm, grid, medium, kind, photons, per_freq, tabs, intf, seed,
         params = dict(photons=torch.as_tensor(photons[block], device=dev),
                       per_freq=mine, k0=dp * q + min(dp, r),
                       hi_base=(hi0 + fq * L) & MASK32)
+        if len(local) < L:
+            params["sel"] = torch.as_tensor(local, device=dev)
         slab = intf[i] if per_freq_tally \
             else torch.zeros((1, 1), dtype=torch.float32, device=dev)
         _, _, esc, _ = yield from transport_steps(
-            pm.replica(grid, dev), physics, params, mine * L, dtabs, slab,
+            pm.replica(grid, dev), physics, params, mine * len(local), dtabs,
+            slab,
             seed, source_kind=kind, nlanes=nlanes,
             per_freq_tally=per_freq_tally)
         return dtabs, esc.cpu().numpy()

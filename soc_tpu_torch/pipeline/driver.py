@@ -29,6 +29,10 @@ Phases:
      maps of `polmap` (Stokes I/Q/U/N, POLSTAT 1-3 statistics,
      orthographic and Healpix; render/polarization.py)
 `CR_HEATING` adds its cosmic-ray rate to every temperature solve.
+With `libabs` phase 1 simulates only the FSELECT reference channels and
+the run stops after it, writing their absorptions (the library's input,
+pipeline/full.py's uselib mode); with `libmaps` the maps render the
+FSELECT channels, embedding an emitted file of those columns only.
 With `devices N` (or an explicit device list) phases 1 and 3 and one
 temperature solve run over a (dp x freq) mesh of devices
 (parallel/product.py): phase 1 with the channels blocked over freq and
@@ -111,7 +115,9 @@ class RunResult:
 
 
 def unsupported_features(cfg):
-    """Names of the ini features this port does not implement yet."""
+    """Names of the ini features this port does not implement yet:
+    `domains` (parallel/domain.py) and `checkpoint` (utils/checkpoint.py),
+    ROADMAP.md's queue."""
     out = []
 
     def need(cond, name):
@@ -120,10 +126,6 @@ def unsupported_features(cfg):
 
     need(cfg.n_domains, "domains")
     need(cfg.file_checkpoint, "checkpoint")
-    need(cfg.lib_abs or cfg.lib_maps or cfg.file_library,
-         "libabs / libmaps / library")
-    need(cfg.nn_make or cfg.nn_solve, "nnmake / nnsolve")
-    need(cfg.abs_thin > 1, "absthin")
     return out
 
 
@@ -296,8 +298,11 @@ def nearest_freq_mask(freq, values):
 
 
 def map_freq_mask(cfg, freq):
-    """Map-frequency selection: the `wavelength` band or `mapum`."""
+    """Map-frequency selection: the `wavelength` band, `mapum` single
+    frequencies, or libmaps' FSELECT (ASOC.py:3003-3075)."""
     freq = np.asarray(freq)
+    if cfg.lib_maps and cfg.fselect:
+        return nearest_freq_mask(freq, cfg.fselect)
     if cfg.single_map_freq:
         return nearest_freq_mask(freq, cfg.single_map_freq)
     return (freq >= cfg.map_freq[0]) & (freq <= cfg.map_freq[1])
@@ -438,15 +443,15 @@ def simulate_background(grid, medium, cfg, ibg, tabs, intf, seed,
     bg_photons = (np.asarray(ibg, np.float64) * wbg
                   / np.asarray(cfg.freq, np.float64)).astype(np.float32)
     nfreq = medium.nfreq
-    injected = np.float64(per_freq) * np.asarray(bg_photons, np.float64)
+    sel = np.arange(nfreq) if sel is None else np.asarray(sel)
+    injected = _only(np.float64(per_freq)
+                     * np.asarray(bg_photons, np.float64), sel)
     if pmesh is not None:
         from ..parallel import product
         tabs, intf, escaped = product.run_freqs(
             pmesh, grid, medium, "bg", bg_photons, per_freq, tabs, intf,
-            seed, lanes, per_freq_tally)
-        return tabs, intf, escaped, injected, per_freq * nfreq
-    sel = np.arange(nfreq) if sel is None else np.asarray(sel)
-    injected = _only(injected, sel)
+            seed, lanes, per_freq_tally, sel=sel)
+        return tabs, intf, escaped, injected, per_freq * len(sel)
     params = dict(photons=torch.as_tensor(bg_photons, device=grid.device))
     tabs, intf, st = _source_pass(
         grid, medium, "bg", "bg", params, per_freq, sel, tabs, intf, seed,
@@ -1018,12 +1023,15 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     if cfg.iterations < 1 and os.path.exists(cfg.file_emitted):
         emitted = read_cell_frequency_array(cfg.file_emitted)
         if emitted.shape[1] != nfreq:
-            # remit-band file: embed into the full frequency grid
+            # a remit-band (or libmaps FSELECT) file: embed into the full
+            # frequency grid
             mask = remit_mask_of(cfg, freq)
+            if cfg.lib_maps and cfg.fselect:
+                mask = nearest_freq_mask(freq, cfg.fselect)
             if mask.sum() != emitted.shape[1]:
                 raise ValueError(
-                    "emitted file has %d freqs; the remit selection has %d"
-                    % (emitted.shape[1], int(mask.sum())))
+                    "emitted file has %d freqs; the remit/libmaps selection "
+                    "has %d" % (emitted.shape[1], int(mask.sum())))
             full = np.zeros((emitted.shape[0], nfreq), np.float32)
             full[:, mask] = emitted
             emitted = full
@@ -1054,8 +1062,13 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
         elif per_freq_tally:
             shape = (grid.cells, nfreq)
         intf = torch.zeros(shape, dtype=torch.float32, device=device)
-    # `simum`: only the channels inside the band are simulated
-    sel = np.nonzero((freq >= cfg.sim_f[0]) & (freq <= cfg.sim_f[1]))[0]
+    # `simum`: only the channels inside the band are simulated; `libabs`:
+    # of those only the FSELECT reference frequencies (ASOC.py:63-65,
+    # 1126-1131)
+    sim = (freq >= cfg.sim_f[0]) & (freq <= cfg.sim_f[1])
+    if cfg.lib_abs and cfg.fselect:
+        sim &= nearest_freq_mask(freq, cfg.fselect)
+    sel = np.nonzero(sim)[0]
     escaped = np.zeros(nfreq)
     injected = np.zeros(nfreq)
     packets = 0
@@ -1131,6 +1144,25 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
             write_roi_file(cfg.file_roi_save, rnx, rny, rnz, roi["nside"],
                            res.roi_tally)
     timings["constant_sources"] = time.time() - t0
+
+    if cfg.lib_abs:
+        # `libabs`: the absorptions of the FSELECT frequencies, then stop
+        # (ASOC.py:63-65); res.absorbed keeps every column, the file only
+        # the FSELECT ones, for the library (A2E_LIB) to take over
+        t0 = time.time()
+        if per_freq_tally:
+            absorbed = _absorbed_of(intf.host if isinstance(intf, HostTally)
+                                    else intf)
+            host = absorbed if isinstance(absorbed, np.ndarray) \
+                else np.array(absorbed.cpu().numpy(), np.float32)
+            res.absorbed = _scale_absorbed(grid, host, gl_cm, cfg.nnn_limit)
+            if write_files and cfg.file_absorbed:
+                write_cell_frequency_array(
+                    cfg.file_absorbed,
+                    res.absorbed[:, nearest_freq_mask(freq, cfg.fselect)])
+        timings["outputs"] = time.time() - t0
+        timings["total"] = time.time() - t_start
+        return res
 
     # ---- phase 2: iterations (T solve + emission, optional self-heating)
     t0 = time.time()

@@ -13,6 +13,7 @@ with `polarisation` the emission of the aligned grains (PEMITTED) is
 summed the same way.
 """
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,6 +42,16 @@ def split_absorbed(absorbed, rabs, abu, idust, den=None):
     if den is None:
         den = np.einsum("cd,fd->cf", abu, rabs)
     return absorbed * rabs[None, :, idust] / np.maximum(den, 1e-40)
+
+
+def relative_cross_sections(components, nfreq):
+    """R [NFREQ, NDUST]: each dust's share of the summed cross section a
+    channel (A2E_MABU.py:338-342), the split_absorbed ratios."""
+    rabs = np.zeros((nfreq, len(components)))
+    for d, comp in enumerate(components):
+        rabs[:, d] = np.clip(comp.kabs, 1e-40, 1e30)
+    rabs /= (1e-40 + rabs.sum(axis=1))[:, None]
+    return np.clip(rabs, 1e-30, 1.0)
 
 
 def cr_heating_channel(mode, dens, cells):
@@ -102,7 +113,8 @@ def solve_equilibrium_eqdust(kabs, freq, absorbed, ne=30000,
 
 
 def solve_emission_multi(components, absorbed, device, abu=None,
-                         devices=None, cr_mode=0, dens=None, pol=None):
+                         devices=None, cr_mode=0, dens=None, pol=None,
+                         return_components=False, timings=None):
     """Full multi-dust solve.
 
     components : list[DustComponent]
@@ -122,7 +134,14 @@ def solve_emission_multi(components, absorbed, device, abu=None,
                  emission of the aligned sizes a >= aalg; the A2E kernel's
                  align path) or ('rfactor', R [CELLS, NFREQ]) for an
                  equilibrium dust (the .rpol fraction, full._rpol_factor)
-    Returns EMITTED [CELLS, NFREQ] float32; with pol, (EMITTED, PEMITTED).
+    return_components : also return the per-dust (absorbed_d, emit_d)
+                 pairs, the training pairs of `nnmake`
+                 (A2E_MABU.py:1017-1068)
+    timings    : a dict, if given, receives each component's solve seconds
+                 under 'a2e_<name>'
+    Returns EMITTED [CELLS, NFREQ] float32; with return_components,
+    (EMITTED, [per-dust (absorbed_d, emit_d)]); with pol, PEMITTED
+    appended to the return value.
     """
     cells, nfreq = absorbed.shape
     ndust = len(components)
@@ -131,16 +150,14 @@ def solve_emission_multi(components, absorbed, device, abu=None,
     if cr_mode > 0:
         absorbed = np.asarray(absorbed).copy()
         absorbed[:, -1] = cr_heating_channel(cr_mode, dens, cells)
-    rabs = np.zeros((nfreq, ndust))
-    for d, comp in enumerate(components):
-        rabs[:, d] = np.clip(comp.kabs, 1e-40, 1e30)
-    rabs /= (1e-40 + rabs.sum(axis=1))[:, None]
-    rabs = np.clip(rabs, 1e-30, 1.0)
+    rabs = relative_cross_sections(components, nfreq)
 
     emitted = np.zeros((cells, nfreq), np.float32)
     pemitted = np.zeros((cells, nfreq), np.float32) if pol else None
+    per_dust = []
     split_den = np.einsum("cd,fd->cf", abu, rabs)
     for d, comp in enumerate(components):
+        t0 = time.time()
         absd = split_absorbed(absorbed, rabs, abu, d, den=split_den)
         spec = pol.get(d) if pol else None
         pemit_d = None
@@ -160,9 +177,16 @@ def solve_emission_multi(components, absorbed, device, abu=None,
                 pemit_d = emit_d * spec[1]
         else:
             raise ValueError(f"unknown dust kind {comp.kind!r}")
+        if timings is not None:
+            timings["a2e_" + comp.name] = time.time() - t0
         emitted += emit_d * abu[:, d][:, None]
         if pemit_d is not None:
             pemitted += pemit_d * abu[:, d][:, None]
+        if return_components:
+            per_dust.append((absd, emit_d))
+    out = (emitted,)
+    if return_components:
+        out += (per_dust,)
     if pol:
-        return emitted, pemitted
-    return emitted
+        out += (pemitted,)
+    return out if len(out) > 1 else emitted

@@ -235,3 +235,62 @@ def solve_emission(solver, absorbed, device, nstoch=999, clip_last=True,
     if pemitted is not None:
         return emitted, pemitted
     return emitted
+
+
+def solve_emission_streaming(solver, absorbed_path, emitted_path, device,
+                             nstoch=999, batch=None, aalg=None,
+                             pemitted_path=None, ifreq=None):
+    """Out-of-core A2E solve (soc_tpu's solve_emission_streaming): stream
+    absorbed.data through ``device`` in prefetched chunks of rows and write
+    emitted.data in the background (soc_tpu_torch.native), so neither file
+    has to fit in host memory. Each chunk is one solve_emission call: on
+    the card one A2E kernel launch a chunk (a2e_all_sizes, or a2e_clamp
+    where a weight or absorbed value is negative) per device of
+    a2e_devices. The result equals the in-memory solve_emission of the
+    same chunks.
+
+    batch : rows a chunk; by default about 64 MB of rows, in whole
+        16,384-row chunks, at least 65,536 rows (soc_tpu's rule)
+    aalg  : [CELLS] minimum aligned grain size: the polarised emission
+        goes to ``pemitted_path`` (<emitted>.P)
+    ifreq : write only this frequency's column (the reference A2E.py
+        IFREQ argument: the emitted files get ONE column)
+    Returns the number of rows solved.
+    """
+    from ..native import StreamReader, StreamWriter
+    ncols = solver.nfreq if ifreq is None else 1
+    if batch is None:
+        batch = max(1 << 16,
+                    (64 << 20) // (solver.nfreq * 4) // 16384 * 16384)
+
+    def sel(emit):
+        return emit if ifreq is None else \
+            np.ascontiguousarray(emit[:, ifreq:ifreq + 1])
+
+    with StreamReader(absorbed_path, batch) as rd:
+        # the writers open inside the try: a failure opening the second
+        # must still close (flush) the first
+        wr = wp = None
+        row0 = 0
+        try:
+            wr = StreamWriter(emitted_path, rd.rows, ncols)
+            if aalg is not None and pemitted_path:
+                wp = StreamWriter(pemitted_path, rd.rows, ncols)
+            for chunk in rd:
+                if aalg is not None:
+                    a_chunk = np.asarray(aalg)[row0:row0 + len(chunk)]
+                    emit, pem = solve_emission(solver, chunk, device,
+                                               nstoch=nstoch, aalg=a_chunk)
+                    wr.put(sel(emit))
+                    if wp is not None:
+                        wp.put(sel(pem))
+                else:
+                    wr.put(sel(solve_emission(solver, chunk, device,
+                                              nstoch=nstoch)))
+                row0 += len(chunk)
+        finally:
+            if wr is not None:
+                wr.close()
+            if wp is not None:
+                wp.close()
+    return row0

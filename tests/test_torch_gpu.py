@@ -1140,3 +1140,103 @@ def test_scattering_devices_on_card(cuda, tmp_path, name):
     two = scattering.run(ini, device=cuda, lanes=4096,
                          devices=[cuda, cuda])
     np.testing.assert_allclose(two, one, rtol=2e-4, atol=1e-6 * one.max())
+
+
+# the surrogates and the streamed A2E solve (BASELINE config 5's layer)
+
+def test_library_lookup_on_card_matches_twin(cuda):
+    """The lookup on the card (float32 bins, one index_select) picks the
+    NumPy twin's bin in >= 99.9% of the cells (soc_tpu's bound)."""
+    from soc_tpu_torch.solve import library
+    rng = np.random.default_rng(7)
+    absorbed = rng.lognormal(0.0, 2.0, (200000, 16)).astype(np.float32)
+    emitted = rng.random((200000, 16)).astype(np.float32)
+    lib = library.build_library(absorbed[:50000], emitted[:50000],
+                                [1, 5, 9], nbins=32)
+    got = library.solve_with_library(lib, absorbed, cuda)
+    twin = library.solve_with_library(lib, absorbed, torch.device("cpu"))
+    assert np.all(got == twin, axis=1).mean() > 0.999
+    assert library.device_table(lib, cuda)[0].is_cuda
+
+
+def test_nn_fit_and_solve_on_card(cuda):
+    """nn_fit on the card (its CUDA-graphed step) reaches soc_tpu's
+    held-out bounds (tests/test_nn.py:27-35); nn_solve on the card equals
+    the CPU's at rtol 1e-4: two float32 forward passes (TF32 off) in
+    another order, which 10**(out_sd y + out_mu) amplifies by up to
+    ln(10) out_sd."""
+    from soc_tpu_torch.pipeline import mabu
+    from soc_tpu_torch.solve import nn
+    freq = np.logspace(11.5, 15, 24)
+    kabs = 1e-21 * (freq / 1e12) ** 1.7
+    rng = np.random.default_rng(2)
+    strength = 10.0 ** rng.uniform(1, 5, 3000)
+    base = (freq / freq.max()) ** -1
+    absorbed = (strength[:, None] * base[None, :]).astype(np.float32)
+    emitted, _ = mabu.solve_equilibrium_eqdust(kabs, freq, absorbed)
+    iabs = [4, 10, 16, 22]
+    stats = {}
+    model = nn.nn_fit(absorbed[:2500, iabs], emitted[:2500], cuda,
+                      epochs=400, batch=256, seed=1, stats=stats)
+    assert stats["steps"] == 4000
+    pred = nn.nn_solve(model, absorbed[2500:, iabs], cuda)
+    truth = emitted[2500:]
+    m = truth > truth.max() * 1e-8
+    rel = np.abs(np.log10(pred[m]) - np.log10(truth[m]))
+    assert np.median(rel) < 0.02 and np.percentile(rel, 95) < 0.1
+    np.testing.assert_allclose(
+        pred, nn.nn_solve(model, absorbed[2500:, iabs], torch.device("cpu")),
+        rtol=1e-4)
+
+
+@pytest.mark.parametrize("batch", [1 << 16, 100000])
+def test_streamed_a2e_on_card(cuda, tmp_path, batch):
+    """The streamed solve on the card: one A2E launch a chunk, equal to the
+    in-memory solve on the card bit for bit and to the plain twin on the
+    CPU within REL_TOL."""
+    from soc_tpu_torch.io.fields import (read_cell_frequency_array,
+                                         write_cell_frequency_array)
+    sol, freq = gset_solver(str(tmp_path), nfreq=12, nsize=4, ne=32)
+    ab = synthetic_absorbed(np.random.default_rng(3), sol, freq, 250000)
+    write_cell_frequency_array(tmp_path / "abs.bin", ab)
+    ref = stochastic.solve_emission(sol, ab, cuda)
+    a2e_kernel.launches = 0
+    rows = stochastic.solve_emission_streaming(
+        sol, tmp_path / "abs.bin", tmp_path / "emit.bin", cuda, batch=batch)
+    assert rows == 250000
+    assert a2e_kernel.launches == -(-250000 // batch)
+    got = read_cell_frequency_array(tmp_path / "emit.bin")
+    np.testing.assert_array_equal(got, ref)
+    twin = stochastic.solve_emission(sol, ab[::50], torch.device("cpu"))
+    assert _max_rel(torch.as_tensor(got[::50]), torch.as_tensor(twin)) \
+        < REL_TOL
+
+
+def test_graphed_training_step_equals_eager(cuda):
+    """nn_fit's CUDA-graphed step (full batches) against the eager step on
+    the same batches, an eager remainder step between graph replays: the
+    same kernels on the same tensors, so the same parameters (rtol 1e-6)."""
+    from soc_tpu_torch.solve import nn
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.normal(size=(3000, 4)).astype(np.float32),
+                        device=cuda)
+    y = torch.as_tensor(rng.normal(size=(3000, 6)).astype(np.float32),
+                        device=cuda)
+
+    def model():
+        m = nn.EmissionMLP(4, (13, 17, 13), 6)
+        m.reset_parameters(torch.Generator().manual_seed(0))
+        return m.to(cuda)
+    a, b = model(), model()
+    oa, ob = nn.adam(a, 3e-3, 40), nn.adam(b, 3e-3, 40)
+    graphed = nn._GraphedStep(b, ob, x, y, 256)
+    order = torch.as_tensor(rng.permutation(3000), device=cuda)
+    for i in range(30):
+        sel = order[i * 97:i * 97 + (100 if i == 10 else 256)]
+        la = nn._train_step(a, oa, x, y, sel)
+        lb = graphed(sel) if len(sel) == 256 else \
+            nn._train_step(b, ob, x, y, sel)
+        torch.testing.assert_close(lb, la, rtol=1e-6, atol=0)
+    assert int(ob.count) == 30
+    for pa, pb in zip(a.parameters(), b.parameters()):
+        torch.testing.assert_close(pb, pa, rtol=1e-6, atol=1e-9)

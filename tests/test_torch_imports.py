@@ -1,7 +1,8 @@
 """The port stands alone: no module of soc_tpu_torch, and not chip_smoke.py,
-imports soc_tpu or jax, at the top of a module or lazily inside a
-function. Checked twice: statically, over the source of every module, and
-by importing every module in a fresh interpreter and reading sys.modules.
+imports soc_tpu, jax, jaxlib, flax or optax, at the top of a module or
+lazily inside a function. Checked twice: statically, over the source of
+every module, and by importing every module in a fresh interpreter and
+reading sys.modules.
 """
 
 import ast
@@ -23,9 +24,8 @@ def _sources():
 
 
 def _foreign(name):
-    return name == "soc_tpu" or name.startswith("soc_tpu.") \
-        or name == "jax" or name.startswith("jax.") \
-        or name.startswith("jaxlib")
+    return any(name == m or name.startswith(m + ".")
+               for m in ("soc_tpu", "jax", "jaxlib", "flax", "optax"))
 
 
 def _imported_names(tree):
@@ -49,7 +49,7 @@ def test_no_soc_tpu_or_jax_import_in_source(path):
 
 def test_no_soc_tpu_or_jax_module_loaded():
     """Importing every module of the package (and the modules chip_smoke.py
-    imports) loads no soc_tpu, soc_tpu.* or jax* module."""
+    imports) loads no soc_tpu, jax, jaxlib, flax or optax module."""
     code = """
 import importlib, pkgutil, sys
 sys.path.insert(0, %r)
