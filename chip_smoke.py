@@ -76,23 +76,22 @@ Phases (any failure exits non-zero before the final line):
      channel: 23,474,176 packets a cell pass), a 64x64 map; three runs:
      (a) `iterations 3` (with `csave`), (b) the same with `ali 1` and
      `reference 1`, (c) `emweight 1` and `iterations 2` at a quarter of
-     the cell packets. (b) and (c) `cload` (a)'s constant-source heating:
-     the same background packets on the same streams, not traced again.
-     These cuts, and the ALI rerun's below, hold the whole smoke under
-     800 s on an H100 now that phase 14 runs (841 s without them on a
-     slow host): (b) keeps its packets, since its gate against (a) is set
-     by their spread at 2 packets a cell; (c)'s gate (the balance) and the
+     the cell packets, each cell pass one mixed pool over (cell,
+     channel) on every route. (b) and (c) `cload` (a)'s constant-source
+     heating: the same background packets on the same streams, not traced
+     again. These cuts, and the ALI rerun's below, hold the smoke's time
+     down: (b) keeps its packets, since its gate against (a) is set by
+     their spread at 2 packets a cell; (c)'s gate (the balance) and the
      rerun's (the same packets without and with ALI) do not depend on the
      packet count. Each: finite fields, each cell pass's
      energy balance per channel (signed sums, driver.pass_balance) within
      0.5%, the stage seconds and each pass's packets/s; (b)'s temperatures
      within 2% of (a)'s (soc_tpu's bound for iterated runs) on all but
-     1e-4 of the leaf cells, within 5% on every one; then one cell
-     pass of (a)'s last emission in its 4 brightest channels (ALI_CHANNELS;
-     the others zero: their packets die at birth), one packet a cell and
-     channel, rerun without and with
-     ALI: tabs_noali within 1e-4 relative or 1e-6 of the maximum of
-     tabs_ali + xab, xab a nonzero, partial share
+     1e-4 of the leaf cells, within 5% on every one; then one cell pass of
+     (a)'s last emission, one packet a cell and channel, rerun without
+     and with ALI: tabs_noali within 1e-4 relative or 1e-6 of the maximum
+     of tabs_ali + xab, xab a nonzero, partial share. Phase 17 (b1) runs
+     (b) over six shards against this one-card run
  11. the `pipeline` verb (cli.main) on the same octree with the GSET dust
      (phase 4's .solver file reused; a quarter of `bgpackets` since phase
      16 runs, as in 14 (a)): absorption run -> A2E (one launch a
@@ -259,11 +258,55 @@ Phases (any failure exits non-zero before the final line):
      eqsolve on the equilibrium dust (<dust>.T finite, the leaves within
      1-200 K with a median of 3-30 K: the background alone heats them);
      dust and sampleini in a scratch directory
+ 17. checkpoint/resume and `devices` on phase 10's octree (266,752 cells,
+     44 channels, a 64x64 map), a quarter of `bgpackets` (one batch of
+     the background, 8,650,752 packets: every gate below holds for any
+     count) but in (b1): (a) `python -m soc_tpu_torch rt` with
+     `checkpoint ck.npz 1`, `iterations 2` and phase 10 (c)'s cell
+     packets (one a cell and channel), SIGKILLed once the file lists a
+     phase-1 unit, run again and SIGKILLed once it has added a unit and
+     the file holds `iter0`, then run to its end through cli.main: its
+     stderr names the units it skipped (at least one); absorbed, emitted,
+     T and the map within phase 4's rerun bound (1e-4 relative or 1e-6 of
+     the maximum) of an uninterrupted run; the balance per channel
+     ((absorbed + escaped + born outside + the cell passes' escaped) /
+     (launched + the cell passes' injected), and each cell pass's) within
+     0.5%; each flush's seconds and bytes. (b1) phase 10 (b)'s run (`ali
+     1`, `reference 1`, `iterations 3`, all its cell packets, (a)'s
+     heating loaded) over phase 9's six shards (cuda:0 six times, dp 3 x
+     freq 2): absorbed, emitted, T and the map within the rerun bound of
+     phase 10 (b)'s one-card run, each pass's seconds and packets/s beside
+     one card's, the balance. (b2) over MESH_SIMUM's band (30-3000 um: 19
+     channels, all in frequency block 0, so the three dp shards of that
+     block run the pools; (b1) and (c) run both blocks, and the shorter
+     channels' tails cost minutes over the shards), the background
+     and the weighted Healpix sky (`hpbgw`) with `split 4`, two point
+     sources (PS_METHOD 4 for the external one), a diffuse field, two
+     dusts' `abundance`, `roi` + `roisave` and `mmapabs`, over the six
+     shards and on one card: the balance per channel within 0.5% on both;
+     each source whose packets keep their streams (no clone served) its
+     own absorbed energy a cell (the pass's own TABS: its deposits alone,
+     whatever the sources before it left) within the rerun bound; each
+     split source's refined leaves within five times the spread of 64
+     cell groups' differences (phase 12 (a)'s rule) plus 1e-4 of their
+     total (the order of the additions, where both serve the same
+     clones); the ROI file's photons within 1%. (b3) the background over
+     the same band without splitting, under `mirror xyz`, `stepweight 2
+     1.3 0.4` and `direweight 1 0.5`: its own absorbed energy a cell, the
+     absorbed file and T within the rerun bound (the weights keep the
+     balance only in expectation: phase 13 (c1) holds their bias).
+     (c) phase 11's `pipeline` (the GSET dust, a quarter of `bgpackets`)
+     over the six shards with `checkpoint ck.npz 1`, SIGKILLed once its
+     absorption stage has recorded its unit, then resumed in-process: a
+     skipped unit, one a2e_all_sizes launch a shard (the kernels line's
+     ckpt_launches), and emitted.data and absorbed.data within the bound
+     of phase 11's one-card run
 The kernels line gives each kernel's launches on its path (phase 4 for the
 A2E kernel, and under octree_* its launches, time, plain time and bound
 on phase 11's octree, under sources_* on phase 12 (b)'s, under pol_* on
 phase 14 (a)'s with the align weights; 6 for the clamp kernel, 7 for the probes, 9 for the
-sharded A2E, whose other numbers phase 8 takes over the same six shards;
+sharded A2E, whose other numbers phase 8 takes over the same six shards,
+and under ckpt_launches its launches on phase 17 (c)'s resumed run;
 15 (e) for the two kernels' global-memory forms, a2e_all_sizes_global and
 a2e_clamp_global, at NE 1856 and under nf1088_* at NFREQ 1088; under
 config5_* phase 16 (a)'s launches, the kernel's time on the first dust's
@@ -311,7 +354,6 @@ EMWEI_PACKETS = CELLPACKETS // 4   # phase 10 (c): a quarter of them
 # cell the coldest, densest cells (3.1-3.6 K on level 2) scatter by up to
 # 2.5% between two iterations of one plain run (profile_phase2 on an H100)
 ITER_RTOL, ITER_SHARE, ITER_MAX = 0.02, 1e-4, 0.05
-ALI_CHANNELS = 4        # phase 10: the ALI rerun's brightest channels
 SPLIT = 4               # phase 12: `split 4`: at most 15 clones a packet
 PSPACKETS = 50000       # phase 12 (a): packets a point source and channel
 # phase 12 (a): (x, y, z, share of the background's power) in root cells:
@@ -372,6 +414,17 @@ A2E_BEYOND = ((44, 1856), (1088, 256))   # (e): (NFREQ, NE), beyond both
 # NN_EMIT_CHANNELS: the FIR channels of nnemit
 LIB_MEDIAN, LIB_P90 = 0.25, 0.7
 NN_MEDIAN, NN_EMIT_CHANNELS = 0.25, 8
+# phase 17 (b2): the ROI file's photons over the mesh against one card:
+# the split background's clones (a statistical share) cross into the box
+ROI_MESH_RTOL = 0.01
+# phase 17 (b2), (b3): the simulated band [um], 19 of 44 channels, all in
+# frequency block 0 of the six shards, so its three dp shards run the
+# pools: the shorter channels' drain tails in the dense core, paid once a
+# shard in turn on one card, make a pass over the mesh several times
+# longer (as at 15-3000 um, which reaches block 1's 15.4 um channel);
+# (b1) and (c) run both blocks
+MESH_SIMUM = (30.0, 3000.0)
+MESH_PSPACKETS = 5000   # (b2): packets a point source and channel
 SOURCES = ("a2e", "probe_gather", "probe_scatter", "probe_onehot")
 PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
     "probe_gather": ("soc_tpu_torch/csrc/probe_gather.cu",
@@ -1063,6 +1116,9 @@ def octree_rt_phase(dev, work, args, report):
         if rc != 0:
             fail("phase 10: (%s) rt verb returned %d" % (tag, rc))
         res = out[tag] = results["rt"]
+        if res.devices is not None or any(st["mesh"]
+                                          for st in res.cell_passes):
+            fail("phase 10: (%s) ran over a mesh, not on one card" % tag)
         if res.grid.cells != OCTREE_CELLS or res.grid.levels != 3:
             fail("phase 10: (%s) the grid has %d cells on %d levels"
                  % (tag, res.grid.cells, res.grid.levels))
@@ -1081,8 +1137,8 @@ def octree_rt_phase(dev, work, args, report):
                  res.packets / tm["constant_sources"]) if tag == "a"
               else "background loaded from (a)'s csave")
         print("phase 10: (%s) rt on the octree (%d cells, %s, iterations %d"
-              ", cellpackets %d): %.2f s: input %.2f, %s, iterations %.2f, "
-              "outputs %.2f, maps %.2f; T %.2f-%.2f K [%s]"
+              ", cellpackets %d): %.2f s: input %.2f, %s, iterations "
+              "%.2f, outputs %.2f, maps %.2f; T %.2f-%.2f K [%s]"
               % (tag, res.grid.cells, extra.strip().replace("\n", ", ")
                  or "plain", iters, clpac, wall, tm["input"], bg,
                  tm["solve"], tm["outputs"], tm["maps"],
@@ -1108,9 +1164,8 @@ def octree_rt_phase(dev, work, args, report):
                 for st in r.cell_passes]) for tag, r in out.items()}
 
     # one cell pass without and with ALI: the same packets, so the ALI
-    # split must add up to the plain tally. The whole pass with ALI is 44
-    # pools, each paying its own drain tail (about a minute on an H100):
-    # the rerun keeps the brightest channels only, one packet a cell
+    # split must add up to the plain tally; one packet a cell and channel
+    # (the gate does not depend on the count)
     res = out["a"]
     orig = os.getcwd()
     os.chdir(os.path.join(work, "octree_rt_a"))
@@ -1119,28 +1174,22 @@ def octree_rt_phase(dev, work, args, report):
     finally:
         os.chdir(orig)
     cfg.clpac = OCTREE_CELLS
-    keep = np.zeros(44, np.float32)
-    keep[np.argsort(res.emitted.sum(0))[-ALI_CHANNELS:]] = 1.0
-    print("phase 10: the ALI rerun runs (a)'s emission in its %d brightest "
-          "channels %s, the other %d zero" % (
-              ALI_CHANNELS, np.nonzero(keep)[0].tolist(), 44 - ALI_CHANNELS),
-          flush=True)
-    emitted = torch.as_tensor(res.emitted * keep[None, :], device=dev)
+    emitted = torch.as_tensor(res.emitted, device=dev)
     tabs = {}
     for ali in (0, 1):
         cfg.with_ali = ali
-        intf = torch.zeros((res.grid.cells, 44), device=dev)
         t, _, _, xab, st = driver.simulate_cell_emission(
             res.grid, res.medium, cfg, emitted,
-            torch.zeros(res.grid.cells, device=dev), intf, res.seed,
+            torch.zeros(res.grid.cells, device=dev),
+            torch.zeros((res.grid.cells, 44), device=dev), res.seed,
             per_freq_tally=True, iteration=9)
         torch.cuda.synchronize()
         tabs[ali] = (t.cpu().numpy().astype(np.float64), xab)
-        print("phase 10: cell pass %s ALI: %s route, %d packets, %.2f s "
-              "(%.0f packets/s) [%s]"
+        print("phase 10: cell pass %s ALI: %s route, %d packets in %d "
+              "pool(s), %.2f s (%.0f packets/s) [%s]"
               % ("with" if ali else "without", st["route"], st["packets"],
-                 st["seconds"], st["packets"] / st["seconds"], card),
-              flush=True)
+                 st["pools"], st["seconds"], st["packets"] / st["seconds"],
+                 card), flush=True)
     plain, (t_ali, xab) = tabs[0][0], tabs[1]
     both = t_ali + xab.astype(np.float64)
     share = xab.sum() / plain.sum()
@@ -2925,6 +2974,322 @@ def config5_phase(dev, work, args, report):
         os.chdir(HERE)
 
 
+def _ckpt_done(path):
+    """The unit keys a checkpoint file lists (none while it is absent);
+    os.replace makes a file visible whole, so a read never sees half."""
+    if not os.path.exists(path):
+        return []
+    with np.load(path) as z:
+        return [str(k) for k in z["done"]]
+
+
+def _kill_when(cmd, cwd, ckpt, cond, log, tag, timeout=600.0):
+    """Start ``cmd`` and SIGKILL it once cond(units the checkpoint lists)
+    holds, polling every 50 ms; the process is waited for in any case.
+    Fails when it ends by itself first. Returns (seconds, units)."""
+    t0 = time.time()
+    with open(log, "wb") as err:
+        proc = subprocess.Popen(cmd, cwd=cwd, stdout=err, stderr=err)
+        try:
+            while proc.poll() is None:
+                done = _ckpt_done(ckpt)
+                if cond(done):
+                    proc.kill()
+                    proc.wait()
+                    return time.time() - t0, done
+                if time.time() - t0 > timeout:
+                    fail("phase 17: (%s) no unit to kill after within %.0f "
+                         "s" % (tag, timeout))
+                time.sleep(0.05)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log) as fp:
+        print(fp.read()[-2000:], flush=True)
+    fail("phase 17: (%s) the process ended (code %d) before it was killed"
+         % (tag, proc.returncode))
+
+
+def _flush_lines(tag, text):
+    """Each checkpoint flush's units, bytes and seconds out of a run's
+    stderr; returns the lines about skipped units."""
+    for line in text.splitlines():
+        if "flushed" in line:
+            print("phase 17: (%s) %s" % (tag, line.strip()), flush=True)
+    return [line for line in text.splitlines() if "skipping" in line]
+
+
+def _held(tag, name, got, want):
+    """got within phase 4's rerun bound of want (PRODUCT_RTOL or
+    PRODUCT_ATOL of the maximum); fails beyond it."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    ok = got.shape == want.shape and np.isfinite(got).all() and np.allclose(
+        got, want, rtol=PRODUCT_RTOL, atol=PRODUCT_ATOL * np.abs(want).max())
+    err = float(np.abs(got - want).max() / np.abs(want).max()) \
+        if got.shape == want.shape else float("inf")
+    print("phase 17: (%s) %s: max |diff| / max = %.3e, within %.0e "
+          "relative or %.0e of the max: %s"
+          % (tag, name, err, PRODUCT_RTOL, PRODUCT_ATOL, ok), flush=True)
+    if not ok:
+        fail("phase 17: (%s) %s differs" % (tag, name))
+
+
+def _run_balance(tag, res):
+    """The whole run's energy balance per channel, in signed sums as
+    driver.pass_balance forms a cell pass's: (absorbed + escaped + born
+    outside + the cell passes' escaped - launched - the cell passes'
+    injected) over the absolute weight put in (a channel carrying less
+    than BALANCE_FLOOR of the largest's over that share); and each cell
+    pass's; fails beyond BALANCE_TOL."""
+    from soc_tpu_torch.pipeline import driver
+    zero = np.zeros_like(res.absorbed_photons)
+    # a run that loads its constant-source heating (`cload`) has no source
+    # pass: nothing launched or born outside
+    launched = zero if res.launched is None else res.launched
+    missed = zero if res.missed is None else res.missed
+    esc = res.escaped + missed + sum(st["escaped"] for st in res.cell_passes)
+    inj = launched + sum(st["injected"] for st in res.cell_passes)
+    put = launched + sum(st["injected_abs"] for st in res.cell_passes)
+    den = np.maximum(put, driver.BALANCE_FLOOR * put.max())
+    bal = (res.absorbed_photons + esc - inj) / den
+    cells = [float(np.abs(driver.pass_balance(st)).max())
+             for st in res.cell_passes]
+    print("phase 17: (%s) energy balance per channel: max |.| = %.3e; cell "
+          "passes %s (tolerance %.1e)"
+          % (tag, np.abs(bal).max(), ", ".join("%.3e" % b for b in cells),
+             BALANCE_TOL), flush=True)
+    if not np.abs(bal).max() <= BALANCE_TOL \
+            or not all(b <= BALANCE_TOL for b in cells):
+        fail("phase 17: (%s) energy balance off" % tag)
+
+
+def checkpoint_phase(dev, work, args, report, ali_one):
+    """Phase 17: checkpoint/resume on one card; over phase 9's six shards
+    against one card phase 10 (b)'s iterated ALI run (``ali_one``, its
+    RunResult) and the constant sources with every keyword; the pipeline
+    verb with both."""
+    import contextlib
+    import io
+    import torch
+    from soc_tpu_torch import cli
+    from soc_tpu_torch.example_model import write_model
+    from soc_tpu_torch.pipeline import driver, full
+    from soc_tpu_torch.solve import a2e_kernel
+    card = report["card"]
+    devices = [dev] * PRODUCT_SHARDS
+    times = report["ckpt"] = {}
+    common = dict(npix=64, map_dx=N / 64.0, octree=OCTREE,
+                  bgpac=args.bgpackets // 4)
+
+    # (a) rt killed twice, then run to its end
+    t0 = time.time()
+    kw = dict(kind="eqdust", nfreq=44, cellpackets=EMWEI_PACKETS,
+              iterations=2, **common)
+    d_ref, d_ck = (os.path.join(work, "ckpt_" + s) for s in ("ref", "rt"))
+    ini_ref = write_model(d_ref, N, **kw)
+    ini = write_model(d_ck, N, extra="checkpoint ck.npz 1\n", **kw)
+    ck = os.path.join(d_ck, "ck.npz")
+    cmd = [sys.executable, "-m", "soc_tpu_torch", "rt", ini, "--device",
+           str(dev)]
+    secs, done = _kill_when(cmd, HERE, ck, lambda u: "bg" in u,
+                            os.path.join(work, "ckpt_kill1.log"), "a")
+    print("phase 17: (a) rt killed after %.2f s, the file listing %s"
+          % (secs, done), flush=True)
+    first = len(done)
+    secs, done = _kill_when(
+        cmd, HERE, ck, lambda u: "iter0" in u and len(u) > first,
+        os.path.join(work, "ckpt_kill2.log"), "a")
+    print("phase 17: (a) rerun killed after %.2f s, the file listing %s"
+          % (secs, done), flush=True)
+    for k in (1, 2):
+        with open(os.path.join(work, "ckpt_kill%d.log" % k)) as fp:
+            _flush_lines("a, run %d" % k, fp.read())
+    results, err = {}, io.StringIO()
+    t1 = time.time()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["rt", ini, "--device", str(dev)], results)
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    if rc != 0:
+        fail("phase 17: (a) the resumed rt verb returned %d" % rc)
+    skipped = _flush_lines("a, resumed", err.getvalue())
+    for line in skipped:
+        print("phase 17: (a) resumed: %s" % line.strip(), flush=True)
+    if not skipped:
+        fail("phase 17: (a) the resumed run skipped no unit")
+    res = results["rt"]
+    t1 = time.time()
+    ref = driver.run(ini_ref, device=dev)
+    torch.cuda.synchronize()
+    print("phase 17: (a) resumed run %.2f s, skipped %d units; the "
+          "uninterrupted run %.2f s [%s]"
+          % (wall, len(skipped), time.time() - t1, card), flush=True)
+    for name in ("absorbed", "emitted", "temperature"):
+        _held("a", name, getattr(res, name), getattr(ref, name))
+    _held("a", "map", res.maps[0], ref.maps[0])
+    _run_balance("a", res)
+    fl = res.checkpoint.flushes
+    print("phase 17: (a) the resumed run's %d flushes: %s; the file %d "
+          "bytes [%s]" % (len(fl), ", ".join("%.3f s" % s for s, _ in fl),
+                          os.path.getsize(ck), card), flush=True)
+    times["a"] = time.time() - t0
+
+    # (b1) phase 10 (b), ALI with the reference field iterated, over the
+    # six shards against phase 10's one-card run: the same packets
+    t0 = time.time()
+    d = os.path.join(work, "ckpt_b1")
+    ini = write_model(
+        d, N, kind="eqdust", nfreq=44, npix=64, bgpac=args.bgpackets,
+        map_dx=N / 64.0, octree=OCTREE, cellpackets=CELLPACKETS,
+        iterations=3, extra="ali 1\nreference 1\ncload %s\n" % os.path.join(
+            work, "octree_rt_a", "ctabs.save"))
+    res = driver.run(ini, device=dev, devices=devices)
+    torch.cuda.synchronize()
+    if res.devices != devices or not all(st["mesh"] and st["route"] == "ali"
+                                         for st in res.cell_passes):
+        fail("phase 17: (b1) the ALI passes did not run over the mesh")
+    for st, st1 in zip(res.cell_passes, ali_one.cell_passes):
+        print("phase 17: (b1) iteration %d ALI pass over %d shards: %d "
+              "packets in %d pools, %.2f s (%.0f packets/s); on one card %d "
+              "pool(s), %.2f s (%.0f packets/s) [%s]"
+              % (st["iteration"], PRODUCT_SHARDS, st["packets"], st["pools"],
+                 st["seconds"], st["packets"] / st["seconds"], st1["pools"],
+                 st1["seconds"], st1["packets"] / st1["seconds"], card),
+              flush=True)
+    for name in ("absorbed", "emitted", "temperature"):
+        _held("b1", name, getattr(res, name), getattr(ali_one, name))
+    _held("b1", "map", res.maps[0], ali_one.maps[0])
+    _run_balance("b1", res)
+    times["b1"] = time.time() - t0
+
+    # (b2) the constant sources with `split 4`, two dusts' abundances, the
+    # ROI save and mmapabs, (b3) without splitting under the mirrors and
+    # the weighting, both over MESH_SIMUM, over the six shards and on one
+    # card
+    from soc_tpu_torch.solve import equilibrium
+    for part, kw in (("b2", dict(split=SPLIT, abundance=True, hpbg=SKY_NSIDE,
+                                 hpbg_weighted=True,
+                                 point_sources=POINT_SOURCES,
+                                 ps_method=PS_METHOD,
+                                 pspackets=MESH_PSPACKETS,
+                                 diffuse=DIFFUSE_SHARE,
+                                 dfpackets=OCTREE_CELLS,
+                                 extra="roi %d %d %d %d %d %d\nroisave "
+                                 "roi.bin %d\nmmapabs\n"
+                                 % (ROI_BOX + (ROI_NSIDE,)))),
+                     ("b3", dict(extra="mirror %s\nstepweight 2 1.3 0.4\n"
+                                 "direweight 1 0.5\n" % MIRROR))):
+        t0 = time.time()
+        runs = {}
+        for where in ("one", "mesh"):
+            ini = write_model(
+                os.path.join(work, "ckpt_%s_%s" % (part, where)), N,
+                kind="eqdust", nfreq=44, simum=MESH_SIMUM, **kw, **common)
+            r = runs[where] = driver.run(
+                ini, device=dev, devices=devices if where == "mesh" else None)
+            torch.cuda.synchronize()
+            if part == "b2":
+                source_balance("%s, %s" % (part, where), r, card, "phase 17")
+                continue
+            # the step and direction weights keep the balance only in
+            # expectation (phase 13 (c1) holds their bias)
+            for st in r.source_passes:
+                print("phase 17: (%s, %s) %s: %d packets in %d pool(s), %.2f "
+                      "s (%.0f packets/s) [%s]"
+                      % (part, where, st["source"], st["packets"],
+                         st["pools"], st["seconds"],
+                         st["packets"] / st["seconds"], card), flush=True)
+        one, mesh = runs["one"], runs["mesh"]
+        if [st["route"] for st in mesh.source_passes] \
+                != ["mesh"] * len(one.source_passes):
+            fail("phase 17: (%s) a source did not run over the mesh" % part)
+        refined = np.nonzero(
+            (equilibrium.cell_levels(one.grid).cpu().numpy() > 0)
+            & (one.grid.dens.cpu().numpy() > 0))[0]
+        for st1, stm in zip(one.source_passes, mesh.source_passes):
+            if stm["clones"] == 0:
+                # every packet keeps its stream: the pass's own TABS (its
+                # deposits alone, whatever the sources before it left)
+                _held(part, "%s's absorbed energy a cell" % st1["source"],
+                      stm["tabs"], st1["tabs"])
+                continue
+            # the split sources' refined leaves as phase 12 (a) holds
+            # them; where both serve the same clones the difference is
+            # the order of the additions, which PRODUCT_RTOL takes
+            diff = stm["tabs"][refined].astype(np.float64) \
+                - st1["tabs"][refined].astype(np.float64)
+            sigma = np.sqrt(np.sum(np.array(
+                [g.sum() for g in np.array_split(diff, 64)]) ** 2))
+            refsum = st1["tabs"][refined].astype(np.float64).sum()
+            bound = SPLIT_SIGMAS * sigma + PRODUCT_RTOL * refsum
+            print("phase 17: (%s) %s split over %d shards, its %d refined "
+                  "leaves: difference %.3e of the one-card run's, bound %.1f "
+                  "sigma + %.0e = %.3e; clones %d over the mesh, %d on one "
+                  "card" % (part, st1["source"], PRODUCT_SHARDS, len(refined),
+                            diff.sum() / refsum, SPLIT_SIGMAS, PRODUCT_RTOL,
+                            bound / refsum, stm["clones"], st1["clones"]),
+                  flush=True)
+            if st1["clones"] == 0 or not abs(diff.sum()) <= bound:
+                fail("phase 17: (%s) the split %s disagrees"
+                     % (part, st1["source"]))
+        if part == "b2":
+            if not any(st["clones"] for st in mesh.source_passes):
+                fail("phase 17: (b2) no source split over the mesh")
+            roi1, roim = one.roi_tally.sum(), mesh.roi_tally.sum()
+            print("phase 17: (b2) the ROI file's photons: %.6e over the "
+                  "mesh, %.6e on one card" % (roim, roi1), flush=True)
+            if not (np.isfinite(mesh.roi_tally).all()
+                    and mesh.roi_tally.min() >= 0
+                    and abs(roim / roi1 - 1) <= ROI_MESH_RTOL):
+                fail("phase 17: (b2) the ROI file disagrees")
+        else:
+            for name in ("absorbed", "temperature"):
+                _held(part, name, getattr(mesh, name), getattr(one, name))
+        times[part] = time.time() - t0
+
+    # (c) phase 11's pipeline (the GSET dust, a quarter of `bgpackets`)
+    # over the six shards with `checkpoint`, killed once its absorption
+    # stage has recorded its unit, resumed; held to phase 11's one card
+    t0 = time.time()
+    d_ck = os.path.join(work, "ckpt_pipeline")
+    ini = write_model(d_ck, N, kind="gset", nfreq=44, nsize=24,
+                      extra="checkpoint ck.npz 1\n", **common)
+    shutil.copy(os.path.join(work, "gs_TST.solver"), d_ck)
+    ck = os.path.join(d_ck, "ck.npz")
+    code = ("import sys; from soc_tpu_torch.pipeline import full; "
+            "full.run_pipeline(sys.argv[1], %r, devices=[%r] * %d)"
+            % (str(dev), str(dev), PRODUCT_SHARDS))
+    secs, done = _kill_when([sys.executable, "-c", code, ini], HERE, ck,
+                            lambda u: "bg" in u,
+                            os.path.join(work, "ckpt_kill3.log"), "c")
+    print("phase 17: (c) pipeline killed after %.2f s, the file listing %s"
+          % (secs, done), flush=True)
+    a2e_kernel.launches = a2e_kernel.clamp_launches = 0
+    err = io.StringIO()
+    t1 = time.time()
+    with contextlib.redirect_stderr(err):
+        res_rt, _, res_map = full.run_pipeline(ini, dev, devices=devices)
+    torch.cuda.synchronize()
+    launches = (a2e_kernel.launches, a2e_kernel.clamp_launches)
+    skipped = _flush_lines("c, resumed", err.getvalue())
+    print("phase 17: (c) resumed pipeline over %d shards %.2f s (A2E %.2f "
+          "s): skipped %s; A2E launches %d a2e_all_sizes, %d a2e_clamp [%s]"
+          % (PRODUCT_SHARDS, time.time() - t1, res_map.timings["a2e"],
+             [line.split()[-1] for line in skipped], *launches, card),
+          flush=True)
+    if launches != (PRODUCT_SHARDS, 0) or not skipped:
+        fail("phase 17: (c) expected one A2E launch a shard and a skipped "
+             "unit on the resumed run")
+    report["a2e_sharded"]["ckpt_launches"] = launches[0]
+    for name in ("emitted.data", "absorbed.data"):
+        _held("c", name + " against phase 11's one card",
+              read_cell_frequency_array(os.path.join(d_ck, name)),
+              read_cell_frequency_array(os.path.join(work, "octree_pipeline",
+                                                     name)))
+    times["c"] = time.time() - t0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bgpackets", type=int, default=FULL_BGPACKETS)
@@ -2994,9 +3359,12 @@ def main():
         scattering_phase(dev, work, args, report)
         t6 = time.time()
         config5_phase(dev, work, args, report)
+        t7 = time.time()
+        checkpoint_phase(dev, work, args, report, plain["b"])
         print("phase 10: %.2f s; phase 11: %.2f s; phase 12: %.2f s; phase "
               "13: %.2f s (%s); phase 14: %.2f s (%s); phase 15: %.2f s "
-              "(%s); phase 16: %.2f s (%s); the smoke so far %.2f s [%s]"
+              "(%s); phase 16: %.2f s (%s); phase 17: %.2f s (%s); the "
+              "smoke so far %.2f s, phase 10 %.2f s of it [%s]"
               % (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["slice"].items()),
@@ -3006,10 +3374,13 @@ def main():
                  t6 - t5,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["sca"].items()),
-                 time.time() - t6,
+                 t7 - t6,
                  ", ".join("%s %.4g" % kv
                            for kv in report["config5"].items()),
-                 time.time() - T_START, card), flush=True)
+                 time.time() - t7,
+                 ", ".join("%s %.2f s" % kv
+                           for kv in report["ckpt"].items()),
+                 time.time() - T_START, t1 - t0, card), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3031,7 +3402,7 @@ def main():
              "a2e_all_sizes_global", "a2e_clamp_global"]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = ("shards", "octree_launches", "octree_ms", "octree_plain_ms",
+    extra = ("shards", "ckpt_launches", "octree_launches", "octree_ms", "octree_plain_ms",
              "octree_bound_ms", "octree_max_abs_err", "sources_launches",
              "sources_ms", "sources_plain_ms", "sources_bound_ms",
              "sources_max_abs_err", "pol_launches", "pol_ms",

@@ -306,7 +306,7 @@ def _a2e_lib(args, device):
         if absorbed.shape[1] == len(lfreq):
             # a reduced file: its columns are the reference frequencies
             lib = dict(lib, ref_indices=list(range(len(lfreq))))
-        emitted = libmod.solve_with_library(lib, absorbed, device)
+        emitted = libmod.solve_with_library(lib, absorbed, device=device)
     if ofreq is not None:
         emitted = np.ascontiguousarray(emitted[:, _nearest(freq, ofreq)])
     write_cell_frequency_array(f_emit, emitted)

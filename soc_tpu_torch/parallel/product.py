@@ -1,17 +1,31 @@
 """Multi-device execution: the product path behind the `devices N` ini
-keyword (port of soc_tpu.parallel.product for the background source).
+keyword (port of soc_tpu.parallel.product).
 
 Layout. N devices form a (dp, freq) mesh, shard (dp, fq) on device
 ``devices[dp * F + fq]``:
   * 'freq': frequency channels are blocked over F shards; block fq owns
     the L = NFREQ/F channels fq*L .. fq*L + L - 1 and their [CELLS, L]
-    per-frequency tally slab;
+    per-frequency tally slab (with `saveint 2` [CELLS, L, 4]);
   * 'dp': each channel's packet budget is split over the n_dp = N/F shards
     of its block by id range. Every packet keeps the stream of the
     one-device run (streams are keyed by (phase|iteration|channel,
     index within the channel)), so the tallies match the one-device run up
     to the order of the float32 additions. Each shard drains one pool over
     its block (run_freqs says why not one per channel).
+
+What runs sharded: as in soc_tpu, every source of phase 1 (the isotropic
+background with `split`, the Healpix sky, point sources, the diffuse
+field, the ROI load) and the re-emission of phase 2 (the mixed cell pass,
+ALI, EMWEI, WITH_REFERENCE, SUBITERATIONS), with no feature exclusions:
+per-cell abundances (WITH_ABU, MSF, `optishalf`), `stepweight`,
+`direweight`, mirrors, the ROI save's crossing tally, `saveint`, `simum`,
+`mmapabs` (the frequency-sharded slabs take the host tally's place) and
+mid-run checkpoints, one unit a sharded pass. The one-device driver
+runs its passes through the same run_freqs, as a one-shard mesh
+(one_shard): sharding wraps the transport, it does not fork it.
+After each pass the dp partials of a block are folded into its dp-0 slab
+(fold_intf), so that the reduced tally a checkpoint holds, restored into
+the dp-0 slabs, continues the run bit for bit on the CPU.
 
 Execution. One host thread, the caller's, drives every shard, each under
 ``torch.cuda.device(its device)`` on that device's current stream: the
@@ -29,10 +43,7 @@ repeat in the list: its shards then share that device and its stream;
 the tests and the smoke run use this to drive the layout on one card or
 on the CPU.
 
-Not ported here: cell emission (`cellpackets` iterations, ALI,
-WITH_REFERENCE, SUBITERATIONS), the other sources, ROI, checkpoints,
-splitting and mirrors under `devices` (the driver still refuses them), and
-soc_tpu's multi-host globalisation.
+Not ported here: soc_tpu's multi-host globalisation (parallel/dist.py).
 """
 
 import contextlib
@@ -41,11 +52,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..rng import MASK32
 from ..solve import equilibrium
 from ..solve.a2e_kernel import shard_ranges
 from ..transport.propagate import pool_lanes, transport_steps
-from ..transport.sources import stream_hi_base
 
 
 def _on(device):
@@ -133,16 +142,17 @@ class ProductMesh:
         return out
 
     # ---- per-frequency tally: one dp-partial [CELLS, L] slab per shard
-    def zeros_intf(self, cells):
-        """Zero slabs [CELLS, NFREQ/F] float32, one per shard on its
-        device, in shard order."""
-        return [torch.zeros((cells, self.nf_local), dtype=torch.float32,
-                            device=d) for d in self.devices]
+    def zeros_intf(self, cells, comps=0):
+        """Zero slabs [CELLS, NFREQ/F(, comps)] float32, one per shard on
+        its device, in shard order (soc_tpu's zeros_intf(cells, comps))."""
+        shape = (cells, self.nf_local) + ((comps,) if comps else ())
+        return [torch.zeros(shape, dtype=torch.float32, device=d)
+                for d in self.devices]
 
     def reduce_intf(self, slabs, device):
         """The slabs summed over dp (in dp order) and concatenated over
-        freq in block order: [CELLS, NFREQ] on ``device``, column fq*L + fl
-        the global channel fq*L + fl."""
+        freq in block order: [CELLS, NFREQ(, comps)] on ``device``, column
+        fq*L + fl the global channel fq*L + fl."""
         blocks = []
         for fq in range(self.n_freq):
             acc = slabs[fq].to(device)
@@ -151,95 +161,175 @@ class ProductMesh:
             blocks.append(acc)
         return torch.cat(blocks, 1)
 
+    def fold_intf(self, slabs, parts=None):
+        """End of a sharded pass: each block's dp partials (``parts``, a
+        pass's own slabs, else the slabs themselves past dp 0) added into
+        its dp-0 slab in dp order; the slabs past dp 0 are left zero. The
+        reduced tally is then the dp-0 slabs, and a run restored into them
+        (scatter_intf) adds in the same order as one never stopped."""
+        for fq in range(self.n_freq):
+            acc = slabs[fq]
+            for dp in range(0 if parts is not None else 1, self.n_dp):
+                i = dp * self.n_freq + fq
+                src = slabs[i] if parts is None else parts[i]
+                acc.add_(src.to(acc.device))
+                if parts is None:
+                    src.zero_()
 
-def run_freqs(pm, grid, medium, kind, photons, per_freq, tabs, intf, seed,
-              lanes, per_freq_tally, phase=None, iteration=0, sel=None):
-    """The sharded transport of one source over every channel.
+    def scatter_intf(self, host, slabs):
+        """A reduced [CELLS, NFREQ(, comps)] host tally (a checkpoint's)
+        into the slabs: block fq into its dp-0 slab, the others zero."""
+        host = np.asarray(host, np.float32)
+        for i, slab in enumerate(slabs):
+            dp, fq = divmod(i, self.n_freq)
+            if dp == 0:
+                blk = host[:, fq * self.nf_local:(fq + 1) * self.nf_local]
+                slab.copy_(torch.as_tensor(np.ascontiguousarray(blk)))
+            else:
+                slab.zero_()
+        return slabs
 
-    Shard (dp, fq) drains one mixed-frequency pool over the channels
-    g = fq*L .. fq*L + L - 1 of its block, with its part of each channel's
-    budget: of ``per_freq`` packets, q = per_freq // n_dp each, the first
-    per_freq % n_dp shards one more, from within-channel index
-    k0 = dp*q + min(dp, r). Its local channel fl = g - fq*L is its tally
-    column, and hi_base = hi0 + fq*L makes hi = hi_base + fl the stream
-    word hi0 + g of the one-device run, so every packet keeps its stream.
+
+def _to(tree, dev):
+    """A dict's tensors on ``dev`` (the same tensor where it lies there)."""
+    return {k: v.to(dev) if torch.is_tensor(v) else v
+            for k, v in tree.items()}
+
+
+def run_freqs(pm, grid, physics, kind, params, sel, counts, tabs, intf,
+              seed, lanes, per_freq_tally, hi_base, maps=None, split_max=0,
+              mirror_mask=0, roi=None, with_ali=False, col0=0):
+    """The sharded transport of one source or cell pass; the one-device
+    driver runs its pools here too, over a one-shard mesh (one_shard).
+
+    Channel sel[j] carries counts[j] packets. Shard (dp, fq) drains one
+    mixed-frequency pool over the channels of ``sel`` in its block
+    fq*L .. fq*L + L - 1, with its part of each channel's budget: of
+    c packets, q = c // n_dp each, the first c % n_dp shards one more,
+    from within-channel index k0 = dp*q + min(dp, r). Its pool's
+    parameters come from sources.pool_params, as the one-device pool's do,
+    with hi_base the run's, so hi = hi_base + g for global channel g and
+    every packet keeps its stream; the shard's slab takes the block's
+    columns (tally_col0 = fq*L). ``maps`` (EMWEI) holds channel sel[j]'s
+    id -> cell map; a shard takes the slice [k0, k0 + its count).
     soc_tpu runs the L channels of a shard as L uniform-frequency pools one
     after the other; here each such pool would drain its own tail of eager
     sweeps, and on one H100 the 132 pools of a six-shard mesh took 15x as
     long as one pool per shard (PERF.md). The tallies of the two forms
-    differ only in the order of the additions.
+    differ only in the order of the additions. The shards' pools are
+    stepped in turn (pm.map_steps).
 
-    The shards' pools are stepped in turn (pm.map_steps). ``sel`` (the
-    channels to simulate, all by default; `libabs`'s FSELECT) leaves the
-    other channels out of every shard's pool, each kept channel's packets
-    unchanged.
-
-    photons [NFREQ] host array of per-packet weights; tabs [CELLS] on the
-    caller's device; intf the slabs of pm.zeros_intf (ignored when
-    per_freq_tally is False). Returns (tabs, intf, escaped [NFREQ]) with
-    tabs added to: the shards' tallies summed in shard order.
+    physics and params lie on tabs' device (copied to each other distinct
+    device once a call); ``roi`` the ROI save's dict, its tally added to
+    by every shard's own in shard order; with_ali the XAB tally of ALI,
+    one per shard, summed in shard order. tabs [CELLS] on the caller's
+    device, intf the slabs of pm.zeros_intf (ignored when per_freq_tally
+    is False); ``col0`` the first channel of the slabs (a one-shard
+    mesh's `mmapabs` block: its tally holds channels col0 ..). Each shard
+    deposits into a TABS of its own: the pass's own TABS is their sum in
+    shard order, added once to tabs, so it holds the pass's deposits
+    exactly whatever tabs held before. Returns (tabs, intf, out) with out
+    holding tabs (the pass's own), escaped, launched, missed [NFREQ]
+    float64 host arrays, clones, pools, packets and xab ([CELLS] on tabs'
+    device, with_ali).
     """
-    nfreq = medium.nfreq
+    from ..transport.sources import pool_params
+    nfreq = pm.nfreq
     F, L, n_dp = pm.n_freq, pm.nf_local, pm.n_dp
-    total = int(per_freq)
-    escaped = np.zeros(nfreq)
-    if total <= 0:
-        return tabs, intf, escaped
-    hi0 = stream_hi_base(phase or kind, iteration)
-    q, r = divmod(total, n_dp)
-    keep = np.ones(nfreq, bool) if sel is None else np.isin(
-        np.arange(nfreq), sel)
-    nlanes = pool_lanes(lanes, (q + int(r > 0))
-                        * max(int(keep[f * L:f * L + L].sum())
-                              for f in range(F)))
-    photons = np.asarray(photons, np.float32)
+    sel = np.asarray(sel, np.int64)
+    counts = np.broadcast_to(np.asarray(counts, np.int64), sel.shape)
+    plans = []
+    for i in range(len(pm.devices)):
+        dp, fq = divmod(i, F)
+        m = (sel >= fq * L) & (sel < fq * L + L) & (counts > 0)
+        q, r = np.divmod(counts[m], n_dp)
+        mine = q + (dp < r)
+        k0 = dp * q + np.minimum(dp, r)
+        keep = mine > 0
+        mp = None
+        if maps is not None:
+            mp = [mv[a:a + n] for mv, a, n, k in zip(
+                [mv for mv, mm in zip(maps, m) if mm], k0, mine, keep) if k]
+        plans.append((sel[m][keep], mine[keep], k0[keep], mp))
+    total = max(int(p[1].sum()) for p in plans)
+    own = torch.zeros_like(tabs)
+    out = dict(tabs=own, escaped=np.zeros(nfreq), launched=np.zeros(nfreq),
+               missed=np.zeros(nfreq), clones=0, pools=0,
+               packets=int(sum(int(p[1].sum()) for p in plans)), xab=None)
+    if total == 0:
+        if with_ali:
+            out["xab"] = torch.zeros_like(tabs)
+        return tabs, intf, out
+    nlanes = pool_lanes(lanes, total)
+    copies = {}
 
     def shard(i, dev):
-        dp, fq = divmod(i, F)
-        mine = q + int(dp < r)
+        chans, mine, k0, mp = plans[i]
+        fq = i % F
         dtabs = torch.zeros(grid.cells, dtype=torch.float32, device=dev)
-        local = np.nonzero(keep[fq * L:fq * L + L])[0]
-        if mine == 0 or len(local) == 0:
-            return dtabs, np.zeros(L)
-        block = slice(fq * L, fq * L + L)
-        med = pm.replica(medium, dev)
-        physics = dict(kabs=med.abs_gl[block], ksca=med.sca_gl[block],
-                       csc=med.csc[block], tw=med.tw[block])
-        params = dict(photons=torch.as_tensor(photons[block], device=dev),
-                      per_freq=mine, k0=dp * q + min(dp, r),
-                      hi_base=(hi0 + fq * L) & MASK32)
-        if len(local) < L:
-            params["sel"] = torch.as_tensor(local, device=dev)
+        if len(chans) == 0:
+            return dtabs, None, None
+        if dev not in copies:
+            copies[dev] = (_to(physics, dev), _to(params, dev))
+        phys, par = copies[dev]
+        p = pool_params(par, chans, mine, hi_base, dev, k0=k0, maps=mp)
+        sroi = None
+        if roi is not None:
+            sroi = dict(roi, mask=roi["mask"].to(dev),
+                        tally=torch.zeros(roi["tally"].shape,
+                                          dtype=torch.float32, device=dev))
         slab = intf[i] if per_freq_tally \
             else torch.zeros((1, 1), dtype=torch.float32, device=dev)
-        _, _, esc, _ = yield from transport_steps(
-            pm.replica(grid, dev), physics, params, mine * len(local), dtabs,
-            slab,
+        res = yield from transport_steps(
+            pm.replica(grid, dev), phys, p, int(mine.sum()), dtabs, slab,
             seed, source_kind=kind, nlanes=nlanes,
-            per_freq_tally=per_freq_tally)
-        return dtabs, esc.cpu().numpy()
+            per_freq_tally=per_freq_tally, with_ali=with_ali,
+            split_max=split_max, births=True, mirror_mask=mirror_mask,
+            roi=sroi, tally_col0=col0 + fq * L if per_freq_tally else 0)
+        return dtabs, res, sroi
 
-    for i, (dtabs, esc) in enumerate(pm.map_steps(shard)):
-        fq = i % F
-        tabs = tabs + dtabs.to(tabs.device)
-        escaped[fq * L:fq * L + L] += esc
-    return tabs, intf, escaped
+    for dtabs, res, sroi in pm.map_steps(shard):
+        own += dtabs.to(own.device)
+        if res is None:
+            continue
+        out["pools"] += 1
+        out["escaped"] += res[2].cpu().numpy()
+        out["launched"] += res[-2].cpu().numpy()
+        out["missed"] += res[-1].cpu().numpy()
+        if with_ali:
+            x = res[4].to(tabs.device)
+            out["xab"] = x if out["xab"] is None else out["xab"] + x
+        if split_max > 0:
+            out["clones"] += int(res[5 if with_ali else 4])
+        if sroi is not None:
+            roi["tally"].add_(sroi["tally"].to(roi["tally"].device))
+    if with_ali and out["xab"] is None:
+        out["xab"] = torch.zeros_like(tabs)
+    return tabs + own, intf, out
 
 
-def solve_temperature(pm, grid, table, tabs, gl_pc_parsec, cr_heating=0.0):
+def one_shard(device, nfreq):
+    """The mesh of a one-device run: one shard, every channel, on
+    ``device`` (the grid's own, so nothing is copied)."""
+    return ProductMesh(1, nfreq, [device])
+
+
+def solve_temperature(pm, grid, table, tabs, gl_pc_parsec, beta=1.0,
+                      cr_heating=0.0):
     """Equilibrium temperature [CELLS] on tabs' device, the cells split
     into contiguous ranges over all shards (elementwise, so equal to the
-    one-device solve bit for bit); cr_heating as
-    equilibrium.temperature_lookup's."""
+    one-device solve bit for bit); beta ALI's escape probability (a
+    scalar or [CELLS]), cr_heating as equilibrium.temperature_lookup's."""
     lev = equilibrium.cell_levels(grid)
     ranges = shard_ranges(grid.cells, len(pm.devices))
 
     def shard(i, dev):
         c0, c1 = ranges[i]
+        b = beta[c0:c1].to(dev) if torch.is_tensor(beta) else beta
         return equilibrium.temperature_lookup(
             pm.replica(table, dev), tabs[c0:c1].to(dev),
             pm.replica(grid, dev).dens[c0:c1], lev[c0:c1].to(dev),
-            gl_pc_parsec, cr_heating=cr_heating)
+            gl_pc_parsec, beta=b, cr_heating=cr_heating)
 
     return torch.cat([t.to(tabs.device) for t in pm.map_shards(shard)])
 

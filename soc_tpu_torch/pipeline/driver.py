@@ -18,7 +18,8 @@ Phases:
      per-frequency tally lives in a host memmap and each pass runs one
      pool per block of channels whose tally fits the budget (HostTally)
   2. iterations: the dust's own emission re-emitted as cell packets
-     (`cellpackets`, with EMWEI, ALI and the WITH_REFERENCE delta field),
+     (`cellpackets`, with EMWEI, ALI and the WITH_REFERENCE delta field;
+     each pass one mixed-frequency pool over (cell, channel)),
      the equilibrium temperature solve and the thermal emission; or the
      SUBITERATIONS hot/cold schedule; or, with `loadtemp`, the emission of
      a stored temperature field
@@ -33,13 +34,16 @@ With `libabs` phase 1 simulates only the FSELECT reference channels and
 the run stops after it, writing their absorptions (the library's input,
 pipeline/full.py's uselib mode); with `libmaps` the maps render the
 FSELECT channels, embedding an emitted file of those columns only.
-With `devices N` (or an explicit device list) phases 1 and 3 and one
-temperature solve run over a (dp x freq) mesh of devices
-(parallel/product.py): phase 1 with the channels blocked over freq and
-each channel's budget split over dp; the solve with the cells split;
-phase 3 with the map's rows and channels split. Cell emission and the
-keywords of mesh_refused_features are not ported to the mesh yet and
-raise there.
+With `devices N` (or an explicit device list) phases 1 and 2, the
+temperature solves and phase 3 run over a (dp x freq) mesh of devices
+(parallel/product.py): each transport pass with the channels blocked over
+freq and each channel's budget split over dp, every source and keyword as
+on one device; the solve with the cells split; phase 3 with the map's
+rows and channels split.
+With `checkpoint <file> [N]` (utils/checkpoint.py) the tallies and the
+completed units (a source or cell pass, an mmapabs block, a pass over the
+mesh, an iteration's state) are written to the file every N units; the same command run again resumes after the last
+unit written, and a run that is never stopped gives the same outputs.
 Outputs keep the reference's binary formats. A keyword or input the port
 does not support yet raises NotImplementedError naming it; nothing is
 silently ignored.
@@ -67,7 +71,6 @@ from ..render import mapping as render_mapping
 from ..solve import equilibrium
 from ..transport.medium import medium_from_optics
 from ..transport import sources
-from ..transport.propagate import pool_lanes, transport_run
 from ..transport.roi import (read_roi_file, roi_cell_mask, roi_nelem,
                              write_roi_file)
 from ..transport.sources import stream_hi_base
@@ -111,67 +114,14 @@ class RunResult:
     source_passes: list = field(default_factory=list)  # a dict a source
     cell_passes: list = field(default_factory=list)  # one dict a cell pass
     devices: list = None                # the product mesh's devices, or None
+    checkpoint: object = None           # the run's RunCheckpoint, or None
     timings: dict = field(default_factory=dict)
 
 
 def unsupported_features(cfg):
     """Names of the ini features this port does not implement yet:
-    `domains` (parallel/domain.py) and `checkpoint` (utils/checkpoint.py),
-    ROADMAP.md's queue."""
-    out = []
-
-    def need(cond, name):
-        if cond:
-            out.append(name)
-
-    need(cfg.n_domains, "domains")
-    need(cfg.file_checkpoint, "checkpoint")
-    return out
-
-
-def cell_emission_features(cfg):
-    """Names of the phase-2 cell-emission features the ini asks for (none
-    of them ported to the `devices` mesh yet)."""
-    out = []
-    if cfg.nosolve:
-        return out
-    if cfg.clpac > 0 and cfg.iterations > 1:
-        out.append("cellpackets with iterations > 1")
-    if cfg.with_ali:
-        out.append("ali")
-    if cfg.with_reference:
-        out.append("reference (WITH_REFERENCE)")
-    if cfg.has_key("SUBITERATIONS"):
-        out.append("SUBITERATIONS")
-    return out
-
-
-def mesh_refused_features(cfg):
-    """Names of the keywords ported for one device but not to the
-    `devices` mesh yet (besides cell emission: cell_emission_features)."""
-    out = []
-
-    def need(cond, name):
-        if cond:
-            out.append(name)
-
-    need(cfg.do_split, "split")
-    need(cfg.no_ps > 0, "pointsource")
-    need(cfg.file_hpbg, "hpbg (Healpix background)")
-    need(cfg.file_diffuse, "diffuse")
-    need(len(cfg.file_abundance) > 0, "abundance (WITH_ABU / WITH_MSF)")
-    need(cfg.optishalf, "optishalf")
-    need(cfg.save_intensity > 0, "saveint / dustem")
-    need(not (cfg.sim_f[0] <= 1.0e8 and cfg.sim_f[1] >= 1.0e17), "simum")
-    need((cfg.roi is not None and cfg.file_roi_save) or cfg.file_roi_load,
-         "roi / roisave / roiload")
-    need(cfg.mirror, "mirror")
-    need(cfg.step_weight[0] in (1, 2) and cfg.step_weight[1] > 0,
-         "stepweight")
-    need(cfg.dir_weight[0] >= 0 and abs(cfg.dir_weight[1]) > 1e-6,
-         "direweight")
-    need(cfg.mmap_absorbed, "mmapabs")
-    return out
+    `domains` (parallel/domain.py), ROADMAP.md's queue."""
+    return ["domains"] if cfg.n_domains else []
 
 
 def check_supported(cfg):
@@ -239,10 +189,11 @@ class HostTally:
         col = int(np.prod(shape)) // shape[1] * 4
         self.cols = max(1, int(budget) // col)
 
-    def blocks(self, channels):
+    def blocks(self, channels, after=None):
         """Yields (channels of the block, its device tally [CELLS, NB(, 4)]
         of channels col0 .. col0 + NB - 1, col0); each block is added into
-        the memmap when the caller's body for it is done."""
+        the memmap when the caller's body for it is done, then
+        ``after(channels of the block)`` is called."""
         channels = np.asarray(channels)
         host = self.host
         for i in range(0, len(channels), self.cols):
@@ -252,21 +203,84 @@ class HostTally:
                               dtype=torch.float32, device=self.device)
             yield chunk, dev, c0
             host[:, c0:c0 + ncol] += dev.cpu().numpy()
+            if after is not None:
+                after(chunk)
 
 
-def _tally_blocks(intf, channels, fresh=False):
+def _tally_blocks(intf, channels, fresh=False, after=None, pmesh=None):
     """The per-frequency tallies a pass over ``channels`` adds into, as
-    (channels, tally, col0): a HostTally's device blocks; else intf
-    itself, or with ``fresh`` a tally of the pass's own added into intf
-    afterwards (a cell pass, whose absorption is held to its own)."""
+    (channels, tally, col0): a HostTally's device blocks; over a mesh its
+    slabs, each block's dp partials folded into its dp-0 slab afterwards;
+    else intf itself. With ``fresh`` the pass adds into a tally of its own
+    (over a mesh slabs of its own), added into intf afterwards: a cell
+    pass, whose absorption is held to its own. ``after(channels)`` is
+    called once a block's deposits are in intf (a checkpoint records its
+    unit there)."""
     if isinstance(intf, HostTally):
-        yield from intf.blocks(channels)
+        yield from intf.blocks(channels, after)
+        return
+    if isinstance(intf, list):
+        own = intf
+        if fresh:
+            comps = intf[0].shape[2] if intf[0].ndim == 3 else 0
+            own = pmesh.zeros_intf(intf[0].shape[0], comps)
+        yield channels, own, 0
+        pmesh.fold_intf(intf, parts=own if fresh else None)
     elif fresh:
         own = torch.zeros_like(intf)
         yield channels, own, 0
         intf.add_(own)
     else:
         yield channels, intf, 0
+    if after is not None:
+        after(channels)
+
+
+def _intf_snapshot(intf, pmesh=None):
+    """The per-frequency tally a checkpoint holds: the HostTally's memmap,
+    over a mesh the reduced slabs (on the host), else intf."""
+    if isinstance(intf, HostTally):
+        return intf.host
+    if isinstance(intf, list):
+        return pmesh.reduce_intf(intf, torch.device("cpu"))
+    return intf
+
+
+def _units(intf, channels, key, ckpt, skip, record, fresh=False,
+           pmesh=None):
+    """The checkpoint units of one pass over ``channels``, as (key, the
+    unit's channels, its tally, col0) from _tally_blocks: the pass is one
+    unit ``key``; under `mmapabs` each HostTally block is one, keyed
+    "<key>/f<first channel>". A unit the checkpoint holds is not yielded:
+    skip(key) is called instead. record(key) is called once a yielded
+    unit's deposits are in intf. Without a checkpoint neither is."""
+    blocked = isinstance(intf, HostTally)
+    ran = []
+
+    def after(chans):
+        if ran:
+            record(ran.pop())
+
+    for chans, tally, col0 in _tally_blocks(
+            intf, channels, fresh, None if ckpt is None else after, pmesh):
+        ukey = "%s/f%d" % (key, chans[0]) if blocked else key
+        if ckpt is not None and ckpt.completed(ukey):
+            skip(ukey)
+            continue
+        yield ukey, chans, tally, col0
+        ran.append(ukey)
+
+
+def _pass_absorbed(tally, col0, pm):
+    """Per channel, float64, the absorption a pass's own per-frequency
+    tally holds (a tensor from column col0, or over a mesh its slabs)."""
+    out = np.zeros(pm.nfreq)
+    slabs = tally if isinstance(tally, list) else [tally]
+    for i, slab in enumerate(slabs):
+        c = col0 + (i % pm.n_freq) * slab.shape[1]
+        out[c:c + slab.shape[1]] += _absorbed_of(slab).sum(
+            0, dtype=torch.float64).cpu().numpy()
+    return out
 
 
 def _host_tally(cfg, grid, nfreq, device, pmesh):
@@ -350,22 +364,29 @@ def _physics(medium, physics_extra=None):
 
 def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
                  seed, lanes, per_freq_tally, physics_extra=None,
-                 split_max=0, mirror_mask=0, roi=None):
+                 split_max=0, mirror_mask=0, roi=None, pmesh=None,
+                 ckpt=None):
     """One phase-1 source as one mixed-frequency pool over the channels
     ``sel``, counts[j] packets in channel sel[j] (channels with none are
     left out): soc_tpu runs a pool a channel here, and the packet
     identities (hi = stream_hi_base(phase) + channel, k the id within the
     channel) are the same, so the pool traces the same packets with one
     drain tail. Under `mmapabs` (intf a HostTally) one pool a block of
-    channels. params['cell_maps'] (EMWEI) holds one id -> cell map a
-    channel of sel, joined end to end for the pool. ``roi``: the ROI
-    save's crossing tally (transport_run). Returns (tabs, intf, stats):
+    channels; over a mesh (``pmesh``, intf its slabs) one pool a shard.
+    Both run through product.run_freqs, one device as a one-shard mesh.
+    params['cell_maps'] (EMWEI) holds one id -> cell map a channel of sel,
+    joined end to end for the pool. ``roi``: the ROI save's crossing
+    tally (transport_run). ``ckpt``: the run's checkpoint; the pass
+    (under `mmapabs` each block) is a unit (_units), skipped when the
+    checkpoint holds it (its deposits are in the restored tallies) and
+    recorded once its deposits are in them. Returns (tabs, intf, stats):
     the source's route, pools, packets, seconds, clones and, per channel
     in float64, the weights escaped, launched and born outside the grid,
-    and its absorbed energy (the sum and the per-cell tally it added, a
-    host array)."""
+    and its absorbed energy (the sum and the per-cell TABS it added, a
+    host array, the pass's own: exact whatever tabs held before);
+    ``restored`` when a unit came from the checkpoint."""
+    from ..parallel import product
     t0 = time.time()
-    device = grid.device
     nfreq = medium.nfreq
     sel = np.asarray(sel, np.int64)
     counts = np.broadcast_to(np.asarray(counts, np.int64), sel.shape)
@@ -377,45 +398,51 @@ def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
     sel, counts = sel[keep], counts[keep]
     total = int(counts.sum())
     zero = np.zeros(nfreq)
-    stats = dict(source=phase, route="mixed", pools=0, packets=total,
-                 clones=0,
-                 seconds=0.0, escaped=zero, launched=zero,
-                 missed=zero, absorbed_energy=0.0, tabs=None)
+    stats = dict(source=phase, route="mixed" if pmesh is None else "mesh",
+                 pools=0, packets=total, clones=0, seconds=0.0,
+                 escaped=zero, launched=zero, missed=zero,
+                 absorbed_energy=0.0, tabs=None, restored=False)
     if total == 0:
         return tabs, intf, stats
+    vec = dict(escaped=zero.copy(), launched=zero.copy(),
+               missed=zero.copy())
+    pm = pmesh or product.one_shard(grid.device, nfreq)
     physics = _physics(medium, physics_extra)
-    tabs0 = tabs.clone()
-    escaped, launched, missed = zero.copy(), zero.copy(), zero.copy()
-    clones = pools = 0
-    for chans, tally, col0 in _tally_blocks(intf, sel):
+    own = torch.zeros_like(tabs)
+    units = {}
+
+    def skip(key):
+        for k, v in ckpt.skipped(key).items():
+            if k in vec:
+                vec[k] += v
+        stats["restored"] = True
+
+    def record(key):
+        ckpt.record(key, units.pop(key), tabs=tabs,
+                    intf=_intf_snapshot(intf, pmesh),
+                    roi=None if roi is None else roi["tally"])
+
+    for key, chans, tally, col0 in _units(intf, sel, phase, ckpt, skip,
+                                          record, pmesh=pmesh):
         m = np.isin(sel, chans)
-        bcounts, n = counts[m], int(counts[m].sum())
-        p = dict(params, hi_base=stream_hi_base(phase),
-                 sel=torch.as_tensor(sel[m], device=device))
-        if maps is not None:
-            p["cell_of_id"] = torch.as_tensor(np.concatenate(
-                [mp for mp, k in zip(maps, m) if k]), device=device)
-        if (bcounts == bcounts[0]).all() and maps is None:
-            p["per_freq"] = int(bcounts[0])
-        else:
-            p["starts"] = torch.as_tensor(
-                np.concatenate([[0], np.cumsum(bcounts)]), device=device)
-        out = transport_run(
-            grid, physics, p, n, tabs, tally, seed, source_kind=kind,
-            nlanes=pool_lanes(lanes, n), per_freq_tally=per_freq_tally,
-            split_max=split_max, births=True, mirror_mask=mirror_mask,
-            roi=roi, tally_col0=col0)
-        tabs = out[0]
-        escaped += out[2].cpu().numpy()
-        launched += out[-2].cpu().numpy()
-        missed += out[-1].cpu().numpy()
-        clones += int(out[4]) if split_max > 0 else 0
-        pools += 1
-    delta = tabs - tabs0
-    stats.update(pools=pools, clones=clones, escaped=escaped,
-                 launched=launched, missed=missed,
-                 absorbed_energy=float(delta.sum(dtype=torch.float64)),
-                 tabs=delta.cpu().numpy(), seconds=time.time() - t0)
+        tabs, _, out = product.run_freqs(
+            pm, grid, physics, kind, params, sel[m], counts[m], tabs,
+            tally if pmesh is not None else [tally], seed, lanes,
+            per_freq_tally, stream_hi_base(phase), split_max=split_max,
+            maps=None if maps is None else [mp for mp, k in zip(maps, m)
+                                            if k],
+            mirror_mask=mirror_mask, roi=roi, col0=col0)
+        own += out["tabs"]
+        units[key] = {k: out[k] for k in vec}
+        for k in vec:
+            vec[k] += out[k]
+        stats["clones"] += out["clones"]
+        stats["pools"] += out["pools"]
+    if stats["pools"] == 0:         # every unit came from the checkpoint
+        stats.update(vec)
+        return tabs, intf, stats
+    stats.update(absorbed_energy=float(own.sum(dtype=torch.float64)),
+                 tabs=own.cpu().numpy(), seconds=time.time() - t0, **vec)
     return tabs, intf, stats
 
 
@@ -428,13 +455,14 @@ def split_max_of(cfg, grid):
 def simulate_background(grid, medium, cfg, ibg, tabs, intf, seed,
                         lanes=DEFAULT_LANES, per_freq_tally=False,
                         pmesh=None, sel=None, physics_extra=None,
-                        split_max=0, passes=None, roi=None):
+                        split_max=0, passes=None, roi=None, ckpt=None):
     """Phase-1 isotropic background over the channels ``sel`` (all by
     default), in one mixed pool; with ``pmesh`` (`devices N`) over the
     mesh, one pool per shard (product.run_freqs), intf then the mesh's
-    slabs. The reference sends 8*AREA*BATCH packets per frequency; the
-    same normalisation keeps the tallies comparable. The pass's stats
-    (_source_pass) go to ``passes`` when given. Returns
+    slabs; ``ckpt`` the run's checkpoint (_source_pass). The reference
+    sends 8*AREA*BATCH packets per frequency; the same normalisation
+    keeps the tallies comparable. The pass's stats (_source_pass) go to
+    ``passes`` when given. Returns
     (tabs, intf, escaped[NF], injected[NF], packets)."""
     area = int(grid.area)
     batch = max(1, int(round(cfg.bgpac / (8.0 * area))))
@@ -446,17 +474,11 @@ def simulate_background(grid, medium, cfg, ibg, tabs, intf, seed,
     sel = np.arange(nfreq) if sel is None else np.asarray(sel)
     injected = _only(np.float64(per_freq)
                      * np.asarray(bg_photons, np.float64), sel)
-    if pmesh is not None:
-        from ..parallel import product
-        tabs, intf, escaped = product.run_freqs(
-            pmesh, grid, medium, "bg", bg_photons, per_freq, tabs, intf,
-            seed, lanes, per_freq_tally, sel=sel)
-        return tabs, intf, escaped, injected, per_freq * len(sel)
     params = dict(photons=torch.as_tensor(bg_photons, device=grid.device))
     tabs, intf, st = _source_pass(
         grid, medium, "bg", "bg", params, per_freq, sel, tabs, intf, seed,
         lanes, per_freq_tally, physics_extra, split_max,
-        mirror_mask_of(cfg), roi)
+        mirror_mask_of(cfg), roi, pmesh, ckpt)
     st["injected"] = injected
     if passes is not None:
         passes.append(st)
@@ -473,7 +495,7 @@ def _only(values, sel):
 def simulate_hpbg(grid, medium, cfg, hpbg, tabs, intf, seed,
                   lanes=DEFAULT_LANES, per_freq_tally=False, weighted=False,
                   sel=None, physics_extra=None, split_max=0, passes=None,
-                  roi=None):
+                  roi=None, pmesh=None, ckpt=None):
     """Phase-1 Healpix-sky background (SimRAM_HP), soc_tpu's
     simulate_hpbg in one mixed pool over the channels ``sel``.
 
@@ -520,7 +542,7 @@ def simulate_hpbg(grid, medium, cfg, hpbg, tabs, intf, seed,
     tabs, intf, st = _source_pass(
         grid, medium, "hpbg", "hpbg", params, per_freq, sel, tabs, intf,
         seed, lanes, per_freq_tally, physics_extra, split_max,
-        mirror_mask_of(cfg), roi)
+        mirror_mask_of(cfg), roi, pmesh, ckpt)
     st["injected"] = injected * per_freq
     if passes is not None:
         passes.append(st)
@@ -547,7 +569,7 @@ def point_source_tables(grid, cfg):
 def simulate_point_sources(grid, medium, cfg, lps, tabs, intf, seed,
                            lanes=DEFAULT_LANES, per_freq_tally=False,
                            sel=None, physics_extra=None, passes=None,
-                           roi=None):
+                           roi=None, pmesh=None, ckpt=None):
     """Phase-1 point sources (soc_tpu's simulate_point_sources) in one
     mixed pool over the channels ``sel``: PSPAC packets a source and a
     channel, photons = L / (PLANCK PSPAC (GL PARSEC)^2) / freq, the
@@ -573,7 +595,7 @@ def simulate_point_sources(grid, medium, cfg, lps, tabs, intf, seed,
     tabs, intf, st = _source_pass(
         grid, medium, "ps", "ps", params, pspac * cfg.no_ps, sel, tabs,
         intf, seed, lanes, per_freq_tally, physics_extra,
-        mirror_mask=mirror_mask_of(cfg), roi=roi)
+        mirror_mask=mirror_mask_of(cfg), roi=roi, pmesh=pmesh, ckpt=ckpt)
     st["injected"] = _only(
         np.sum(np.asarray(ps_photons, np.float64), axis=0) * pspac, sel)
     if passes is not None:
@@ -596,7 +618,8 @@ def read_diffuse_field(path, cells):
 
 def simulate_diffuse(grid, medium, cfg, diffuserad, tabs, intf, seed,
                      lanes=DEFAULT_LANES, per_freq_tally=False, sel=None,
-                     physics_extra=None, passes=None, roi=None):
+                     physics_extra=None, passes=None, roi=None, pmesh=None,
+                     ckpt=None):
     """Phase-1 diffuse volume emission (SimRAM_CL SOURCE==2, ASOC.py:
     1250-1272), soc_tpu's simulate_diffuse in one mixed pool.
 
@@ -662,8 +685,8 @@ def simulate_diffuse(grid, medium, cfg, diffuserad, tabs, intf, seed,
     tabs, intf, st = _source_pass(
         grid, medium, "cell", "diffuse", params, counts, sel, tabs, intf,
         seed, lanes, per_freq_tally, physics_extra,
-        mirror_mask=mirror_mask_of(cfg), roi=roi)
-    if use_ew:
+        mirror_mask=mirror_mask_of(cfg), roi=roi, pmesh=pmesh, ckpt=ckpt)
+    if use_ew and pmesh is None:
         st["route"] = "emweight"
     st["injected"] = injected
     if passes is not None:
@@ -673,7 +696,7 @@ def simulate_diffuse(grid, medium, cfg, diffuserad, tabs, intf, seed,
 
 def simulate_roi_load(grid, medium, cfg, tabs, intf, seed,
                       lanes=DEFAULT_LANES, per_freq_tally=False, sel=None,
-                      passes=None):
+                      passes=None, pmesh=None, ckpt=None):
     """Phase-1 ROI boundary source (SOURCE==3, kernel_ASOC.c:469-505), in
     one mixed pool over the channels ``sel``: the (surface element x
     Healpix direction) photons of a previous run's `roisave` file,
@@ -699,7 +722,8 @@ def simulate_roi_load(grid, medium, cfg, tabs, intf, seed,
         device=grid.device), roi_dim=(rnx, rny, rnz), reps=reps)
     tabs, intf, st = _source_pass(
         grid, medium, "roi", "roi", params, per_freq, sel, tabs, intf, seed,
-        lanes, per_freq_tally, mirror_mask=mirror_mask_of(cfg))
+        lanes, per_freq_tally, mirror_mask=mirror_mask_of(cfg), pmesh=pmesh,
+        ckpt=ckpt)
     st["injected"] = injected
     if passes is not None:
         passes.append(st)
@@ -791,128 +815,162 @@ def _emweight_allocs(emitted_np, cfg, rng, nfreq):
     return allocs
 
 
+def _cell_source(cfg, grid, emitted, seed, iteration, nfreq):
+    """The packets of a cell pass as (route, params, sel, counts, maps,
+    injected, injected_abs): the source's parameters, the channels that
+    launch, counts[j] packets in channel sel[j], EMWEI's id -> cell maps
+    and the weight each channel injects (signed and absolute, float64 on
+    the device). Routes, as soc_tpu's one-device driver takes them:
+      * EMWEI (`emweight`): the allocations drawn on the host, from a
+        Philox generator keyed by (seed, iteration), for every channel
+        before the pass (so a resumed pass draws the same ones); a
+        channel with none launches nothing;
+      * ALI (`ali`): max(1, CLPAC // CELLS) packets a cell; a channel that
+        emits nothing (outside `remit`'s band) launches nothing: its
+        packets would carry zero weight, as EMWEI's empty allocations do;
+      * otherwise the same packets a cell in every channel."""
+    device = grid.device
+    per_cell = max(1, int(cfg.clpac) // grid.cells)
+    per_freq = per_cell * grid.cells
+    sel, counts, maps = np.arange(nfreq), per_freq, None
+    if cfg.use_emweight > 0:
+        route = "emweight"
+        rng = np.random.Generator(np.random.Philox(
+            key=np.uint64([int(seed) & 0xFFFFFFFF, iteration])))
+        allocs = _emweight_allocs(emitted.cpu().numpy(), cfg, rng, nfreq)
+        sel = np.asarray([f for f in range(nfreq) if allocs[f][2] > 0],
+                         np.int64)
+        counts = [allocs[f][2] for f in sel]
+        maps = [allocs[f][0] for f in sel]
+        emit = emitted * torch.as_tensor(np.stack(
+            [allocs[f][1] for f in range(nfreq)], 1), device=device)
+        w = torch.zeros_like(emit, dtype=torch.float64)
+        for f in sel:
+            w[:, f] = torch.as_tensor(np.bincount(
+                allocs[f][0], minlength=grid.cells),
+                device=device) * emit[:, f].double()
+        params = dict(emit=emit)
+    else:
+        if cfg.with_ali:
+            route = "ali"
+            emit = emitted / np.float32(per_cell)
+            sel = np.nonzero(emit.ne(0).any(0).cpu().numpy())[0]
+        else:
+            route = "mixed"
+            emit = emitted * np.float32(1.0 / per_cell)
+        w = per_cell * emit.double()
+        params = dict(emit=emit, per_cell=per_cell)
+    return route, params, sel, counts, maps, w.sum(0), w.abs().sum(0)
+
+
 def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
                            lanes=DEFAULT_LANES, per_freq_tally=False,
-                           iteration=0, physics_extra=None):
+                           iteration=0, physics_extra=None, pmesh=None,
+                           ckpt=None):
     """Phase-2 dust re-emission (SimRAM_CL), one pass.
 
     emitted : [CELLS, NFREQ] photons/Hz/H per cell (a device tensor; a
-    delta field under WITH_REFERENCE, so weights may be negative).
-    Routes, as soc_tpu's one-device driver takes them:
-      * EMWEI (`emweight`): per-frequency pools over the host's
-        power-of-two-padded id -> cell map, the roulette drawn from a
-        Philox generator keyed by (seed, iteration);
-      * ALI (`ali`): per-frequency pools with the XAB self-absorption
-        tally, max(1, CLPAC // CELLS) packets a cell;
-      * otherwise one mixed-frequency pool over (cell, channel), the
-        same packets a cell: its drain tail is paid once.
-    Packets keep soc_tpu's identity, hi = stream_hi_base("cell",
-    iteration) + channel and k the id within the channel, so every route
-    reproduces each packet's path.
+    delta field under WITH_REFERENCE, so weights may be negative). The
+    routes (plain, ALI, EMWEI: _cell_source) all run as one
+    mixed-frequency pool over (cell, channel), so a pass pays its drain
+    tail once; over a mesh (``pmesh``) one pool a shard; both through
+    product.run_freqs, one device as a one-shard mesh. Packets keep
+    soc_tpu's identity, hi = stream_hi_base("cell", iteration) + channel
+    and k the id within the channel, so every route reproduces each
+    packet's path (soc_tpu runs ALI and EMWEI a pool a channel): EMWEI
+    with the channels' maps end to end, ALI with the lane's emitting cell
+    in the XAB tally (so a mixed pool keeps the self-absorption exact),
+    each shard's XAB summed in shard order.
 
     With per-frequency tallies the pass adds into a [CELLS, NFREQ] tally
     of its own, then into intf: its absorption per channel is then held
     in float32 relative to itself, not to the tally it joins. Under
-    `mmapabs` (intf a HostTally) each block of channels runs on its own
-    device block: the mixed route one pool a block.
+    `mmapabs` (intf a HostTally) one pool a block of channels.
+
+    ``ckpt``: the run's checkpoint. The pass is a unit ("it%d"; under
+    `mmapabs` each block, "it%d/f%d"), recorded with the pass's partial
+    tally (p2_tabs, with ALI p2_xab) and the per-frequency tally as it
+    stands; a resumed pass starts from them and skips its completed
+    units.
 
     Returns (tabs, intf, escaped [NFREQ], xab [CELLS] host array or None,
     stats): stats holds the pass's route, pools, packets, seconds and,
     per channel in float64, the weight injected (signed and absolute),
     escaped and, with per-frequency tallies, absorbed.
     """
+    from ..parallel import product
     t0 = time.time()
     device = grid.device
     nfreq = medium.nfreq
-    hi_base = stream_hi_base("cell", iteration)
+    pm = pmesh or product.one_shard(device, nfreq)
     physics = _physics(medium, physics_extra)
-    mirror = mirror_mask_of(cfg)
     emitted = torch.as_tensor(emitted, device=device)
-    injected = torch.zeros(nfreq, dtype=torch.float64, device=device)
-    inj_abs = torch.zeros_like(injected)
-    escaped = torch.zeros_like(injected)
+    route, params, sel, counts, maps, injected, inj_abs = _cell_source(
+        cfg, grid, emitted, seed, iteration, nfreq)
+    counts = np.broadcast_to(np.asarray(counts, np.int64), sel.shape)
+    escaped = np.zeros(nfreq)
     absorbed = np.zeros(nfreq)
-    xab = None
+    # the vectors of the units a resumed pass skips
+    restored = dict(escaped=np.zeros(nfreq), absorbed=np.zeros(nfreq))
     pools = packets = 0
-    per_cell = max(1, int(cfg.clpac) // grid.cells)
-    per_freq = per_cell * grid.cells
-    if cfg.use_emweight > 0:
-        route = "emweight"
-        rng = np.random.Generator(np.random.Philox(
-            key=np.uint64([int(seed) & 0xFFFFFFFF, iteration])))
-        allocs = _emweight_allocs(emitted.cpu().numpy(), cfg, rng, nfreq)
-        nlanes = pool_lanes(lanes, int(cfg.clpac))
-    elif cfg.with_ali:
-        route = "ali"
+    key = "it%d" % iteration
+    resumed = ckpt is not None and any(
+        d == key or d.startswith(key + "/") for d in ckpt.done)
+    if resumed:
+        tabs = torch.tensor(ckpt.saved("p2_tabs"), device=device)
+    xab = None
+    if route == "ali":
         xab = torch.zeros(grid.cells, dtype=torch.float32, device=device)
-    else:
-        route = "mixed"
-        emitw = emitted * np.float32(1.0 / per_cell)
-        w = per_cell * emitw.double()
-        injected += w.sum(0)
-        inj_abs += w.abs().sum(0)
+        if resumed and ckpt.saved("p2_xab") is not None:
+            xab = torch.tensor(ckpt.saved("p2_xab"), device=device)
+    units = {}
 
-    for chans, tally, col0 in _tally_blocks(intf, np.arange(nfreq),
-                                            fresh=per_freq_tally):
-        kw = dict(per_freq_tally=per_freq_tally, mirror_mask=mirror,
-                  tally_col0=col0)
-        if route == "mixed":
-            total = per_freq * len(chans)
-            params = dict(emit=emitw, per_cell=per_cell, per_freq=per_freq,
-                          hi_base=hi_base,
-                          sel=torch.as_tensor(chans, device=device))
-            tabs, _, esc, _ = transport_run(
-                grid, physics, params, total, tabs, tally, seed,
-                source_kind="cell", nlanes=pool_lanes(lanes, total), **kw)
-            escaped += esc
-            pools += 1
-            packets += total
-        for ifreq in (chans if route != "mixed" else ()):
-            ifreq = int(ifreq)
-            if route == "emweight":
-                cell_of_id, weight, total = allocs[ifreq]
-                if total == 0:
-                    continue
-                # padded to a power of two (ids beyond total are never
-                # drawn)
-                com = np.full(pool_lanes(1 << 30, total), grid.cells - 1,
-                              np.int32)
-                com[:total] = cell_of_id
-                emit = emitted[:, ifreq] * torch.as_tensor(weight,
-                                                           device=device)
-                w = torch.as_tensor(np.bincount(cell_of_id,
-                                                minlength=grid.cells),
-                                    device=device) * emit.double()
-                params = dict(emit=emit, cell_of_id=torch.as_tensor(
-                    com, device=device), ifreq=ifreq, hi_base=hi_base)
-                tabs, _, esc, _ = transport_run(
-                    grid, physics, params, total, tabs, tally, seed,
-                    source_kind="cell", nlanes=nlanes, **kw)
-            else:
-                total = per_freq
-                emit = emitted[:, ifreq] / np.float32(per_cell)
-                w = per_cell * emit.double()
-                params = dict(emit=emit, per_cell=per_cell, ifreq=ifreq,
-                              hi_base=hi_base)
-                tabs, _, esc, _, xab = transport_run(
-                    grid, physics, params, per_freq, tabs, tally, seed,
-                    source_kind="cell", nlanes=pool_lanes(lanes, per_freq),
-                    with_ali=True, xab=xab, **kw)
-            injected[ifreq] += w.sum()
-            inj_abs[ifreq] += w.abs().sum()
-            escaped[ifreq] += esc[ifreq]
-            pools += 1
-            packets += total
-        if per_freq_tally:
-            absorbed[col0:col0 + tally.shape[1]] += _absorbed_of(tally).sum(
-                0, dtype=torch.float64).cpu().numpy()
+    def skip(ukey):
+        for k, v in ckpt.skipped(ukey).items():
+            if k in restored:
+                restored[k] += v
+
+    def record(ukey):
+        if ukey in units:
+            ckpt.record(ukey, units.pop(ukey), p2_tabs=tabs, p2_xab=xab,
+                        intf=_intf_snapshot(intf, pmesh))
+
+    for ukey, chans, tally, col0 in _units(
+            intf, np.arange(nfreq), key, ckpt, skip, record,
+            fresh=per_freq_tally, pmesh=pmesh):
+        m = np.isin(sel, chans)
+        if not m.any():
+            continue
+        tabs, _, out = product.run_freqs(
+            pm, grid, physics, "cell", params, sel[m], counts[m], tabs,
+            tally if pmesh is not None else [tally], seed, lanes,
+            per_freq_tally, stream_hi_base("cell", iteration),
+            maps=None if maps is None else [mp for mp, k in zip(maps, m)
+                                            if k],
+            mirror_mask=mirror_mask_of(cfg), with_ali=route == "ali",
+            col0=col0)
+        if route == "ali":
+            xab = xab + out["xab"]
+        ab = _pass_absorbed(tally, col0, pm) if per_freq_tally \
+            else np.zeros(nfreq)
+        escaped += out["escaped"]
+        absorbed += ab
+        pools += out["pools"]
+        packets += out["packets"]
+        vec = dict(escaped=out["escaped"], absorbed=ab,
+                   injected=np.zeros(nfreq), injected_abs=np.zeros(nfreq))
+        vec["injected"][chans] = injected.cpu().numpy()[chans]
+        vec["injected_abs"][chans] = inj_abs.cpu().numpy()[chans]
+        units[ukey] = vec
     if xab is not None:
         xab = xab.cpu().numpy()
-    escaped = escaped.cpu().numpy()
+    escaped = escaped + restored["escaped"]
+    absorbed = absorbed + restored["absorbed"]
     stats = dict(iteration=iteration, route=route, pools=pools,
                  packets=packets, injected=injected.cpu().numpy(),
                  injected_abs=inj_abs.cpu().numpy(), escaped=escaped,
-                 absorbed=absorbed if per_freq_tally else None)
+                 absorbed=absorbed if per_freq_tally else None,
+                 mesh=pmesh is not None, restored=resumed)
     stats["seconds"] = time.time() - t0
     return tabs, intf, escaped, xab, stats
 
@@ -948,6 +1006,38 @@ def _product_setup(cfg, nfreq, device, devices=None):
                        else None)
 
 
+def _checkpoint_setup(cfg, nfreq, pmesh, host):
+    """The run's RunCheckpoint: the fingerprint takes the mesh's layout
+    and the mmapabs block width, which shape the units."""
+    from ..utils.checkpoint import RunCheckpoint, fingerprint_of
+    layout = "one" if pmesh is None else "mesh %d x %d (%s)" % (
+        pmesh.n_dp, pmesh.n_freq, ",".join(map(str, pmesh.devices)))
+    if host is not None:
+        layout += " blocks of %d" % host.cols
+    return RunCheckpoint(cfg.file_checkpoint, cfg.checkpoint_every,
+                         fingerprint_of(cfg, layout), nfreq)
+
+
+def _restore(ckpt, tabs, intf, roi, pmesh):
+    """The tallies of a resumed run, in place of the fresh ones: TABS, the
+    per-frequency tally (the HostTally's memmap; over a mesh into the
+    dp-0 slabs, the others zero, as soc_tpu driver.py:1402-1407 does) and
+    the ROI save's crossing tally."""
+    saved_tabs, saved = ckpt.restore(None, None)
+    if saved_tabs is None:
+        return tabs, intf
+    tabs = torch.tensor(saved_tabs, device=tabs.device)
+    if isinstance(intf, HostTally):
+        intf.host[:] = saved
+    elif isinstance(intf, list):
+        pmesh.scatter_intf(saved, intf)
+    else:
+        intf.copy_(torch.as_tensor(saved))
+    if roi is not None:
+        roi["tally"].copy_(torch.as_tensor(ckpt.restore_roi(roi["tally"])))
+    return tabs, intf
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -977,14 +1067,6 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     dsc, csc = scafuncs[0]
     medium = medium_from_optics(optics, dsc, csc, device, freq)
     pmesh = _product_setup(cfg, nfreq, device, devices)
-    if pmesh is not None and cell_emission_features(cfg):
-        raise NotImplementedError(
-            "not supported by soc_tpu_torch yet under `devices`: cell "
-            "emission (%s)" % ", ".join(cell_emission_features(cfg)))
-    if pmesh is not None and mesh_refused_features(cfg):
-        raise NotImplementedError(
-            "not supported by soc_tpu_torch yet under `devices`: %s"
-            % ", ".join(mesh_refused_features(cfg)))
     physics_extra = {**(abundance_physics(cfg, optics, scafuncs, abu,
                                           device) or {}),
                      **weighting_physics(cfg, medium, abu)} or None
@@ -1052,7 +1134,9 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
         else None
     if pmesh is not None and per_freq_tally:
         # dp-partial per-frequency slabs, one per shard on its device
-        intf = pmesh.zeros_intf(grid.cells)
+        # (under `mmapabs` too: the slabs take the host tally's place)
+        intf = pmesh.zeros_intf(grid.cells,
+                                4 if cfg.save_intensity == 2 else 0)
     elif host is not None:
         intf = host
     else:
@@ -1073,8 +1157,13 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     injected = np.zeros(nfreq)
     packets = 0
     roi = roi_save_setup(cfg, grid, nfreq)
+    ckpt = None
+    if cfg.file_checkpoint:
+        ckpt = _checkpoint_setup(cfg, nfreq, pmesh, host)
+        tabs, intf = _restore(ckpt, tabs, intf, roi, pmesh)
+    res.checkpoint = ckpt
     kw = dict(sel=sel, physics_extra=physics_extra,
-              passes=res.source_passes, roi=roi)
+              passes=res.source_passes, roi=roi, pmesh=pmesh, ckpt=ckpt)
     split_max = split_max_of(cfg, grid)
     if cfg.file_constant_load:
         # CLOAD: the constant sources are not simulated; their integrated
@@ -1088,7 +1177,7 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
             ibg = ibg * cfg.scale_background
             tabs, intf, esc, inj, packets = simulate_background(
                 grid, medium, cfg, ibg, tabs, intf, seed, lanes,
-                per_freq_tally, pmesh, split_max=split_max, **kw)
+                per_freq_tally, split_max=split_max, **kw)
             escaped += esc
             injected += inj
         if cfg.bgpac > 0 and cfg.file_hpbg:
@@ -1119,13 +1208,15 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
         if cfg.file_roi_load and cfg.roipac > 0:
             tabs, intf, esc, inj = simulate_roi_load(
                 grid, medium, cfg, tabs, intf, seed + 9, lanes,
-                per_freq_tally, sel, res.source_passes)
+                per_freq_tally, sel, res.source_passes, pmesh, ckpt)
             escaped += esc
             injected += inj
-    if pmesh is not None and per_freq_tally:
-        intf = pmesh.reduce_intf(intf, device)
+    if ckpt is not None and ckpt.pending:
+        # the end of phase 1 (soc_tpu driver.py:1470-1480)
+        ckpt.flush(tabs=tabs, intf=_intf_snapshot(intf, pmesh),
+                   roi=None if roi is None else roi["tally"])
     _sync(device)
-    # traced in phase 1 (over the mesh: the background's own count)
+    # traced in phase 1
     res.packets = sum(st["packets"] for st in res.source_passes) \
         if res.source_passes else packets
     res.ctabs = tabs.cpu().numpy()
@@ -1150,6 +1241,8 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
         # (ASOC.py:63-65); res.absorbed keeps every column, the file only
         # the FSELECT ones, for the library (A2E_LIB) to take over
         t0 = time.time()
+        if pmesh is not None and per_freq_tally:
+            intf = pmesh.reduce_intf(intf, device)
         if per_freq_tally:
             absorbed = _absorbed_of(intf.host if isinstance(intf, HostTally)
                                     else intf)
@@ -1176,9 +1269,13 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
         temperature, emitted, intf = phase2(
             cfg, grid, medium, optics, table, tabs, intf, seed, lanes,
             per_freq_tally, freq, gl_cm, write_files, res, pmesh,
-            physics_extra)
+            physics_extra, ckpt)
         res.temperature = temperature.cpu().numpy()
         res.emitted = emitted.cpu().numpy()
+    if ckpt is not None and ckpt.pending:
+        ckpt.flush()
+    if pmesh is not None and per_freq_tally:
+        intf = pmesh.reduce_intf(intf, device)
     timings["solve"] = time.time() - t0
 
     # ---- outputs (reference end-of-run scaling)
@@ -1343,7 +1440,8 @@ def _solve_and_emit(grid, table, heating, gl_cm, freq, abs_gl, cfg, pmesh,
     if pmesh is not None:
         from ..parallel import product
         temperature = product.solve_temperature(
-            pmesh, grid, table, heating, gl_cm, cr_heating=cfg.cr_heating)
+            pmesh, grid, table, heating, gl_cm, beta=beta,
+            cr_heating=cfg.cr_heating)
         emitted = product.emission(pmesh, freq, abs_gl, temperature, gl_cm)
     else:
         temperature = equilibrium.solve_temperature(
@@ -1355,7 +1453,7 @@ def _solve_and_emit(grid, table, heating, gl_cm, freq, abs_gl, cfg, pmesh,
 
 def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
                 per_freq_tally, freq, gl_cm, write_files, res, pmesh,
-                physics_extra=None):
+                physics_extra=None, ckpt=None):
     """Phase 2's iterations (soc_tpu driver.py:1512-1691): with cell
     packets each iteration after the first re-emits the previous
     iteration's emission and solves again on the total heating.
@@ -1368,8 +1466,13 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
     probability beta = clip((XEM - XAB) / XEM, 1e-2, 1), in float64 on
     the host, with the same k-ramped carry of XAB under the reference
     field (OXAB.save read, OXAB.save / OXEM.save written); `alibeta`
-    refines beta with the previous iteration's temperature. Returns
-    (temperature, emitted, intf) on the device."""
+    refines beta with the previous iteration's temperature. With a
+    checkpoint (``ckpt``) each iteration with cell packets ends with an
+    "iter%d" unit holding what the next one reads (emitted, temperature,
+    emit_total, the reference carries, XAB), and a resumed run starts
+    after the last one written (soc_tpu driver.py:1552-1600, 1660-1680);
+    the cell passes record their own units (simulate_cell_emission).
+    Returns (temperature, emitted, intf) on the device."""
     device = grid.device
     abs_gl = optics[0].abs_gl
     wr = int(cfg.with_reference)
@@ -1390,7 +1493,27 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
     tw = medium.tw.cpu().numpy().astype(np.float64)
     emit_total = ctabs
     temperature = emitted = None
-    for iteration in range(max(1, cfg.iterations)):
+    it0 = 0
+    if ckpt is not None:
+        done = [int(d[4:]) for d in ckpt.done if d.startswith("iter")]
+        if done and ckpt.saved("it_emitted") is not None:
+            # jump past the last iteration written
+            it0 = max(done) + 1
+
+            def saved(name):
+                v = ckpt.saved(name)
+                return None if v is None else torch.tensor(v, device=device)
+            emitted, temperature = saved("it_emitted"), \
+                saved("it_temperature")
+            emit_total = saved("it_emit_total")
+            if ckpt.saved("it_oemitted") is not None:
+                oemitted, otabs = saved("it_oemitted"), saved("it_otabs")
+            if ckpt.saved("it_oxab") is not None:
+                oxab = np.array(ckpt.saved("it_oxab"))
+            if ckpt.saved("it_xab") is not None:
+                xab = np.array(ckpt.saved("it_xab"))
+            res.cell_passes.extend(_restored_passes(cfg, ckpt, it0, pmesh))
+    for iteration in range(it0, max(1, cfg.iterations)):
         beta = 1.0
         k = ((iteration + wr_fir) / float(wr_tot)) if wr > 1 \
             else (iteration / float(max(1, cfg.iterations)))
@@ -1409,7 +1532,7 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
             tabs_it, intf, _, xab, stats = simulate_cell_emission(
                 grid, medium, cfg, sim_emit, tabs_it, intf, seed, lanes,
                 per_freq_tally, iteration=iteration,
-                physics_extra=physics_extra)
+                physics_extra=physics_extra, pmesh=pmesh, ckpt=ckpt)
             res.cell_passes.append(stats)
             if delta_sim:
                 tabs_it = tabs_it + otabs
@@ -1448,6 +1571,13 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
             temperature, emitted = _solve_and_emit(
                 grid, table, emit_total, gl_cm, freq, abs_gl, cfg, pmesh,
                 torch.as_tensor(beta2, device=device))
+        if ckpt is not None and cfg.clpac > 0:
+            # the iteration's state: everything the next one reads
+            ckpt.record("iter%d" % iteration, None,
+                        intf=_intf_snapshot(intf, pmesh),
+                        it_emitted=emitted, it_temperature=temperature,
+                        it_emit_total=emit_total, it_oemitted=oemitted,
+                        it_otabs=otabs, it_oxab=oxab, it_xab=xab)
         if cfg.clpac <= 0:
             break   # nothing changes between iterations without CLPAC
     if write_files and wr > 1 and oemitted is not None:
@@ -1460,9 +1590,30 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
     return temperature, emitted, intf
 
 
+def _restored_passes(cfg, ckpt, it0, pmesh):
+    """The cell passes of the iterations a resumed run jumps past, each
+    from its units' vectors in the checkpoint (seconds and pools zero)."""
+    route = "emweight" if cfg.use_emweight > 0 else "ali" if cfg.with_ali \
+        else "mixed"
+    out = []
+    for it in range(1, it0):
+        keys = [k for k in ckpt.done
+                if k == "it%d" % it or k.startswith("it%d/" % it)]
+        if not keys:
+            continue
+        vec = [ckpt.vectors(k) for k in keys]
+        stats = {name: sum(v[name] for v in vec)
+                 for name in ("escaped", "absorbed", "injected",
+                              "injected_abs")}
+        out.append(dict(stats, iteration=it, route=route, pools=0,
+                        packets=0, seconds=0.0, mesh=pmesh is not None,
+                        restored=True))
+    return out
+
+
 def _subiterations(cfg, grid, medium, optics, table, ctabs, intf, seed,
                    lanes, per_freq_tally, freq, gl_cm, write_files, res,
-                   pmesh, physics_extra=None):
+                   pmesh, physics_extra=None, ckpt=None):
     """SUBITERATIONS: hot/cold cells with the reference field
     (soc_tpu driver.py:1773-1871, ASOC.py:2261-2420). Over
     max(4, ITERATIONS) rounds:
@@ -1472,7 +1623,9 @@ def _subiterations(cfg, grid, medium, optics, table, ctabs, intf, seed,
                  heating = TABS + OTABS + PTABS
       N-1      : all cells again (the reference keeps hot cells only)
     A cell is hot at T >= HOT_LIMIT, or where the `externalmask` file
-    (int32 per cell) is positive. Returns (temperature, emitted, intf)."""
+    (int32 per cell) is positive. As in soc_tpu, the rounds take no
+    checkpoint (``ckpt`` is not used; phase 1's units still are).
+    Returns (temperature, emitted, intf)."""
     device = grid.device
     iters = max(4, cfg.iterations)
     external = None
@@ -1514,7 +1667,7 @@ def _subiterations(cfg, grid, medium, optics, table, ctabs, intf, seed,
             tabs_it, intf, _, _, stats = simulate_cell_emission(
                 grid, medium, cfg, sim_emit, zeros.clone(), intf, seed,
                 lanes, per_freq_tally, iteration=iteration,
-                physics_extra=physics_extra)
+                physics_extra=physics_extra, pmesh=pmesh)
             res.cell_passes.append(stats)
             if iteration == 1:
                 ptabs = tabs_it

@@ -274,7 +274,7 @@ def emission_stage(cfg, comps, absorbed, abu, freq, device, dens=None,
             raise ValueError("library expects %d reference freqs, "
                              "absorbed has %d" % (nref, absorbed.shape[1]))
         lib_direct = dict(lib, ref_indices=list(range(absorbed.shape[1])))
-        out = libmod.solve_with_library(lib_direct, absorbed, device)
+        out = libmod.solve_with_library(lib_direct, absorbed, device=device)
         timings["lookup"] = time.time() - t0
         return out, None
 

@@ -10,10 +10,10 @@ hole filling (kernel_tree3's Interpolate / Fill).
 build_library, save_library and load_library are host NumPy, copied from
 soc_tpu bit for bit, and the `.lib` file is the same pickle of NumPy
 arrays, so each package reads the other's. solve_with_library takes a
-torch device: on a CUDA device the lookup runs on the card (a float32 bin
-transform, then one index_select from the hole-filled table, cached on the
-library dict), for any cell count; with device=None or a CPU device the
-float64 NumPy form runs, the lookup's plain twin.
+torch device: by default (None) or on a CUDA device the lookup runs on the
+card (a float32 bin transform, then one index_select from the hole-filled
+table, cached on the library dict), for any cell count; only with a CPU
+device the float64 NumPy form runs, the lookup's plain twin.
 
 Workflow (reference ASOC.py libabs/libmaps + A2E_LIB):
   1. a full A2E solve once -> (absorbed, emitted) training pairs
@@ -125,19 +125,26 @@ def lookup_numpy(lib, absorbed, eps=1e-33):
     return lib["mean"][lib["lookup"][flat]]
 
 
-def solve_with_library(lib, absorbed, device=None, eps=1e-33):
+def solve_with_library(lib, absorbed, eps=1e-33, device=None):
     """Emission for [CELLS, NFREQ_ABS] absorptions via the binned lookup;
-    a float32 host array [CELLS, NF].
+    a float32 host array [CELLS, NF]. The arguments are soc_tpu's, in its
+    order.
 
-    device : a CUDA device runs the lookup there (one index_select over
-    the cached table, for any cell count); None or a CPU device runs the
-    float64 NumPy twin. The two share the bin transform; the card's runs
-    in float32, so a cell within float32 epsilon of a bin edge may round
-    to the neighbouring bin (both answers are valid emission vectors of
-    the hole-filled table).
+    device : the card by default (None: the current CUDA device), or a
+    CUDA device: the lookup runs there (one index_select over the cached
+    table, for any cell count); only a CPU device runs the float64 NumPy
+    twin. Without a card and without a CPU device it raises, as every
+    entry point of the port does. The two share the bin transform; the
+    card's runs in float32, so a cell within float32 epsilon of a bin
+    edge may round to the neighbouring bin (both answers are valid
+    emission vectors of the hole-filled table).
     """
-    if device is None or torch.device(device).type == "cpu":
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cpu":
         return lookup_numpy(lib, absorbed, eps)
+    if not torch.cuda.is_available():
+        raise RuntimeError("solve_with_library: no CUDA device; pass "
+                           "device='cpu' for the NumPy twin")
     table, lo, span = device_table(lib, device)
     aref = torch.as_tensor(np.ascontiguousarray(
         np.asarray(absorbed, np.float32)[:, lib["ref_indices"]]),

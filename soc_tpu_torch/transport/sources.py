@@ -67,28 +67,63 @@ def packet_identity(ids_local, params):
     (int64 tensor [NSEL]) the run covers only those channels, the j-th
     block of ids being channel sel[j]. With k0 a pool runs the slice
     [k0, k0 + per_freq) of every channel's budget, as the dp shards of
-    product.run_freqs do. k and hi are 32-bit words held in int64 and
-    masked, as in soc_tpu_torch.rng; ids are int64, so a run of any size
-    needs no chunking to keep them in 32 bits.
+    product.run_freqs do; under 'starts' k0 may be an int64 tensor
+    [NSEL], each channel's own first index (budgets split unevenly). k
+    and hi are 32-bit words held in int64 and masked, as in
+    soc_tpu_torch.rng; ids are int64, so a run of any size needs no
+    chunking to keep them in 32 bits.
     """
-    k0 = int(params.get("k0", 0))
+    k0 = params.get("k0", 0)
     if params.get("ifreq") is not None:
-        k = (ids_local + k0) & socrng.MASK32
+        k = (ids_local + int(k0)) & socrng.MASK32
         ifreq = torch.full_like(ids_local, int(params["ifreq"]))
     else:
         if "starts" in params:
             starts = params["starts"]
             j = (torch.searchsorted(starts, ids_local, right=True) - 1
                  ).clamp(0, starts.shape[0] - 2)
+            if torch.is_tensor(k0):
+                k0 = k0[j]
             k = (ids_local - starts[j] + k0) & socrng.MASK32
         else:
             pf = int(params["per_freq"])
             j = ids_local // pf
-            k = (ids_local - j * pf + k0) & socrng.MASK32
+            k = (ids_local - j * pf + int(k0)) & socrng.MASK32
         sel = params.get("sel")
         ifreq = j if sel is None else sel[j.clamp(0, sel.shape[0] - 1)]
     hi = (ifreq + int(params["hi_base"])) & socrng.MASK32
     return k, ifreq, hi
+
+
+def pool_params(params, sel, counts, hi_base, device, k0=None, maps=None):
+    """The transport parameters of one mixed pool over the channels
+    ``sel``: counts[j] packets of channel sel[j], from within-channel index
+    k0[j] (0 by default), added to the source's ``params``. 'per_freq'
+    (and a scalar 'k0') when every channel has the same count and start
+    and no map, else 'starts' (and 'k0' a channel); EMWEI's ``maps``
+    (maps[j] channel sel[j]'s id -> cell map, already cut to the pool's
+    slice) end to end as 'cell_of_id'. The one-device driver's source
+    passes and the mesh's shards (product.run_freqs) both build their
+    pools here."""
+    sel = np.asarray(sel, np.int64)
+    counts = np.asarray(counts, np.int64)
+    k0 = np.zeros(len(sel), np.int64) if k0 is None \
+        else np.asarray(k0, np.int64)
+    p = dict(params, hi_base=hi_base,
+             sel=torch.as_tensor(sel, device=device))
+    if maps is not None:
+        p["cell_of_id"] = torch.as_tensor(np.concatenate(maps),
+                                          device=device)
+    if maps is None and (counts == counts[0]).all() and (k0 == k0[0]).all():
+        p["per_freq"] = int(counts[0])
+        if k0[0]:
+            p["k0"] = int(k0[0])
+    else:
+        p["starts"] = torch.as_tensor(
+            np.concatenate([[0], np.cumsum(counts)]), device=device)
+        if k0.any():
+            p["k0"] = torch.as_tensor(k0, device=device)
+    return p
 
 
 def _unit(d):

@@ -666,7 +666,7 @@ def _close_on_card(got, ref):
 
 def test_octree_rt_phase2_on_card_matches_cpu(cuda, tmp_path):
     """`rt` on a 3-level octree with cell packets, `ali 1` and `reference
-    1` (iterations 3: two ALI passes of per-channel pools with the XAB
+    1` (iterations 3: two ALI passes, each one mixed pool with the XAB
     tally, delta fields with negative weights) on the card against the
     same run on the CPU; each cell pass balances per channel."""
     kw = dict(kind="eqdust", nfreq=8, octree=(2, 8, 3), cellpackets=1280,
@@ -1153,8 +1153,9 @@ def test_library_lookup_on_card_matches_twin(cuda):
     emitted = rng.random((200000, 16)).astype(np.float32)
     lib = library.build_library(absorbed[:50000], emitted[:50000],
                                 [1, 5, 9], nbins=32)
-    got = library.solve_with_library(lib, absorbed, cuda)
-    twin = library.solve_with_library(lib, absorbed, torch.device("cpu"))
+    got = library.solve_with_library(lib, absorbed, device=cuda)
+    twin = library.solve_with_library(lib, absorbed,
+                                      device=torch.device("cpu"))
     assert np.all(got == twin, axis=1).mean() > 0.999
     assert library.device_table(lib, cuda)[0].is_cuda
 

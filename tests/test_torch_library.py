@@ -76,9 +76,15 @@ def test_numpy_lookup_bit_equal(data, nbins):
     np.testing.assert_array_equal(tlib.lookup_numpy(lib, absorbed[3000:]),
                                   want)
     np.testing.assert_array_equal(
-        tlib.solve_with_library(lib, absorbed[3000:], CPU), want)
+        tlib.solve_with_library(lib, absorbed[3000:], device=CPU), want)
+    # soc_tpu's argument order (eps before device)
     np.testing.assert_array_equal(
-        tlib.solve_with_library(lib, absorbed[3000:]), want)
+        tlib.solve_with_library(lib, absorbed[3000:], 1e-33, CPU), want)
+    # without a device the lookup goes to the card, never to the twin:
+    # here, with no card, it raises
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tlib.solve_with_library(lib, absorbed[3000:])
 
 
 @pytest.mark.parametrize("seed", [7, 8])
@@ -122,7 +128,7 @@ def test_lib_files_cross_read(tmp_path, data):
     _same(from_t, from_j)
     want = jlib.solve_with_library(from_t, absorbed[:50], device=False)
     np.testing.assert_array_equal(
-        tlib.solve_with_library(from_j, absorbed[:50], CPU), want)
+        tlib.solve_with_library(from_j, absorbed[:50], device=CPU), want)
 
 
 def test_library_lookup_accuracy(data):
@@ -132,7 +138,7 @@ def test_library_lookup_accuracy(data):
     refs = tlib.choose_reference_frequencies(freq)
     lib = tlib.build_library(absorbed[:3000], emitted[:3000], refs, nbins=48)
     assert 0.0 < lib["occupancy"] <= 1.0
-    pred = tlib.solve_with_library(lib, absorbed[3000:], CPU)
+    pred = tlib.solve_with_library(lib, absorbed[3000:], device=CPU)
     truth = emitted[3000:]
     m = truth > truth.max() * 1e-8
     rel = np.abs(pred[m] / truth[m] - 1.0)

@@ -60,8 +60,8 @@ def test_mmapabs_equals_the_in_memory_run(tmp_path, monkeypatch, extra):
     _same(mm, mem, tmp_path / "mm")
     nblocks = -(-NFREQ // BLOCK)
     assert [st["pools"] for st in mm.source_passes] == [nblocks]
-    want = {"": nblocks, "ali 1\n": NFREQ, "emweight 1\n": NFREQ}[extra]
-    assert [st["pools"] for st in mm.cell_passes] == [want]
+    # every route runs one mixed pool a block
+    assert [st["pools"] for st in mm.cell_passes] == [nblocks]
     for st in mm.cell_passes:
         assert np.abs(tdriver.pass_balance(st)).max() < 1e-4
 

@@ -173,12 +173,15 @@ def test_run_freqs_dp_split_matches_mixed_pool(optics, per_freq):
                             o["tw"], CPU)
     pm = product.ProductMesh(6, 4, [CPU] * 6)
     assert (pm.n_dp, pm.n_freq) == (3, 2)
-    tabs, slabs, esc = product.run_freqs(
-        pm, grid, med, "bg", o["photons"], per_freq, torch.zeros(grid.cells),
-        pm.zeros_intf(grid.cells), SEED, 4096, True)
-    intf = pm.reduce_intf(slabs, CPU).numpy()
     physics = dict(kabs=med.abs_gl, ksca=med.sca_gl, csc=med.csc,
                    tw=med.tw)
+    tabs, slabs, out = product.run_freqs(
+        pm, grid, physics, "bg", dict(photons=torch.as_tensor(o["photons"])),
+        np.arange(4), per_freq, torch.zeros(grid.cells),
+        pm.zeros_intf(grid.cells), SEED, 4096, True, HI0)
+    esc = out["escaped"]
+    assert out["pools"] == 6 and out["packets"] == 4 * per_freq
+    intf = pm.reduce_intf(slabs, CPU).numpy()
     rt, ri, re, ra = tprop.transport_run(
         grid, physics, dict(photons=torch.as_tensor(o["photons"]),
                             per_freq=per_freq, hi_base=HI0),

@@ -116,52 +116,73 @@ def test_rt_absorbed_file_takes_no_tensor_array(tmp_path, monkeypatch):
     assert (tmp_path / "absorbed.data").exists()
 
 
-@pytest.mark.parametrize("extra,name", [
-    ("hpbg sky.bin\ndevices 2\n", "hpbg"),
-    ("mirror xX\ndevices 2\n", "mirror"),
-    ("roi 1 2 1 2 1 2\nroisave roi.bin\ndevices 2\n", "roi"),
-    ("roiload roi.bin\nroipackets 100\ndevices 2\n", "roiload"),
-    ("pointsource 3 3 3 ps.bin\ndevices 2\n", "pointsource"),
-    ("direweight 0 0.5\ndevices 2\n", "direweight"),
-    ("cellpackets 100\niterations 2\ndevices 2\n", "cell emission"),
-    ("stepweight 1 0.5\ndevices 2\n", "stepweight"),
-    ("split 8\ndevices 2\n", "split"),
-    ("checkpoint c.ckpt\n", "checkpoint"),
-    ("checkpoint c.ckpt\ndevices 2\n", "checkpoint"),
-    ("mmapabs\ndevices 2\n", "mmapabs"), ("domains 2\n", "domains")])
-def test_unsupported_keywords_raise(tmp_path, extra, name):
-    ini = write_model(str(tmp_path), 4, kind="eqdust", nfreq=6, extra=extra)
-    with pytest.raises(NotImplementedError, match=name):
+def test_unsupported_keywords_raise(tmp_path):
+    """`domains` (parallel/domain.py, not ported yet) raises by name."""
+    ini = write_model(str(tmp_path), 4, kind="eqdust", nfreq=6,
+                      extra="domains 2\n")
+    with pytest.raises(NotImplementedError, match="domains"):
         tdriver.run(ini, device=CPU, lanes=1024)
 
 
-@pytest.mark.parametrize("extra,names", [
-    ("roi 1 2 1 2 1 2\nroisave roi.bin\n", ["roi / roisave / roiload"]),
-    ("roiload roi.bin\n", ["roi / roisave / roiload"]),
-    ("mirror xXyYzZ\n", ["mirror"]), ("stepweight 2 1.3 0.4\n",
-                                       ["stepweight"]),
-    ("direweight 1 0.5\n", ["direweight"]), ("mmapabs\n", ["mmapabs"]),
-    ("stepweight 1 1.4\ndireweight 1 0.5\nmirror x\nmmapabs\n",
-     ["mirror", "stepweight", "direweight", "mmapabs"]),
-    # the maps render on the first shard's device: none is refused
-    ("roi 1 2 1 2 1 2\nroimap\nsavetau t.bin 250.0\nmapint 1\n"
-     "interpolate 2\nyshear 1.0\nFITS 1\nperspective 4 4 4\n"
-     "pssavetau p.txt\nmapping 4 0 1.0 999\n", [])])
-def test_mesh_refused_features_names_the_transport_keywords(tmp_path, extra,
-                                                            names):
-    """driver.mesh_refused_features under `devices N` names each
-    transport keyword of the ROI / mirror / weighting / mmapabs slice,
-    and no map keyword."""
+@pytest.mark.parametrize("name,devices,kw", [
+    ("hpbg", 2, dict(hpbg=2)),
+    ("mirror", 2, dict(extra="mirror xy\n")),
+    ("roi", 2, dict(extra="roi 1 2 1 2 1 2\nroisave roi.bin\n")),
+    ("roiload", 2, dict(roiload=True)),
+    ("pointsource", 2, dict(point_sources=[(2.1, 1.9, 2.2, 1.0)],
+                            pspackets=100)),
+    ("direweight", 2, dict(extra="direweight 0 0.5\n")),
+    ("cell emission", 2, dict(cellpackets=640, iterations=2)),
+    ("stepweight", 2, dict(extra="stepweight 1 0.5\n")),
+    ("split", 2, dict(split=8)),
+    ("checkpoint", None, dict(extra="checkpoint c.ckpt\n")),
+    ("checkpoint devices", 2, dict(extra="checkpoint c.ckpt\n")),
+    ("mmapabs", 2, dict(extra="mmapabs\n"))])
+def test_formerly_refused_keywords_run(tmp_path, name, devices, kw):
+    """Each keyword that raised before runs (under `devices 2` on CPU
+    shards, `checkpoint` also on one device) and matches the one-device
+    run without it (test_torch_product_features.mesh_vs_one)."""
+    from test_torch_product_features import mesh_vs_one
+    one, other = mesh_vs_one(tmp_path, devices=devices, **kw)
+    if "checkpoint" in name:
+        assert other.checkpoint is not None
+        assert os.path.exists(tmp_path / "mesh" / "c.ckpt")
+        if devices is None:
+            # one device: the same tallies bit for bit
+            np.testing.assert_array_equal(other.absorbed, one.absorbed)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("roisave", dict(extra="roi 1 2 1 2 1 2\nroisave roi.bin\n")),
+    ("roiload", dict(roiload=True)),
+    ("mirror", dict(extra="mirror xyz\n")),
+    ("stepweight", dict(extra="stepweight 2 1.3 0.4\n")),
+    ("direweight", dict(extra="direweight 1 0.5\n")),
+    ("mmapabs", dict(extra="mmapabs\n")),
+    ("together", dict(extra="stepweight 1 1.4\ndireweight 1 0.5\n"
+                            "mirror x\nmmapabs\n")),
+    # the maps render on the first shard's device
+    ("maps", dict(extra="roi 1 2 1 2 1 2\nroimap\nsavetau t.bin 250.0\n"
+                        "mapint 1\ninterpolate 2\nyshear 1.0\nFITS 1\n"
+                        "perspective 4 4 4\npssavetau p.txt\n"
+                        "mapping 4 0 1.0 999\n"))])
+def test_mesh_runs_the_transport_keywords(tmp_path, name, kw):
+    """Each transport keyword of the ROI / mirror / weighting / mmapabs
+    slice runs under `devices 4` (dp 2 x freq 2) and matches the
+    one-device run; with the map keywords the maps render and nothing is
+    refused (driver.unsupported_features names only `domains`)."""
     from soc_tpu_torch.config import RunConfig
-    ini = write_model(str(tmp_path), 4, kind="eqdust", nfreq=6, extra=extra)
-    cfg = RunConfig(ini)
-    assert tdriver.mesh_refused_features(cfg) == names
-    assert tdriver.unsupported_features(cfg) == []
+    from test_torch_product_features import mesh_vs_one
+    one, mesh = mesh_vs_one(tmp_path, devices=4, **kw)
+    assert tdriver.unsupported_features(
+        RunConfig(str(tmp_path / "mesh" / "run.ini"))) == []
+    if name == "maps":
+        assert mesh.render_passes and one.render_passes
 
 
 def test_octree_raises(tmp_path):
     """A 2-level cloud runs (the octree is ported: tests/test_torch_phase2*
-    hold it to soc_tpu); a keyword not ported yet (`checkpoint`) still
+    hold it to soc_tpu); a keyword not ported yet (`domains`) still
     raises in the pipeline."""
     from soc_tpu.grid import encode_link_np
     from soc_tpu_torch.io.cloud import write_hierarchy
@@ -174,8 +195,8 @@ def test_octree_raises(tmp_path):
     assert res.grid.levels == 2 and res.temperature.shape == (72,)
     assert np.isfinite(res.maps[0]).all() and res.maps[0].max() > 0
     with open(ini, "a") as fp:
-        fp.write("checkpoint c.ckpt\n")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+        fp.write("domains 2\n")
+    with pytest.raises(NotImplementedError, match="domains"):
         tfull.run_pipeline(ini, device=CPU, mode="makelib")
 
 

@@ -135,11 +135,11 @@ def test_rt_abundance_matches_soc_tpu(tmp_path, monkeypatch, half):
     (dict(diffuse=0.5), "diffuse"), (dict(abundance=True), "abundance"),
     (dict(optishalf=True), "optishalf"), (dict(saveint=2), "saveint"),
     (dict(extra="dustem\n"), "dustem"), (dict(simum=(1.0, 100.0)), "simum")])
-def test_devices_refuse_each_keyword_by_name(tmp_path, kw, name):
-    """Every keyword of this slice is refused under `devices N`, by name
-    (driver.mesh_refused_features), before any packet runs."""
-    extra = kw.pop("extra", "") + "devices 2\n"
-    ini = write_model(str(tmp_path), 4, kind="eqdust", nfreq=6, extra=extra,
-                      **kw)
-    with pytest.raises(NotImplementedError, match=name):
-        tdriver.run(ini, device=CPU, lanes=1024)
+def test_devices_run_each_keyword(tmp_path, kw, name):
+    """Every keyword of this slice runs under `devices 4` (dp 2 x freq 2,
+    4^3 cells, 6 channels) and matches the one-device run
+    (test_torch_product_features.mesh_vs_one: 1e-5 relative, 1e-6 of the
+    maximum)."""
+    from test_torch_product_features import mesh_vs_one
+    one, mesh = mesh_vs_one(tmp_path, devices=4, **kw)
+    assert mesh.source_passes and one.source_passes
