@@ -301,12 +301,48 @@ Phases (any failure exits non-zero before the final line):
      skipped unit, one a2e_all_sizes launch a shard (the kernels line's
      ckpt_launches), and emitted.data and absorbed.data within the bound
      of phase 11's one-card run
+ 18. `domains 4` (parallel/domain.py: the grid cut into four Z slabs of
+     16 root planes, the central refined block cut by the face at z 32)
+     over cuda:0 four times, on phase 10's octree, against the same ini
+     on one card. Each slab pass
+     prints its seconds and packets/s beside one card's, its supersteps,
+     its emigrants a superstep (mean and peak) and its pending queue's
+     peak. Each field is held by the CPU tests' rule for domain runs
+     (soc_tpu's, tests/test_domain.py: a packet that crosses a slab face
+     moves by up to PEPS and may take another path): its total within
+     1e-3 and at least 98% of its cells within 1e-3 relative or 1e-6 of
+     its maximum; the absorbed files' parent rows (-1e20) equal. (a) `rt`
+     with `iterations 2` of cell emission under `ali 1` (one packet a
+     cell and channel, one ALI pass) from phase 10 (a)'s background
+     heating (`cload`; (b) runs the background over the slabs): absorbed,
+     emitted, T and the map; the run's balance per channel and the cell
+     pass's within 0.5%. (b) phase 11's GSET `pipeline`
+     (full.run_pipeline with the domains list, a quarter of
+     `bgpackets`): one a2e_all_sizes launch on the assembled tallies (the
+     kernels line's domain_launches), emitted.data and absorbed.data
+     against phase 11's. (c) at a sixteenth of `bgpackets` over
+     MESH_SIMUM's band, under `mirror z` and two dusts' abundances (MSF):
+     the background and the weighted Healpix sky with `split 4`, two
+     point sources (PS_METHOD 4 for the external one) and a diffuse
+     field with EMWEI (`cellpackets` set, which EMWEI needs; a quarter
+     of a packet a cell and channel, no cell pass at `iterations 1`): the
+     phase-1 balance per channel within 0.5%; each source whose packets
+     keep their streams its own absorbed energy a cell by the rule, each
+     split source's refined leaves by phase 12 (a)'s. A pass over the
+     slabs costs its supersteps (four pools' bodies each) more than its
+     packets, hence (c)'s cut, one run for
+     the ALI pass and the sources (EMWEI would take the cell pass's
+     route), and one mirrored Z face, the bottom slab's: the band's
+     transparent channels keep a packet between two mirrored Z faces
+     bouncing for 1e5 steps and more (the tests hold `mirror zZ` on
+     thick channels)
 The kernels line gives each kernel's launches on its path (phase 4 for the
 A2E kernel, and under octree_* its launches, time, plain time and bound
 on phase 11's octree, under sources_* on phase 12 (b)'s, under pol_* on
 phase 14 (a)'s with the align weights; 6 for the clamp kernel, 7 for the probes, 9 for the
 sharded A2E, whose other numbers phase 8 takes over the same six shards,
 and under ckpt_launches its launches on phase 17 (c)'s resumed run;
+under domain_launches the A2E kernel's on phase 18 (b)'s;
 15 (e) for the two kernels' global-memory forms, a2e_all_sizes_global and
 a2e_clamp_global, at NE 1856 and under nf1088_* at NFREQ 1088; under
 config5_* phase 16 (a)'s launches, the kernel's time on the first dust's
@@ -425,6 +461,9 @@ ROI_MESH_RTOL = 0.01
 # (b1) and (c) run both blocks
 MESH_SIMUM = (30.0, 3000.0)
 MESH_PSPACKETS = 5000   # (b2): packets a point source and channel
+DOMAIN_SLABS = 4        # phase 18: Z slabs, cuda:0 four times
+DOMAIN_RTOL, DOMAIN_ATOL, DOMAIN_SHARE = 1e-3, 1e-6, 0.98   # the rule
+DOMAIN_MIRROR = "z"     # phase 18 (c): the bottom slab's face
 SOURCES = ("a2e", "probe_gather", "probe_scatter", "probe_onehot")
 PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
     "probe_gather": ("soc_tpu_torch/csrc/probe_gather.cu",
@@ -3035,7 +3074,7 @@ def _held(tag, name, got, want):
         fail("phase 17: (%s) %s differs" % (tag, name))
 
 
-def _run_balance(tag, res):
+def _run_balance(tag, res, phase="phase 17"):
     """The whole run's energy balance per channel, in signed sums as
     driver.pass_balance forms a cell pass's: (absorbed + escaped + born
     outside + the cell passes' escaped - launched - the cell passes'
@@ -3055,13 +3094,13 @@ def _run_balance(tag, res):
     bal = (res.absorbed_photons + esc - inj) / den
     cells = [float(np.abs(driver.pass_balance(st)).max())
              for st in res.cell_passes]
-    print("phase 17: (%s) energy balance per channel: max |.| = %.3e; cell "
+    print(phase + ": (%s) energy balance per channel: max |.| = %.3e; cell "
           "passes %s (tolerance %.1e)"
           % (tag, np.abs(bal).max(), ", ".join("%.3e" % b for b in cells),
              BALANCE_TOL), flush=True)
     if not np.abs(bal).max() <= BALANCE_TOL \
             or not all(b <= BALANCE_TOL for b in cells):
-        fail("phase 17: (%s) energy balance off" % tag)
+        fail(phase + ": (%s) energy balance off" % tag)
 
 
 def checkpoint_phase(dev, work, args, report, ali_one):
@@ -3290,6 +3329,169 @@ def checkpoint_phase(dev, work, args, report, ali_one):
     times["c"] = time.time() - t0
 
 
+def _domain_rule(tag, name, got, want):
+    """Phase 18: got against want by the rule for domain runs (its total
+    within DOMAIN_RTOL, DOMAIN_SHARE of the entries within DOMAIN_RTOL
+    relative or DOMAIN_ATOL of the maximum); fails beyond it."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail("phase 18: (%s) %s: shape %s or not finite" % (tag, name,
+                                                           got.shape))
+    # the absorbed files mark the parent rows -1e20 (equal in both)
+    keep = want > -1e19
+    if not (got[~keep] == want[~keep]).all():
+        fail("phase 18: (%s) %s: the parents' rows differ" % (tag, name))
+    got, want = got[keep], want[keep]
+    tot = abs(got.sum() - want.sum()) / abs(want.sum())
+    share = np.isclose(got, want, rtol=DOMAIN_RTOL,
+                       atol=DOMAIN_ATOL * np.abs(want).max()).mean()
+    print("phase 18: (%s) %s: total %.3e off, %.5f of the entries within "
+          "%.0e relative or %.0e of the max (at least %.2f)"
+          % (tag, name, tot, share, DOMAIN_RTOL, DOMAIN_ATOL, DOMAIN_SHARE),
+          flush=True)
+    if not (tot <= DOMAIN_RTOL and share >= DOMAIN_SHARE):
+        fail("phase 18: (%s) %s differs from one card" % (tag, name))
+
+
+def _domain_passes(tag, one, dom, card, out):
+    """Phase 18: each pass over the slabs beside one card's: seconds,
+    packets/s, supersteps, emigrants a superstep, the queue's peak;
+    returns the lines' numbers (in ``out`` under the tag)."""
+    rows = out.setdefault(tag, [])
+    for so, sd in zip(one.source_passes + one.cell_passes,
+                      dom.source_passes + dom.cell_passes):
+        d = sd.get("domain")
+        if sd["slabs"] != DOMAIN_SLABS or d is None:
+            fail("phase 18: (%s) a pass did not run over the slabs" % tag)
+        name = sd.get("source") or "cell pass %d (%s)" % (sd["iteration"],
+                                                          sd["route"])
+        print("phase 18: (%s) %s over %d slabs: %d packets, %.2f s (%.0f "
+              "packets/s); on one card %.2f s (%.0f packets/s); %d "
+              "supersteps of %d lanes a slab, emigrants a superstep mean "
+              "%.0f, peak %d, pending queue peak %d of %d [%s]"
+              % (tag, name, DOMAIN_SLABS, sd["packets"], sd["seconds"],
+                 sd["packets"] / sd["seconds"], so["seconds"],
+                 so["packets"] / so["seconds"], d["supersteps"], d["lanes"],
+                 d["emigrants_mean"], d["emigrants_peak"], d["queue_peak"],
+                 4 * d["lanes"], card), flush=True)
+        rows.append((name, sd["seconds"], so["seconds"], d["supersteps"],
+                     d["emigrants_mean"], d["emigrants_peak"],
+                     d["queue_peak"]))
+
+
+def domains_phase(dev, work, args, report):
+    """Phase 18: `domains 4` over cuda:0 four times on phase 10's octree
+    against one card (the docstring's (a)-(c))."""
+    import torch
+    from soc_tpu_torch.example_model import write_model
+    from soc_tpu_torch.pipeline import driver, full
+    from soc_tpu_torch.solve import a2e_kernel, equilibrium
+    card = report["card"]
+    slabs = [dev] * DOMAIN_SLABS
+    times = report["domains"] = {}
+    rows = {}
+    common = dict(npix=64, map_dx=N / 64.0, octree=OCTREE)
+
+    def pair(tag, **kw):
+        runs = {}
+        for where in ("one", "dom"):
+            ini = write_model(os.path.join(work, "dom_%s_%s" % (tag, where)),
+                              N, kind="eqdust", nfreq=44, **dict(common, **kw))
+            runs[where] = driver.run(
+                ini, device=dev, domains=slabs if where == "dom" else None)
+            torch.cuda.synchronize()
+        if runs["dom"].domains != slabs or runs["one"].domains is not None:
+            fail("phase 18: (%s) the runs' slabs: %s" % (tag,
+                                                       runs["dom"].domains))
+        _domain_passes(tag, runs["one"], runs["dom"], card, rows)
+        return runs["one"], runs["dom"]
+
+    # (a) one ALI cell pass, one packet a cell and channel, from phase 10
+    # (a)'s background heating: (b) runs the background over the slabs
+    t0 = time.time()
+    one, dom = pair("a", cellpackets=OCTREE_CELLS, iterations=2,
+                    extra="ali 1\ncload %s\n" % os.path.join(
+                        work, "octree_rt_a", "ctabs.save"))
+    if [st["route"] for st in dom.cell_passes] != ["ali"]:
+        fail("phase 18: (a) expected one ALI cell pass")
+    for name in ("absorbed", "emitted", "temperature"):
+        _domain_rule("a", name, getattr(dom, name), getattr(one, name))
+    _domain_rule("a", "map", dom.maps[0], one.maps[0])
+    _run_balance("a", dom, "phase 18")
+    times["a"] = time.time() - t0
+
+    # (b) phase 11's pipeline with the domains list: one A2E launch on
+    # the assembled tallies, emitted.data against phase 11's one card
+    t0 = time.time()
+    sub = os.path.join(work, "dom_pipeline")
+    ini = write_model(sub, N, kind="gset", nfreq=44, nsize=24,
+                      bgpac=args.bgpackets // 4, **common)
+    shutil.copy(os.path.join(work, "gs_TST.solver"), sub)
+    a2e_kernel.launches = a2e_kernel.clamp_launches = 0
+    res_rt, _, res_map = full.run_pipeline(ini, dev, domains=slabs)
+    torch.cuda.synchronize()
+    launches = (a2e_kernel.launches, a2e_kernel.clamp_launches)
+    st = res_rt.source_passes[0]
+    print("phase 18: (b) pipeline over %d slabs: absorption %.2f s (%d "
+          "packets, %.0f packets/s; phase 11's one card %.2f s), %d "
+          "supersteps, A2E %.2f s, %d a2e_all_sizes and %d a2e_clamp "
+          "launch(es), total %.2f s [%s]"
+          % (DOMAIN_SLABS, st["seconds"], st["packets"],
+             st["packets"] / st["seconds"],
+             report["stages_octree"]["absorption_s"],
+             st["domain"]["supersteps"], res_map.timings["a2e"], *launches,
+             time.time() - t0, card), flush=True)
+    if launches != (1, 0) or res_rt.domains != slabs:
+        fail("phase 18: (b) expected one a2e_all_sizes launch after the "
+             "slabs' absorption run")
+    report["a2e_all_sizes"]["domain_launches"] = launches[0]
+    for name in ("emitted.data", "absorbed.data"):
+        _domain_rule("b", name + " against phase 11's one card",
+                     read_cell_frequency_array(os.path.join(sub, name)),
+                     read_cell_frequency_array(os.path.join(
+                         work, "octree_pipeline", name)))
+    times["b"] = time.time() - t0
+
+    # (c) the constant sources over MESH_SIMUM under the bottom mirror and
+    # two dusts' abundances
+    t0 = time.time()
+    one, dom = pair("c", bgpac=args.bgpackets // 16, simum=MESH_SIMUM,
+                    split=SPLIT, abundance=True, hpbg=SKY_NSIDE,
+                    hpbg_weighted=True, point_sources=POINT_SOURCES,
+                    ps_method=PS_METHOD, pspackets=MESH_PSPACKETS,
+                    diffuse=DIFFUSE_SHARE, dfpackets=OCTREE_CELLS // 4,
+                    cellpackets=OCTREE_CELLS,
+                    extra="mirror %s\nemweight 1 0 100\n" % DOMAIN_MIRROR)
+    if [st["route"] for st in one.source_passes if st["source"] == "diffuse"] \
+            != ["emweight"]:
+        fail("phase 18: (c) the diffuse field did not run EMWEI")
+    source_balance("c, slabs", dom, card, "phase 18")
+    refined = np.nonzero(
+        (equilibrium.cell_levels(one.grid).cpu().numpy() > 0)
+        & (one.grid.dens.cpu().numpy() > 0))[0]
+    if not any(st["clones"] for st in dom.source_passes):
+        fail("phase 18: (c) no source split over the slabs")
+    for so, sd in zip(one.source_passes, dom.source_passes):
+        if sd["clones"] == 0:
+            _domain_rule("c", "%s's absorbed energy a cell" % so["source"],
+                         sd["tabs"], so["tabs"])
+            continue
+        diff = sd["tabs"][refined].astype(np.float64) \
+            - so["tabs"][refined].astype(np.float64)
+        sigma = np.sqrt(np.sum(np.array(
+            [g.sum() for g in np.array_split(diff, 64)]) ** 2))
+        refsum = so["tabs"][refined].astype(np.float64).sum()
+        print("phase 18: (c) %s split over the slabs, its %d refined "
+              "leaves: difference %.3e of one card's, bound %.1f sigma = "
+              "%.3e; clones %d over the slabs, %d on one card"
+              % (so["source"], len(refined), diff.sum() / refsum,
+                 SPLIT_SIGMAS, SPLIT_SIGMAS * sigma / refsum, sd["clones"],
+                 so["clones"]), flush=True)
+        if so["clones"] == 0 or not abs(diff.sum()) <= SPLIT_SIGMAS * sigma:
+            fail("phase 18: (c) the split %s disagrees" % so["source"])
+    times["c"] = time.time() - t0
+    report["domain_rows"] = rows
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bgpackets", type=int, default=FULL_BGPACKETS)
@@ -3361,10 +3563,13 @@ def main():
         config5_phase(dev, work, args, report)
         t7 = time.time()
         checkpoint_phase(dev, work, args, report, plain["b"])
+        t8 = time.time()
+        domains_phase(dev, work, args, report)
         print("phase 10: %.2f s; phase 11: %.2f s; phase 12: %.2f s; phase "
               "13: %.2f s (%s); phase 14: %.2f s (%s); phase 15: %.2f s "
-              "(%s); phase 16: %.2f s (%s); phase 17: %.2f s (%s); the "
-              "smoke so far %.2f s, phase 10 %.2f s of it [%s]"
+              "(%s); phase 16: %.2f s (%s); phase 17: %.2f s (%s); phase "
+              "18: %.2f s (%s); the smoke so far %.2f s, phase 10 %.2f s "
+              "of it [%s]"
               % (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["slice"].items()),
@@ -3377,9 +3582,12 @@ def main():
                  t7 - t6,
                  ", ".join("%s %.4g" % kv
                            for kv in report["config5"].items()),
-                 time.time() - t7,
+                 t8 - t7,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["ckpt"].items()),
+                 time.time() - t8,
+                 ", ".join("%s %.2f s" % kv
+                           for kv in report["domains"].items()),
                  time.time() - T_START, t1 - t0, card), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3402,7 +3610,7 @@ def main():
              "a2e_all_sizes_global", "a2e_clamp_global"]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = ("shards", "ckpt_launches", "octree_launches", "octree_ms", "octree_plain_ms",
+    extra = ("shards", "ckpt_launches", "domain_launches", "octree_launches", "octree_ms", "octree_plain_ms",
              "octree_bound_ms", "octree_max_abs_err", "sources_launches",
              "sources_ms", "sources_plain_ms", "sources_bound_ms",
              "sources_max_abs_err", "pol_launches", "pol_ms",

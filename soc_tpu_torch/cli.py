@@ -35,9 +35,10 @@ Options, anywhere on the line:
 
 The ini keyword `devices N` runs the product path (for `sca`, each
 source's packets split) over N devices (cuda:0 .. cuda:N-1, or the CPU N
-times with '--device cpu'). `sca` writes outcoming.socs (or, with `fits
-1`, <scattering>.fits). soc_tpu's `bench` verb is not ported yet: see
-ROADMAP.md.
+times with '--device cpu'); `domains N` (rt and pipeline) runs the
+transport over N Z-slabs of the grid on the same devices. `sca` writes
+outcoming.socs (or, with `fits 1`, <scattering>.fits). soc_tpu's `bench`
+verb is not ported yet: see ROADMAP.md.
 """
 
 import os

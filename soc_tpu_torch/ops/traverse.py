@@ -131,8 +131,9 @@ def index_update_stack(grid, pos, level, ind, anc, active, descend=True):
     root_ind = _root_index(pos, grid.nx, grid.ny, grid.nz)
     ind = torch.where(at_root, torch.where(outside0, INVALID, root_ind), ind)
 
-    dims = torch.tensor([grid.nx, grid.ny, grid.nz], dtype=pos.dtype,
-                        device=pos.device)
+    # filled on the device (a CUDA graph cannot capture a host copy)
+    dims = torch.stack([pos.new_full((), float(n))
+                        for n in (grid.nx, grid.ny, grid.nz)])
     up = active & (level > 0)
     for _ in range(grid.levels - 1):
         plevel = level - 1

@@ -99,6 +99,12 @@ class ProductMesh:
         self.devices = devices
         self._replicas = {}
 
+    route = "mesh"      # a pass's route over the mesh (driver stats)
+
+    def run_freqs(self, *args, **kw):
+        """run_freqs over this mesh (the driver calls a pass's layout)."""
+        return run_freqs(self, *args, **kw)
+
     def replica(self, obj, device):
         """``obj`` (a Grid, Medium or TemperatureTable) on ``device``: the
         object itself where it lies there already, else a copy made once

@@ -40,13 +40,18 @@ temperature solves and phase 3 run over a (dp x freq) mesh of devices
 freq and each channel's budget split over dp, every source and keyword as
 on one device; the solve with the cells split; phase 3 with the map's
 rows and channels split.
+With `domains N` (or an explicit list of N devices) the transport of
+phases 1 and 2 runs over N Z-slabs of the grid, one a device
+(parallel/domain.py): each slab steps the packets inside it and hands
+those that cross a slab face to its neighbour; the solves, the A2E stage
+and the maps run on the run's device. soc_tpu's refusals stand under it:
+`roi`, SUBITERATIONS, `checkpoint`, `mmapabs` and `devices`.
 With `checkpoint <file> [N]` (utils/checkpoint.py) the tallies and the
 completed units (a source or cell pass, an mmapabs block, a pass over the
 mesh, an iteration's state) are written to the file every N units; the same command run again resumes after the last
 unit written, and a run that is never stopped gives the same outputs.
-Outputs keep the reference's binary formats. A keyword or input the port
-does not support yet raises NotImplementedError naming it; nothing is
-silently ignored.
+Outputs keep the reference's binary formats; nothing is silently
+ignored.
 """
 
 import os
@@ -114,33 +119,31 @@ class RunResult:
     source_passes: list = field(default_factory=list)  # a dict a source
     cell_passes: list = field(default_factory=list)  # one dict a cell pass
     devices: list = None                # the product mesh's devices, or None
+    domains: list = None                # the slabs' devices, or None
     checkpoint: object = None           # the run's RunCheckpoint, or None
     timings: dict = field(default_factory=dict)
 
 
-def unsupported_features(cfg):
-    """Names of the ini features this port does not implement yet:
-    `domains` (parallel/domain.py), ROADMAP.md's queue."""
-    return ["domains"] if cfg.n_domains else []
+_EXCLUSIVE = ("`devices` and `domains` are mutually exclusive: pick "
+              "packet/frequency sharding or Z-slab decomposition")
 
 
-def check_supported(cfg):
-    if int(cfg.n_domains) > 1 and int(cfg.n_devices) not in (0, 1):
-        raise ValueError("`devices` and `domains` are mutually exclusive: "
-                         "pick packet/frequency sharding or Z-slab "
-                         "decomposition")
-    missing = unsupported_features(cfg)
-    if missing:
-        raise NotImplementedError(
-            "not supported by soc_tpu_torch yet: " + ", ".join(missing))
+def check_supported(cfg, devices=None, domains=None):
+    """soc_tpu's refusal of `devices` with `domains` (the ini's keywords,
+    or run's lists)."""
+    if (int(cfg.n_domains) > 1 or domains is not None) \
+            and (int(cfg.n_devices) not in (0, 1) or devices is not None):
+        raise ValueError(_EXCLUSIVE)
 
 
 def run(ini_path=None, cfg=None, device=None, lanes=DEFAULT_LANES,
-        write_files=True, workdir=None, devices=None):
+        write_files=True, workdir=None, devices=None, domains=None):
     """Full run of one ini on ``device``; returns RunResult. workdir
     defaults to the ini's directory. ``devices``, a list of devices (which
     may repeat one), runs the product path over them in place of the
-    ini's `devices N`; the outputs are gathered on ``device``."""
+    ini's `devices N`; ``domains``, a list of devices (which may repeat
+    one), the Z-slab path in place of the ini's `domains N`. The outputs
+    are gathered on ``device``."""
     if device is None:
         raise ValueError("run: pass the device explicitly ('cuda' or 'cpu')")
     device = torch.device(device)
@@ -154,7 +157,7 @@ def run(ini_path=None, cfg=None, device=None, lanes=DEFAULT_LANES,
     os.chdir(workdir)
     try:
         return _run_inner(cfg, device, lanes, write_files, t_start,
-                          devices)
+                          devices, domains)
     finally:
         os.chdir(orig)
 
@@ -271,6 +274,14 @@ def _units(intf, channels, key, ckpt, skip, record, fresh=False,
         ran.append(ukey)
 
 
+def _tally_mesh(layout):
+    """The ProductMesh whose shards hold the per-frequency tally in slabs
+    of their own, or None: one device, or Z-slabs (a DomainSet, whose
+    passes add into the one tally on the run's device)."""
+    from ..parallel.product import ProductMesh
+    return layout if isinstance(layout, ProductMesh) else None
+
+
 def _pass_absorbed(tally, col0, pm):
     """Per channel, float64, the absorption a pass's own per-frequency
     tally holds (a tensor from column col0, or over a mesh its slabs)."""
@@ -283,9 +294,10 @@ def _pass_absorbed(tally, col0, pm):
     return out
 
 
-def _host_tally(cfg, grid, nfreq, device, pmesh):
+def _host_tally(cfg, grid, nfreq, device, pmesh, dset=None):
     """A HostTally when `mmapabs` asks for one or the per-frequency tally
-    exceeds SOC_TPU_TALLY_BYTES (never over a mesh), else None."""
+    exceeds SOC_TPU_TALLY_BYTES (never over a mesh; refused under
+    domains, as soc_tpu refuses it), else None."""
     if pmesh is not None:
         return None
     shape = (grid.cells, nfreq) + ((4,) if cfg.save_intensity == 2 else ())
@@ -293,6 +305,9 @@ def _host_tally(cfg, grid, nfreq, device, pmesh):
     budget = int(float(os.environ.get("SOC_TPU_TALLY_BYTES", "0") or 0))
     if not (cfg.mmap_absorbed or (budget and need > budget)):
         return None
+    if dset is not None:
+        raise ValueError("mmapabs under `domains` is not supported; use "
+                         "`devices` (the freq-sharded tally)")
     return HostTally(shape, budget or MMAP_BLOCK_BYTES, device)
 
 
@@ -372,8 +387,10 @@ def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
     identities (hi = stream_hi_base(phase) + channel, k the id within the
     channel) are the same, so the pool traces the same packets with one
     drain tail. Under `mmapabs` (intf a HostTally) one pool a block of
-    channels; over a mesh (``pmesh``, intf its slabs) one pool a shard.
-    Both run through product.run_freqs, one device as a one-shard mesh.
+    channels; over a mesh (``pmesh`` a ProductMesh, intf its slabs) one
+    pool a shard; over Z-slabs (``pmesh`` a DomainSet) the same pool, and
+    the stats add its 'domain' numbers. Each runs through the layout's
+    run_freqs, one device as a one-shard mesh.
     params['cell_maps'] (EMWEI) holds one id -> cell map a channel of sel,
     joined end to end for the pool. ``roi``: the ROI save's crossing
     tally (transport_run). ``ckpt``: the run's checkpoint; the pass
@@ -388,6 +405,7 @@ def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
     from ..parallel import product
     t0 = time.time()
     nfreq = medium.nfreq
+    mesh = _tally_mesh(pmesh)
     sel = np.asarray(sel, np.int64)
     counts = np.broadcast_to(np.asarray(counts, np.int64), sel.shape)
     keep = counts > 0
@@ -398,10 +416,12 @@ def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
     sel, counts = sel[keep], counts[keep]
     total = int(counts.sum())
     zero = np.zeros(nfreq)
-    stats = dict(source=phase, route="mixed" if pmesh is None else "mesh",
+    stats = dict(source=phase, route="mixed" if pmesh is None
+                 else pmesh.route,
                  pools=0, packets=total, clones=0, seconds=0.0,
                  escaped=zero, launched=zero, missed=zero,
-                 absorbed_energy=0.0, tabs=None, restored=False)
+                 absorbed_energy=0.0, tabs=None, restored=False,
+                 slabs=getattr(pmesh, "n_slabs", 0))
     if total == 0:
         return tabs, intf, stats
     vec = dict(escaped=zero.copy(), launched=zero.copy(),
@@ -419,15 +439,15 @@ def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
 
     def record(key):
         ckpt.record(key, units.pop(key), tabs=tabs,
-                    intf=_intf_snapshot(intf, pmesh),
+                    intf=_intf_snapshot(intf, mesh),
                     roi=None if roi is None else roi["tally"])
 
     for key, chans, tally, col0 in _units(intf, sel, phase, ckpt, skip,
-                                          record, pmesh=pmesh):
+                                          record, pmesh=mesh):
         m = np.isin(sel, chans)
-        tabs, _, out = product.run_freqs(
-            pm, grid, physics, kind, params, sel[m], counts[m], tabs,
-            tally if pmesh is not None else [tally], seed, lanes,
+        tabs, _, out = pm.run_freqs(
+            grid, physics, kind, params, sel[m], counts[m], tabs,
+            tally if mesh is not None else [tally], seed, lanes,
             per_freq_tally, stream_hi_base(phase), split_max=split_max,
             maps=None if maps is None else [mp for mp, k in zip(maps, m)
                                             if k],
@@ -438,6 +458,8 @@ def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
             vec[k] += out[k]
         stats["clones"] += out["clones"]
         stats["pools"] += out["pools"]
+        if out.get("domain"):
+            stats["domain"] = out["domain"]
     if stats["pools"] == 0:         # every unit came from the checkpoint
         stats.update(vec)
         return tabs, intf, stats
@@ -459,7 +481,8 @@ def simulate_background(grid, medium, cfg, ibg, tabs, intf, seed,
     """Phase-1 isotropic background over the channels ``sel`` (all by
     default), in one mixed pool; with ``pmesh`` (`devices N`) over the
     mesh, one pool per shard (product.run_freqs), intf then the mesh's
-    slabs; ``ckpt`` the run's checkpoint (_source_pass). The reference
+    slabs, with ``pmesh`` a DomainSet (`domains N`) over its Z-slabs;
+    ``ckpt`` the run's checkpoint (_source_pass). The reference
     sends 8*AREA*BATCH packets per frequency; the same normalisation
     keeps the tallies comparable. The pass's stats (_source_pass) go to
     ``passes`` when given. Returns
@@ -880,7 +903,8 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
     packet's path (soc_tpu runs ALI and EMWEI a pool a channel): EMWEI
     with the channels' maps end to end, ALI with the lane's emitting cell
     in the XAB tally (so a mixed pool keeps the self-absorption exact),
-    each shard's XAB summed in shard order.
+    each shard's XAB summed in shard order. Over Z-slabs (``pmesh`` a
+    DomainSet) its run_freqs runs the same pool.
 
     With per-frequency tallies the pass adds into a [CELLS, NFREQ] tally
     of its own, then into intf: its absorption per channel is then held
@@ -896,13 +920,15 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
     Returns (tabs, intf, escaped [NFREQ], xab [CELLS] host array or None,
     stats): stats holds the pass's route, pools, packets, seconds and,
     per channel in float64, the weight injected (signed and absolute),
-    escaped and, with per-frequency tallies, absorbed.
+    escaped and, with per-frequency tallies, absorbed; over Z-slabs the
+    slab count and domain.run_freqs's 'domain' numbers.
     """
     from ..parallel import product
     t0 = time.time()
     device = grid.device
     nfreq = medium.nfreq
-    pm = pmesh or product.one_shard(device, nfreq)
+    mesh = _tally_mesh(pmesh)
+    one = product.one_shard(device, nfreq)
     physics = _physics(medium, physics_extra)
     emitted = torch.as_tensor(emitted, device=device)
     route, params, sel, counts, maps, injected, inj_abs = _cell_source(
@@ -924,6 +950,7 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
         if resumed and ckpt.saved("p2_xab") is not None:
             xab = torch.tensor(ckpt.saved("p2_xab"), device=device)
     units = {}
+    dstats = None
 
     def skip(ukey):
         for k, v in ckpt.skipped(ukey).items():
@@ -933,17 +960,17 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
     def record(ukey):
         if ukey in units:
             ckpt.record(ukey, units.pop(ukey), p2_tabs=tabs, p2_xab=xab,
-                        intf=_intf_snapshot(intf, pmesh))
+                        intf=_intf_snapshot(intf, mesh))
 
     for ukey, chans, tally, col0 in _units(
             intf, np.arange(nfreq), key, ckpt, skip, record,
-            fresh=per_freq_tally, pmesh=pmesh):
+            fresh=per_freq_tally, pmesh=mesh):
         m = np.isin(sel, chans)
         if not m.any():
             continue
-        tabs, _, out = product.run_freqs(
-            pm, grid, physics, "cell", params, sel[m], counts[m], tabs,
-            tally if pmesh is not None else [tally], seed, lanes,
+        tabs, _, out = (pmesh or one).run_freqs(
+            grid, physics, "cell", params, sel[m], counts[m], tabs,
+            tally if mesh is not None else [tally], seed, lanes,
             per_freq_tally, stream_hi_base("cell", iteration),
             maps=None if maps is None else [mp for mp, k in zip(maps, m)
                                             if k],
@@ -951,7 +978,8 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
             col0=col0)
         if route == "ali":
             xab = xab + out["xab"]
-        ab = _pass_absorbed(tally, col0, pm) if per_freq_tally \
+        dstats = out.get("domain") or dstats
+        ab = _pass_absorbed(tally, col0, mesh or one) if per_freq_tally \
             else np.zeros(nfreq)
         escaped += out["escaped"]
         absorbed += ab
@@ -970,7 +998,10 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
                  packets=packets, injected=injected.cpu().numpy(),
                  injected_abs=inj_abs.cpu().numpy(), escaped=escaped,
                  absorbed=absorbed if per_freq_tally else None,
-                 mesh=pmesh is not None, restored=resumed)
+                 mesh=mesh is not None, restored=resumed,
+                 slabs=getattr(pmesh, "n_slabs", 0))
+    if dstats is not None:
+        stats["domain"] = dstats
     stats["seconds"] = time.time() - t0
     return tabs, intf, escaped, xab, stats
 
@@ -1004,6 +1035,39 @@ def _product_setup(cfg, nfreq, device, devices=None):
         return None
     return ProductMesh(n, nfreq, [device] * n if device.type == "cpu"
                        else None)
+
+
+def _domain_setup(cfg, grid, device, domains=None):
+    """The Z-slab decomposition of `domains N` (soc_tpu driver.py:975-1004)
+    as a parallel.domain.DomainSet, or None: over ``domains`` when given,
+    else cuda:0 .. cuda:N-1 (raises when fewer are visible), the CPU N
+    times on the CPU; N <= 1 means none. `roi`, SUBITERATIONS and
+    `checkpoint` are refused with soc_tpu's words (`mmapabs`: _host_tally;
+    an NZ that N does not divide: split_grid_slabs)."""
+    from ..parallel.domain import DomainSet
+    if domains is None:
+        n = int(cfg.n_domains)
+        if n <= 1:
+            return None
+        if device.type == "cpu":
+            domains = [device] * n
+        else:
+            visible = torch.cuda.device_count()
+            if visible < n:
+                raise ValueError("domains %d: only %d devices visible"
+                                 % (n, visible))
+            domains = [torch.device("cuda", i) for i in range(n)]
+    if len(domains) <= 1:
+        return None
+    for bad, name in ((cfg.roi, "roi (crossing histograms need global "
+                       "root coordinates; use `devices`)"),
+                      (cfg.has_key("SUBITERATIONS"), "SUBITERATIONS "
+                       "(use `devices`)"),
+                      (cfg.file_checkpoint, "checkpoint (use `devices`)")):
+        if bad:
+            raise ValueError("domains: `%s` is not supported under "
+                             "domain decomposition" % name)
+    return DomainSet(grid, domains)
 
 
 def _checkpoint_setup(cfg, nfreq, pmesh, host):
@@ -1043,9 +1107,9 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _run_inner(cfg, device, lanes, write_files, t_start, devices):
+def _run_inner(cfg, device, lanes, write_files, t_start, devices, domains):
     cfg.validate()
-    check_supported(cfg)
+    check_supported(cfg, devices, domains)
     res = RunResult()
     timings = res.timings
 
@@ -1128,10 +1192,12 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
 
     # ---- phase 1: the constant sources
     t0 = time.time()
+    dset = _domain_setup(cfg, grid, device, domains)
+    res.domains = None if dset is None else dset.devices
     per_freq_tally = (not cfg.noabsorbed) or cfg.save_intensity > 0
     tabs = torch.zeros(grid.cells, dtype=torch.float32, device=device)
-    host = _host_tally(cfg, grid, nfreq, device, pmesh) if per_freq_tally \
-        else None
+    host = _host_tally(cfg, grid, nfreq, device, pmesh, dset) \
+        if per_freq_tally else None
     if pmesh is not None and per_freq_tally:
         # dp-partial per-frequency slabs, one per shard on its device
         # (under `mmapabs` too: the slabs take the host tally's place)
@@ -1163,7 +1229,8 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
         tabs, intf = _restore(ckpt, tabs, intf, roi, pmesh)
     res.checkpoint = ckpt
     kw = dict(sel=sel, physics_extra=physics_extra,
-              passes=res.source_passes, roi=roi, pmesh=pmesh, ckpt=ckpt)
+              passes=res.source_passes, roi=roi, pmesh=dset or pmesh,
+              ckpt=ckpt)
     split_max = split_max_of(cfg, grid)
     if cfg.file_constant_load:
         # CLOAD: the constant sources are not simulated; their integrated
@@ -1208,7 +1275,7 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
         if cfg.file_roi_load and cfg.roipac > 0:
             tabs, intf, esc, inj = simulate_roi_load(
                 grid, medium, cfg, tabs, intf, seed + 9, lanes,
-                per_freq_tally, sel, res.source_passes, pmesh, ckpt)
+                per_freq_tally, sel, res.source_passes, dset or pmesh, ckpt)
             escaped += esc
             injected += inj
     if ckpt is not None and ckpt.pending:
@@ -1264,11 +1331,12 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices):
     if not cfg.nosolve and cfg.iterations >= 1:
         table = equilibrium.build_temperature_table(
             freq, optics[0].abs_gl, cfg.gl, device)
+        # SUBITERATIONS is refused under domains (_domain_setup)
         phase2 = _subiterations if cfg.has_key("SUBITERATIONS") \
             else _iterations
         temperature, emitted, intf = phase2(
             cfg, grid, medium, optics, table, tabs, intf, seed, lanes,
-            per_freq_tally, freq, gl_cm, write_files, res, pmesh,
+            per_freq_tally, freq, gl_cm, write_files, res, dset or pmesh,
             physics_extra, ckpt)
         res.temperature = temperature.cpu().numpy()
         res.emitted = emitted.cpu().numpy()
@@ -1472,8 +1540,12 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
     emit_total, the reference carries, XAB), and a resumed run starts
     after the last one written (soc_tpu driver.py:1552-1600, 1660-1680);
     the cell passes record their own units (simulate_cell_emission).
+    ``pmesh``, the passes' layout: a ProductMesh runs the cell passes and
+    the solves over the mesh, a DomainSet the cell passes over its
+    Z-slabs and the solves on the run's device.
     Returns (temperature, emitted, intf) on the device."""
     device = grid.device
+    mesh = _tally_mesh(pmesh)
     abs_gl = optics[0].abs_gl
     wr = int(cfg.with_reference)
     wr_fir, wr_tot = 0, max(1, cfg.iterations)
@@ -1512,7 +1584,7 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
                 oxab = np.array(ckpt.saved("it_oxab"))
             if ckpt.saved("it_xab") is not None:
                 xab = np.array(ckpt.saved("it_xab"))
-            res.cell_passes.extend(_restored_passes(cfg, ckpt, it0, pmesh))
+            res.cell_passes.extend(_restored_passes(cfg, ckpt, it0, mesh))
     for iteration in range(it0, max(1, cfg.iterations)):
         beta = 1.0
         k = ((iteration + wr_fir) / float(wr_tot)) if wr > 1 \
@@ -1532,7 +1604,8 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
             tabs_it, intf, _, xab, stats = simulate_cell_emission(
                 grid, medium, cfg, sim_emit, tabs_it, intf, seed, lanes,
                 per_freq_tally, iteration=iteration,
-                physics_extra=physics_extra, pmesh=pmesh, ckpt=ckpt)
+                physics_extra=physics_extra, pmesh=pmesh,
+                ckpt=ckpt)
             res.cell_passes.append(stats)
             if delta_sim:
                 tabs_it = tabs_it + otabs
@@ -1557,7 +1630,7 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
                                        device=device)
         t_prev = temperature
         temperature, emitted = _solve_and_emit(
-            grid, table, emit_total, gl_cm, freq, abs_gl, cfg, pmesh, beta)
+            grid, table, emit_total, gl_cm, freq, abs_gl, cfg, mesh, beta)
         if cfg.has_key("alibeta") and cfg.with_ali and t_prev is not None \
                 and torch.is_tensor(beta):
             # the beta(T, tau) refinement with the previous iteration's
@@ -1569,12 +1642,12 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
                                 grid.dens.cpu().numpy(),
                                 t_old=t_prev.cpu().numpy())
             temperature, emitted = _solve_and_emit(
-                grid, table, emit_total, gl_cm, freq, abs_gl, cfg, pmesh,
+                grid, table, emit_total, gl_cm, freq, abs_gl, cfg, mesh,
                 torch.as_tensor(beta2, device=device))
         if ckpt is not None and cfg.clpac > 0:
             # the iteration's state: everything the next one reads
             ckpt.record("iter%d" % iteration, None,
-                        intf=_intf_snapshot(intf, pmesh),
+                        intf=_intf_snapshot(intf, mesh),
                         it_emitted=emitted, it_temperature=temperature,
                         it_emit_total=emit_total, it_oemitted=oemitted,
                         it_otabs=otabs, it_oxab=oxab, it_xab=xab)

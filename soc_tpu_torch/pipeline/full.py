@@ -307,13 +307,16 @@ MODES = (None, "makelib", "uselib")
 
 
 def run_pipeline(ini_path, device, lanes=driver.DEFAULT_LANES, ne=128,
-                 mode=None, devices=None):
+                 mode=None, devices=None, domains=None):
     """ASOC_driver equivalent: absorptions -> emission -> maps. Returns
     (RunResult of the absorption run, EMITTED [CELLS, NFREQ], RunResult of
     the map run); the emission stage's seconds are in the map run's
     timings under 'a2e' (its parts as emission_stage names them, and
     'library_build'). With `devices N` in the ini, or a ``devices``
     list, all three stages run over the same devices (see driver.run).
+    With `domains N`, or a ``domains`` list, the absorption run's
+    transport runs over Z-slabs (driver.run); the emission (one A2E
+    launch on its assembled tallies) and the maps run on ``device``.
     With `polarisation` the polarised emission is written to
     <emitted>.P and returned as the map run's ``pemitted``.
 
@@ -331,7 +334,7 @@ def run_pipeline(ini_path, device, lanes=driver.DEFAULT_LANES, ne=128,
     os.chdir(workdir)
     try:
         return _run_pipeline_inner(ini_path, device, lanes, ne, mode,
-                                   devices)
+                                   devices, domains)
     finally:
         os.chdir(orig)
 
@@ -343,10 +346,11 @@ def _dust_frequencies(path, gl):
     return np.asarray(read_gset_dust(path).qfreq)
 
 
-def _run_pipeline_inner(ini_path, device, lanes, ne, mode, devices):
+def _run_pipeline_inner(ini_path, device, lanes, ne, mode, devices,
+                        domains):
     from ..solve import library as libmod
     cfg = RunConfig(ini_path).validate()
-    driver.check_supported(cfg)
+    driver.check_supported(cfg, devices, domains)
     ne = cfg.ne_number or ne
     default_lib = os.path.splitext(cfg.file_optical[0])[0] + ".lib"
 
@@ -362,7 +366,7 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, mode, devices):
             cfg_rt.fselect = [float(freq0[i]) for i in idx]
             cfg.fselect = cfg_rt.fselect
     res_rt = driver.run(cfg=cfg_rt, device=device, lanes=lanes, workdir=".",
-                        devices=devices)
+                        devices=devices, domains=domains)
     absorbed = res_rt.absorbed
     cells = res_rt.grid.cells
     freq = res_rt.freq

@@ -4,7 +4,8 @@ self-absorption tally, in-flight packet splitting, per-cell cross sections
 (WITH_ABU, MSF), the (I, Ix, Iy, Iz) intensity tally, mirrored faces, the
 ROI crossing tally and the step and direction weighting).
 
-A fixed pool of packet lanes is stepped in eager PyTorch. Each *march*
+A fixed pool of packet lanes is stepped in PyTorch (on a card the march
+block of a refill body replays as one CUDA graph: PoolRun). Each *march*
 step advances every live lane by one event (a cell-boundary crossing or the
 arrival at a scattering point); lanes whose free path ends freeze there
 (``pending``) and a *service* step draws the new direction and free path
@@ -47,6 +48,15 @@ Mirrored faces (``mirror_mask``, the 6 bits of `mirror xXyYzZ`): a lane
 leaving through one is reflected back inside (its direction negated, its
 position mirrored PEPS inside the face) and re-indexed from the root.
 
+Z-slab domains (``domain``, parallel/domain.py): the grid is one slab of
+the root grid's Z planes. A lane that leaves through an interior slab face
+is an emigrant (``PoolState.emig`` +1 up, -1 down): it is not counted as
+escaped, its index is -1 like a dead lane's, so neither service nor march
+touches it, and no refill takes its lane (``free_lanes``) until the
+caller's exchange has handed it to the neighbouring slab. The Z faces are
+mirrored only on the outer slabs; with ALI the self-absorption test maps
+the slab-local deposit cell to its global id (``e_cell`` stays global).
+
 ROI save (``roi``): every crossing into the ROI box adds the packet's
 photons at (channel, surface element, Healpix pixel of its direction) of a
 flat [NFREQ * NELEM * NPIX] tally; lanes that did not enter add 0.0 into
@@ -72,7 +82,7 @@ Physics per step (kernel_ASOC.c semantics):
 """
 
 import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 
 import torch
 
@@ -127,10 +137,10 @@ def _norm(v):
 def _deflect(dir, cos_theta, phi):
     """Rotate unit vectors by theta around a uniform azimuth."""
     sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
-    ax = torch.abs(dir[..., 0])
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=dir.dtype, device=dir.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=dir.dtype, device=dir.device)
-    helper = torch.where((ax < 0.9)[..., None], ex, ey)
+    # the helper axis: x where |dir_x| < 0.9, else y (made on the device,
+    # so a CUDA graph can capture it)
+    hx = (torch.abs(dir[..., 0]) < 0.9).to(dir.dtype)
+    helper = torch.stack([hx, 1.0 - hx, torch.zeros_like(hx)], -1)
     t1 = _cross(dir, helper)
     t1 = t1 / _norm(t1)
     t2 = _cross(dir, t1)
@@ -215,7 +225,7 @@ def serve_clones(seed, st):
     bounds). Updates st and st.sp in place."""
     b, sp = st.b, st.sp
     nlanes = b.lanes
-    dead = b.ind < 0
+    dead = free_lanes(st)
     di = dead.to(torch.int64)
     drank = torch.cumsum(di, 0) - di
     pend = sp["pending"]
@@ -298,6 +308,14 @@ class PoolState:
     sp: dict = None            # split state (init_split_state) or None
     roi: torch.Tensor = None   # flat ROI tally + lanes spare slots, or None
     roi_spare: torch.Tensor = None  # [N] each lane's spare ROI slot
+    emig: torch.Tensor = None  # [N] int64 emigrant direction (domains)
+
+
+def free_lanes(st):
+    """Lanes a refill or a clone may take: the dead ones, less the
+    emigrants that await their exchange (Z-slab domains)."""
+    dead = st.b.ind < 0
+    return dead if st.emig is None else dead & (st.emig == 0)
 
 
 class StepKit:
@@ -318,11 +336,14 @@ class StepKit:
     mirror_mask: the mirrored faces' bits (x X y Y z Z = 1 2 4 8 16 32).
     roi: the ROI save's dict(mask [CELLS] bool, box, dim (rnx, rny, rnz,
     step), nside) or None.
+    domain: None, or for one Z slab of `domains N` dict(rank, n_slabs,
+    nz_local, gidx): the slab's index and count, its root Z planes (the
+    grid's nz) and its [CELLS] local -> global cell map (-1 padding).
     The weighting keys of physics ('sw_a', 'sw_b', 'dw_a') are floats."""
 
     def __init__(self, grid, physics, seed, per_freq_tally, with_ali=False,
                  split_max=0, ncomp=1, ncol=None, col0=0, mirror_mask=0,
-                 roi=None):
+                 roi=None, domain=None):
         csc = physics["csc"]
         if csc.ndim != 2 or physics["kabs"].ndim != 1:
             raise NotImplementedError(
@@ -354,7 +375,14 @@ class StepKit:
         # turns splitting off under STEP_WEIGHT
         self.split_max = 0 if self.sw_a is not None \
             else min(int(split_max), SPLIT_CAP)
+        self.domain = domain
         self.mirror_mask = int(mirror_mask)
+        if domain is not None:
+            # interior slab faces belong to the exchange: z is mirrored on
+            # the bottom slab only, Z on the top one
+            rank, n = domain["rank"], domain["n_slabs"]
+            self.mirror_mask &= ~((16 if rank > 0 else 0)
+                                  | (32 if rank < n - 1 else 0))
         if self.mirror_mask:
             m = self.mirror_mask
             self.lo_m = torch.tensor([bool(m & 1), bool(m & 4),
@@ -506,7 +534,9 @@ class StepKit:
         if self.with_ali:
             # self-absorption: the deposit into the packet's own emitting
             # cell goes to xab; both tallies add at didx
-            selfc = active & (gidx == b.e_cell)
+            own = gidx if self.domain is None \
+                else self.domain["gidx"][gidx]
+            selfc = active & (own == b.e_cell)
             st.tabs.index_add_(0, didx, torch.where(selfc, 0.0, wdep))
             st.xab.index_add_(0, didx, torch.where(selfc, wdep, 0.0))
         else:
@@ -543,6 +573,8 @@ class StepKit:
             self._roi_tally(st, cross, gidx, npos, nlevel, nind, b,
                             photons)
         exited = cross & (nind < 0)
+        if self.domain is not None:
+            exited = self._emigrate(st, exited, npos)
 
         # ---- merge: scattering lanes freeze at the scattering point
         pos = torch.where(scatter_now[..., None], pos_scatter, npos)
@@ -597,6 +629,21 @@ class StepKit:
             anc = torch.where(mirrored[:, None], ma, anc)
         return npos, nlevel, nind, anc, dir
 
+    def _emigrate(self, st, exited, npos):
+        """Z-slab domains: an exit through an interior slab face (npos in
+        root coordinates; z in the upper half of the slab goes up, else
+        down) becomes an emigrant; only exits through the X/Y faces and
+        the outer Z faces escape. Returns the lanes that escaped."""
+        grid, dom = self.grid, self.domain
+        rank, n = dom["rank"], dom["n_slabs"]
+        inner = exited & (npos[:, 0] > 0.0) & (npos[:, 0] < grid.nx) \
+            & (npos[:, 1] > 0.0) & (npos[:, 1] < grid.ny)
+        upper = npos[:, 2] >= 0.5 * dom["nz_local"]
+        up = inner & upper if rank < n - 1 else torch.zeros_like(inner)
+        down = inner & ~upper if rank > 0 else torch.zeros_like(inner)
+        st.emig = st.emig + up.to(torch.int64) - down.to(torch.int64)
+        return exited & ~up & ~down
+
     def _roi_tally(self, st, cross, gidx, npos, nlevel, nind, b, photons):
         """WITH_ROI_SAVE (kernel_ASOC.c:617-660): a lane that crossed from
         a cell outside the ROI into one inside adds its photons at
@@ -647,7 +694,7 @@ def _refill(kit, st, gen, params, next_id, total, births=None):
     Returns the count of packets started, on device."""
     grid = kit.grid
     b = st.b
-    dead = b.ind < 0
+    dead = free_lanes(st)
     deadi = dead.to(torch.int64)
     rank = torch.cumsum(deadi, 0) - deadi
     new_id = next_id + rank
@@ -694,6 +741,155 @@ def pool_lanes(nlanes, per_freq):
     power of two."""
     n = min(nlanes, max(1024, per_freq))
     return 1 << (n - 1).bit_length() if n & (n - 1) else n
+
+
+# replay a pool's march block as one CUDA graph on a card (PoolRun)
+CUDA_GRAPHS = True
+
+
+def _pool_tensors(st):
+    """The per-lane state a march block reads and replaces, by name (the
+    tallies, added to in place, and the fixed spare slots stay out)."""
+    out = {"b." + f.name: getattr(st.b, f.name) for f in fields(st.b)}
+    out.update(pending=st.pending, free_path=st.free_path, tau=st.tau,
+               esc_pending=st.esc_pending, absd=st.absd)
+    if st.emig is not None:
+        out["emig"] = st.emig
+    if st.sp is not None:
+        out.update({"sp." + k: v for k, v in st.sp.items()})
+    return out
+
+
+def _set_pool_tensors(st, tensors):
+    """Point st's state at ``tensors`` (as _pool_tensors names them)."""
+    st.b = replace(st.b, **{k[2:]: v for k, v in tensors.items()
+                            if k.startswith("b.")})
+    for k, v in tensors.items():
+        if k.startswith("sp."):
+            st.sp[k[3:]] = v
+        elif not k.startswith("b."):
+            setattr(st, k, v)
+
+
+class PoolRun:
+    """One pool's drain, a body at a time: transport_steps and the Z-slab
+    runner (parallel/domain.py) step their pools through it.
+
+    A body, in soc_tpu's order: flush the escaped weight of the free lanes
+    (dead, not emigrants) per frequency, serve the pending clones,
+    ``before_refill`` (the slab runner's arrivals), refill from the budget
+    of ``total`` ids, then ``inner`` march steps with a service every
+    REFILL_PERIOD. With ``births`` the weights launched and born outside
+    the grid are summed per frequency too.
+
+    On a CUDA device the march block is captured as one CUDA graph at the
+    second body and replayed after: the eager block issues some hundred
+    kernels a march step from one host thread, which the card finishes
+    faster than the host issues them. The replay runs the same kernels:
+    the state is copied into the graph's inputs, and the pool takes its
+    outputs; the tallies are the same tensors."""
+
+    def __init__(self, kit, st, gen, params, total, births=False,
+                 inner=REFILL_PERIOD):
+        self.kit, self.st, self.gen, self.params = kit, st, gen, params
+        self.total, self.inner = int(total), int(inner)
+        device = kit.grid.device
+        # escaped weight per frequency, spread over ESC_SPREAD slots per
+        # bin (slot = lane % ESC_SPREAD) so the card's atomic adds do not
+        # all wait on NFREQ addresses; float64, so the order of the
+        # additions cannot show in the energy balance
+        self.esc_w = torch.zeros(kit.nfreq * ESC_SPREAD, dtype=torch.float64,
+                                 device=device)
+        self.esc_slot = torch.remainder(
+            torch.arange(st.b.lanes, device=device), ESC_SPREAD)
+        self.births = None
+        if births:
+            self.births = (torch.zeros_like(self.esc_w),
+                           torch.zeros_like(self.esc_w), self.esc_slot)
+        self.next_id = torch.zeros((), dtype=torch.int64, device=device)
+        self.graphed = CUDA_GRAPHS and device.type == "cuda"
+        self.graph = None
+        self.bodies = 0
+
+    def more(self):
+        """Device bool: live lanes, ids left, or clone requests pending."""
+        st = self.st
+        more = (st.b.ind >= 0).any() | (self.next_id < self.total)
+        if st.sp is not None:
+            # a pool whose ids are all issued may still hold requests
+            more = more | st.sp["pending"].any()
+        return more
+
+    def body(self, before_refill=None):
+        """One body of the pool (the class docstring's order)."""
+        st, kit = self.st, self.kit
+        dead = free_lanes(st)
+        self.esc_w.index_add_(0, st.b.ifreq * ESC_SPREAD + self.esc_slot,
+                              torch.where(dead, st.esc_pending, 0.0).double())
+        st.esc_pending = torch.where(dead, 0.0, st.esc_pending)
+        # pending clones go into dead lanes before fresh packets
+        if st.sp is not None:
+            serve_clones(kit.seed, st)
+        if before_refill is not None:
+            before_refill()
+        if self.total:
+            self.next_id = self.next_id + _refill(
+                kit, st, self.gen, self.params, self.next_id, self.total,
+                self.births)
+        lane_c = kit.lane_const_of(st.b)
+        self.bodies += 1
+        if self.graphed and self.bodies > 1:
+            self._replay(lane_c)
+        else:
+            self._marches(st, lane_c)
+
+    def _marches(self, st, lane_c):
+        for _ in range(self.inner // REFILL_PERIOD):
+            self.kit.service(st)
+            for _ in range(REFILL_PERIOD):
+                self.kit.march(st, lane_c)
+
+    def _replay(self, lane_c):
+        if self.graph is None:
+            # capture on a side stream (the first body, eager, warmed the
+            # kernels up); a capture records and runs nothing
+            self.g_in = {k: v.clone()
+                         for k, v in _pool_tensors(self.st).items()}
+            self.g_lc = tuple(c.clone() for c in lane_c)
+            work = replace(self.st, sp=None if self.st.sp is None
+                           else dict(self.st.sp))
+            _set_pool_tensors(work, self.g_in)
+            graph = torch.cuda.CUDAGraph()
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                try:
+                    self._marches(work, self.g_lc)
+                finally:
+                    graph.capture_end()
+            main.wait_stream(side)
+            self.graph, self.g_out = graph, _pool_tensors(work)
+        for k, v in _pool_tensors(self.st).items():
+            self.g_in[k].copy_(v)
+        for c, v in zip(self.g_lc, lane_c):
+            c.copy_(v)
+        self.graph.replay()
+        _set_pool_tensors(self.st, self.g_out)
+
+    def finish(self):
+        """The last flush (lanes that died in the last block); returns
+        (escaped, (launched, missed) or None) [NFREQ] float64 on the
+        device. The graph's memory goes with it."""
+        st = self.st
+        self.esc_w.index_add_(0, st.b.ifreq * ESC_SPREAD + self.esc_slot,
+                              st.esc_pending.double())
+        self.graph = self.g_in = self.g_out = self.g_lc = None
+        nfreq = self.kit.nfreq
+        births = None if self.births is None else tuple(
+            w.view(nfreq, ESC_SPREAD).sum(1) for w in self.births[:2])
+        return self.esc_w.view(nfreq, ESC_SPREAD).sum(1), births
 
 
 def transport_run(grid, physics, source_params, total_packets, tabs, intf,
@@ -761,7 +957,6 @@ def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
     kit = StepKit(grid, physics, seed, per_freq_tally, with_ali, split_max,
                   ncomp, intf.shape[1] if per_freq_tally else None,
                   tally_col0, mirror_mask, roi)
-    nfreq = kit.nfreq
     device = grid.device
     if with_ali and xab is None:
         xab = torch.zeros(grid.cells, dtype=torch.float32, device=device)
@@ -772,50 +967,17 @@ def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
         st.roi = torch.zeros(kit.roi_size + nlanes, dtype=torch.float32,
                              device=device)
         st.roi_spare = kit.roi_size + torch.arange(nlanes, device=device)
-    # escaped weight per frequency, spread over ESC_SPREAD slots per bin
-    # (slot = lane % ESC_SPREAD) so the card's atomic adds do not all wait
-    # on NFREQ addresses; float64, so the order of the additions cannot
-    # show in the energy balance
-    esc_w = torch.zeros(nfreq * ESC_SPREAD, dtype=torch.float64,
-                        device=device)
-    esc_slot = torch.remainder(torch.arange(nlanes, device=device),
-                               ESC_SPREAD)
-    birth_w = None
-    if births:
-        birth_w = (torch.zeros_like(esc_w), torch.zeros_like(esc_w),
-                   esc_slot)
-    next_id = torch.zeros((), dtype=torch.int64, device=device)
-    total = int(total_packets)
+    run = PoolRun(kit, st, gen, source_params, total_packets, births)
     body = 0
     while True:
         if body % CHECK_EVERY == 0 and body > 0:
-            more = (st.b.ind >= 0).any() | (next_id < total)
-            if split:
-                # a pool whose ids are all issued may still hold requests
-                more = more | st.sp["pending"].any()
-            if not bool(more.item()):
+            if not bool(run.more().item()):
                 break
         body += 1
-        # ---- flush the escaped weight of dead lanes per frequency
-        dead = st.b.ind < 0
-        esc_w.index_add_(0, st.b.ifreq * ESC_SPREAD + esc_slot,
-                         torch.where(dead, st.esc_pending, 0.0).double())
-        st.esc_pending = torch.where(dead, 0.0, st.esc_pending)
-        # ---- pending clones go into dead lanes before fresh packets
-        if split:
-            serve_clones(kit.seed, st)
-
-        next_id = next_id + _refill(kit, st, gen, source_params, next_id,
-                                    total, birth_w)
-        lane_c = kit.lane_const_of(st.b)
-        kit.service(st)
-        for _ in range(REFILL_PERIOD):
-            kit.march(st, lane_c)
+        run.body()
         yield
-    # final flush: lanes that died in the last block
-    esc_w.index_add_(0, st.b.ifreq * ESC_SPREAD + esc_slot,
-                     st.esc_pending.double())
-    out = (tabs, intf, esc_w.view(nfreq, ESC_SPREAD).sum(1), st.absd)
+    esc, birth_w = run.finish()
+    out = (tabs, intf, esc, st.absd)
     if with_ali:
         out = out + (xab,)
     if roi is not None:
@@ -824,6 +986,5 @@ def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
         out = out + (st.sp["clones"] if split else
                      torch.zeros((), dtype=torch.int64, device=device),)
     if births:
-        out = out + tuple(w.view(nfreq, ESC_SPREAD).sum(1)
-                          for w in birth_w[:2])
+        out = out + birth_w
     return out

@@ -228,14 +228,10 @@ def _isotropic_dir(u1, u2):
     return _unit(d)
 
 
-def gen_cell(grid, ids_local, seed, params):
-    """Re-emission packets (the dust's own, or the diffuse field's);
-    params: 'emit' [CELLS] (one channel) or [CELLS, NFREQ] (a mixed pool,
-    gathered once at birth), the photon weight of one packet of each
-    cell; either 'per_cell' (uniform packets a cell) or 'cell_of_id'
-    (EMWEI: the host's map from within-channel id to cell, or under
-    'starts' the channels' maps end to end); plus the packet_identity
-    keys."""
+def emitting_cell(ids_local, params, cells):
+    """(cell, k, ifreq, hi) of gen_cell's packets ``ids_local``: the
+    global id of the cell that emits each one (of ``cells``) and its
+    packet_identity."""
     stream, ifreq, hi = packet_identity(ids_local, params)
     if "cell_of_id" in params:
         # one channel's map indexed by k, or under 'starts' the channels'
@@ -245,7 +241,18 @@ def gen_cell(grid, ids_local, seed, params):
         cell = com[at.clamp(0, com.shape[0] - 1)].to(torch.int64)
     else:
         cell = stream // int(params["per_cell"])
-    cell = cell.clamp(0, grid.cells - 1)
+    return cell.clamp(0, cells - 1), stream, ifreq, hi
+
+
+def gen_cell(grid, ids_local, seed, params):
+    """Re-emission packets (the dust's own, or the diffuse field's);
+    params: 'emit' [CELLS] (one channel) or [CELLS, NFREQ] (a mixed pool,
+    gathered once at birth), the photon weight of one packet of each
+    cell; either 'per_cell' (uniform packets a cell) or 'cell_of_id'
+    (EMWEI: the host's map from within-channel id to cell, or under
+    'starts' the channels' maps end to end); plus the packet_identity
+    keys."""
+    cell, stream, ifreq, hi = emitting_cell(ids_local, params, grid.cells)
     u1, u2, u3, u4, u5, _ = _uniforms(seed, stream, hi)
     # (level, level-local index) of the global cell id
     off = grid.off.to(torch.int64)

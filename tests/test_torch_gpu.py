@@ -1241,3 +1241,78 @@ def test_graphed_training_step_equals_eager(cuda):
     assert int(ob.count) == 30
     for pa, pb in zip(a.parameters(), b.parameters()):
         torch.testing.assert_close(pb, pa, rtol=1e-6, atol=1e-9)
+
+
+DOMAIN_CASES = {
+    "background cells": dict(cellpackets=2 * 8 ** 3, iterations=2),
+    "sources octree": dict(octree=(2, 8, 3), point_sources=[
+        (4.1, 3.9, 4.2, 0.3), (3.8, 4.3, 14.0, 1.0)], ps_method=4,
+        pspackets=2000, hpbg=2, diffuse=0.5, dfpackets=1024,
+        cellpackets=1024, extra="emweight 1 0 100\n"),
+    "ali mirror": dict(octree=(2, 8, 3), cellpackets=1280, iterations=2,
+                       extra="ali 1\nmirror z\n")}
+
+
+@pytest.mark.parametrize("name", list(DOMAIN_CASES))
+def test_domains_on_card_match_one_pool(cuda, tmp_path, name):
+    """`domains` over cuda:0 four times against cuda:0's one pool, by
+    soc_tpu's rule for domain runs (test_torch_domain.held); every cell
+    pass's balance within 0.5%."""
+    from test_torch_domain import held
+    ini = write_model(str(tmp_path), 8, kind="eqdust", nfreq=8,
+                      **DOMAIN_CASES[name])
+    one = driver.run(ini, device=cuda, lanes=1 << 14)
+    dom = driver.run(ini, device=cuda, lanes=1 << 14, domains=[cuda] * 4)
+    assert dom.domains == [cuda] * 4
+    assert all(st["route"] == "domains" for st in dom.source_passes)
+    for f in ("ctabs", "absorbed", "temperature", "emitted"):
+        if getattr(one, f) is not None:
+            held(getattr(dom, f), getattr(one, f), f)
+    for st in dom.cell_passes:
+        assert st["slabs"] == 4
+        assert np.abs(driver.pass_balance(st)).max() < 5e-3
+    for so, sd in zip(one.source_passes, dom.source_passes):
+        np.testing.assert_array_equal(sd["launched"], so["launched"])
+        held(sd["tabs"], so["tabs"], so["source"])
+
+
+@pytest.mark.parametrize("slabs", [0, 4])
+def test_graphed_pools_equal_eager(cuda, tmp_path, monkeypatch, slabs):
+    """The march block replayed as a CUDA graph (propagate.PoolRun) runs
+    the eager block's kernels: on an octree with the split sky, a point
+    source and an ALI cell pass, one pool a pass or four slabs on cuda:0,
+    the graphed run launches the same packets, serves the same clones and
+    holds the tallies to the card's atomic order (1e-4 relative or 1e-6
+    of the maximum)."""
+    from soc_tpu_torch.transport import propagate
+    replays = []
+    replay = propagate.PoolRun._replay
+
+    def counted(self, lane_c):
+        replays.append(1)
+        return replay(self, lane_c)
+
+    monkeypatch.setattr(propagate.PoolRun, "_replay", counted)
+    runs = {}
+    for graphs in (False, True):
+        monkeypatch.setattr(propagate, "CUDA_GRAPHS", graphs)
+        ini = write_model(str(tmp_path / str(graphs)), 8, kind="eqdust",
+                          nfreq=8, octree=(2, 8, 3), hpbg=4,
+                          hpbg_weighted=True, split=4,
+                          point_sources=[(4.1, 3.9, 4.2, 0.3)],
+                          pspackets=2000, cellpackets=1280, iterations=2,
+                          extra="ali 1\n")
+        runs[graphs] = driver.run(ini, device=cuda, lanes=1 << 12,
+                                  domains=[cuda] * slabs if slabs else None)
+        assert bool(replays) == graphs
+    eager, graphed = runs[False], runs[True]
+    for se, sg in zip(eager.source_passes + eager.cell_passes,
+                      graphed.source_passes + graphed.cell_passes):
+        assert sg.get("clones", 0) == se.get("clones", 0)
+        if "launched" in se:
+            np.testing.assert_array_equal(sg["launched"], se["launched"])
+    assert any(st["clones"] for st in graphed.source_passes)
+    for f in ("ctabs", "absorbed", "temperature", "emitted"):
+        a, b = getattr(graphed, f), getattr(eager, f)
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-6 * np.abs(b).max())

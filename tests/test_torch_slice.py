@@ -1,8 +1,10 @@
 """The whole slice through both packages on the same inputs: `rt` (an
 equilibrium dust) and `pipeline` (a stochastic GSET dust: absorption run
 -> A2E -> map), comparing absorbed.data, emitted.data, tmp.T and
-map_dir_00.bin; plus the port's guarantees: no jax import, unsupported
-keywords raise, other CLI verbs exit non-zero.
+map_dir_00.bin; plus the port's guarantees: no jax import, the keywords
+it once refused run (`domains` held to the one-device run by soc_tpu's
+rule for domain runs, test_torch_domain.held), other CLI verbs exit
+non-zero.
 
 Tolerances: packets follow the same paths in both packages except for the
 rare packet that XLA's own exp/log/cos/sin send across another boundary
@@ -117,11 +119,18 @@ def test_rt_absorbed_file_takes_no_tensor_array(tmp_path, monkeypatch):
 
 
 def test_unsupported_keywords_raise(tmp_path):
-    """`domains` (parallel/domain.py, not ported yet) raises by name."""
-    ini = write_model(str(tmp_path), 4, kind="eqdust", nfreq=6,
+    """`domains 2`, which raised before parallel/domain.py was ported,
+    runs over two CPU slabs and matches the one-device run."""
+    from test_torch_domain import held
+    one = tdriver.run(write_model(str(tmp_path / "one"), 4, kind="eqdust",
+                                  nfreq=6), device=CPU, lanes=1024)
+    ini = write_model(str(tmp_path / "dom"), 4, kind="eqdust", nfreq=6,
                       extra="domains 2\n")
-    with pytest.raises(NotImplementedError, match="domains"):
-        tdriver.run(ini, device=CPU, lanes=1024)
+    dom = tdriver.run(ini, device=CPU, lanes=1024)
+    assert dom.domains == [CPU] * 2
+    assert [st["route"] for st in dom.source_passes] == ["domains"]
+    for name in ("ctabs", "absorbed", "temperature", "emitted"):
+        held(getattr(dom, name), getattr(one, name), name)
 
 
 @pytest.mark.parametrize("name,devices,kw", [
@@ -169,21 +178,24 @@ def test_formerly_refused_keywords_run(tmp_path, name, devices, kw):
 def test_mesh_runs_the_transport_keywords(tmp_path, name, kw):
     """Each transport keyword of the ROI / mirror / weighting / mmapabs
     slice runs under `devices 4` (dp 2 x freq 2) and matches the
-    one-device run; with the map keywords the maps render and nothing is
-    refused (driver.unsupported_features names only `domains`)."""
-    from soc_tpu_torch.config import RunConfig
+    one-device run over the four devices, every pass on the mesh's route;
+    with the map keywords the maps render."""
     from test_torch_product_features import mesh_vs_one
     one, mesh = mesh_vs_one(tmp_path, devices=4, **kw)
-    assert tdriver.unsupported_features(
-        RunConfig(str(tmp_path / "mesh" / "run.ini"))) == []
+    assert len(mesh.devices) == 4 and one.devices is None
+    assert mesh.source_passes
+    assert all(st["route"] == "mesh" for st in mesh.source_passes)
+    assert all(st["mesh"] for st in mesh.cell_passes)
     if name == "maps":
         assert mesh.render_passes and one.render_passes
 
 
 def test_octree_raises(tmp_path):
     """A 2-level cloud runs (the octree is ported: tests/test_torch_phase2*
-    hold it to soc_tpu); a keyword not ported yet (`domains`) still
-    raises in the pipeline."""
+    hold it to soc_tpu); the pipeline's makelib mode with `domains 2`
+    (which raised before parallel/domain.py was ported) runs over two CPU
+    slabs and matches the one-device makelib run."""
+    from test_torch_domain import held
     from soc_tpu.grid import encode_link_np
     from soc_tpu_torch.io.cloud import write_hierarchy
     ini = write_model(str(tmp_path), 4, kind="eqdust", nfreq=6)
@@ -194,10 +206,15 @@ def test_octree_raises(tmp_path):
     res = tdriver.run(ini, device=CPU, lanes=1024)
     assert res.grid.levels == 2 and res.temperature.shape == (72,)
     assert np.isfinite(res.maps[0]).all() and res.maps[0].max() > 0
-    with open(ini, "a") as fp:
-        fp.write("domains 2\n")
-    with pytest.raises(NotImplementedError, match="domains"):
-        tfull.run_pipeline(ini, device=CPU, mode="makelib")
+    runs = {}
+    for name in ("one", "dom"):
+        if name == "dom":
+            with open(ini, "a") as fp:
+                fp.write("domains 2\n")
+        runs[name] = tfull.run_pipeline(ini, device=CPU, mode="makelib",
+                                        lanes=1024)
+    assert runs["dom"][0].domains == [CPU] * 2
+    held(runs["dom"][1], runs["one"][1], "makelib emitted")
 
 
 def test_port_runs_without_jax(tmp_path):
