@@ -336,13 +336,36 @@ Phases (any failure exits non-zero before the final line):
      transparent channels keep a packet between two mirrored Z faces
      bouncing for 1e5 steps and more (the tests hold `mirror zZ` on
      thick channels)
+ 19. several processes (parallel/dist.py on torch.distributed, one gloo
+     group): (a) the `pipeline` verb through cli.main as six processes on
+     this card, started with soc_tpu's variables (SOC_TPU_COORDINATOR,
+     SOC_TPU_NUM_PROCESSES, SOC_TPU_PROCESS_ID; CUDA_VISIBLE_DEVICES the
+     card), phase 9's model with `devices 6`: phase 9's (dp 3 x freq 2)
+     mesh, one shard a process. Process 0's absorbed.data, emitted.data
+     and map_dir_00.bin against phase 4's within phase 9's bound; each
+     process's balance a channel within 0.5%, one a2e_all_sizes launch and
+     no a2e_clamp launch (each solves every cell on its own card), the
+     same absorbed and emitted arrays (sha256) in every process; the
+     processes past 0 write no file (each runs in a directory of its own,
+     with links to the files process 0 writes before the others read
+     them). Each process's stage seconds, its transport passes' device
+     spans (CUDA events) and its host seconds in the collectives (waits
+     for the others included), and the phase's wall time. (b) with two cards
+     or more visible, one process a card (`devices` the cards) held the
+     same way, its absorption seconds beside the same mesh driven from
+     one host thread in this process, phase 4's one pool and PR 3's
+     one-thread `devices 4` and one pool; on one card it prints that it
+     needs two. Every
+     process has MP_TIMEOUT seconds; a failure kills the others and
+     fails the phase with their stderr
 The kernels line gives each kernel's launches on its path (phase 4 for the
 A2E kernel, and under octree_* its launches, time, plain time and bound
 on phase 11's octree, under sources_* on phase 12 (b)'s, under pol_* on
 phase 14 (a)'s with the align weights; 6 for the clamp kernel, 7 for the probes, 9 for the
 sharded A2E, whose other numbers phase 8 takes over the same six shards,
 and under ckpt_launches its launches on phase 17 (c)'s resumed run;
-under domain_launches the A2E kernel's on phase 18 (b)'s;
+under domain_launches the A2E kernel's on phase 18 (b)'s; under
+mp_launches each process's in phase 19 (a);
 15 (e) for the two kernels' global-memory forms, a2e_all_sizes_global and
 a2e_clamp_global, at NE 1856 and under nf1088_* at NFREQ 1088; under
 config5_* phase 16 (a)'s launches, the kernel's time on the first dust's
@@ -464,6 +487,64 @@ MESH_PSPACKETS = 5000   # (b2): packets a point source and channel
 DOMAIN_SLABS = 4        # phase 18: Z slabs, cuda:0 four times
 DOMAIN_RTOL, DOMAIN_ATOL, DOMAIN_SHARE = 1e-3, 1e-6, 0.98   # the rule
 DOMAIN_MIRROR = "z"     # phase 18 (c): the bottom slab's face
+MP_RANKS = PRODUCT_SHARDS   # phase 19 (a): processes on one card, one
+                            # shard each of phase 9's (dp 3 x freq 2) mesh
+MP_TIMEOUT = 600        # phase 19: seconds a process may take
+MP_GROUP_TIMEOUT = 300  # phase 19: seconds a collective may wait
+# phase 19 (b): PR 3 run 7's `devices 4` absorption on four H100s, one
+# host thread, and one pool on one card (PERF.md)
+PR3_THREAD_S, PR3_POOL_S = 5.995, 4.501
+# phase 19: one process of the group (python -c RANK_CODE <cli args>): the
+# `pipeline` verb through cli.main with CUDA events around each transport
+# pass (product.run_freqs) on its stream and the host seconds spent in
+# dist's collectives (waits for the other processes included), then one
+# RESULT line
+RANK_CODE = r"""
+import hashlib, json, sys, time
+import numpy as np
+import torch
+t0 = time.time()
+from soc_tpu_torch import cli
+from soc_tpu_torch.parallel import dist, product
+from soc_tpu_torch.solve import a2e_kernel
+real, spans = product.run_freqs, []
+def run_freqs(*args, **kw):
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = real(*args, **kw)
+    ev[1].record()
+    ev[1].synchronize()
+    spans.append(ev[0].elapsed_time(ev[1]) / 1e3)
+    return out
+product.run_freqs = run_freqs
+coll = [0.0]
+def host_timed(fn):
+    def call(*args, **kw):
+        t = time.time()
+        try:
+            return fn(*args, **kw)
+        finally:
+            coll[0] += time.time() - t
+    return call
+for name in ("barrier", "gather_objects", "share", "broadcast", "move"):
+    setattr(dist, name, host_timed(getattr(dist, name)))
+results = {}
+rc = cli.main(sys.argv[1:], results)
+torch.cuda.synchronize()
+a, m = results["absorption"], results["map"]
+def digest(x):
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()[:16]
+bal = (a.absorbed_photons + a.escaped) / a.injected - 1.0
+print("RESULT " + json.dumps(dict(
+    rc=rc, rank=dist.process_index(), size=dist.process_count(),
+    launches=a2e_kernel.launches, clamp=a2e_kernel.clamp_launches,
+    absorbed=digest(a.absorbed), emitted=digest(results["emitted"]),
+    balance=float(np.abs(bal).max()), spans=spans, collectives_s=coll[0],
+    absorption_s=a.timings["constant_sources"], a2e_s=m.timings["a2e"],
+    maps_s=m.timings["maps"], wall_s=time.time() - t0,
+    foreign=sorted(k for k in sys.modules
+                   if k.split(".")[0] in ("jax", "soc_tpu")))), flush=True)
+"""
 SOURCES = ("a2e", "probe_gather", "probe_scatter", "probe_onehot")
 PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
     "probe_gather": ("soc_tpu_torch/csrc/probe_gather.cu",
@@ -3492,6 +3573,188 @@ def domains_phase(dev, work, args, report):
     times["c"] = time.time() - t0
     report["domain_rows"] = rows
 
+def _rank_dirs(work, tag, n, extra, args):
+    """One directory a process, each with phase 9's model (`devices` in
+    ``extra``): process 0's gets phase 4's .solver (a copy), the others
+    links to the files process 0 would have written into a shared
+    directory before they read them (the .solver, the simple dust)."""
+    from soc_tpu_torch.example_model import write_model
+    dirs = []
+    for k in range(n):
+        d = os.path.join(work, "%s_r%d" % (tag, k))
+        write_model(d, N, kind="gset", nfreq=44, nsize=24, npix=64,
+                    bgpac=args.bgpackets, map_dx=N / 64.0, extra=extra)
+        dirs.append(d)
+    shutil.copy(os.path.join(work, "gs_TST.solver"), dirs[0])
+    for d in dirs[1:]:
+        for name in ("gs_TST.solver", "TST_simple.dust"):
+            os.symlink(os.path.join(work, "devices", name),
+                       os.path.join(d, name))
+    return dirs
+
+
+def _run_ranks(tag, dirs, cards, card):
+    """The `pipeline` verb as len(dirs) processes of one group (soc_tpu's
+    variables), process k in dirs[k] on card cards[k]; each has
+    MP_TIMEOUT seconds, and any failure kills the others and fails the
+    phase with their stderr. Returns (RESULT dicts in rank order, wall)."""
+    import socket
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = []
+    t0 = time.time()
+    for k, d in enumerate(dirs):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=str(cards[k]),
+                   PYTHONPATH=HERE, SOC_TPU_COORDINATOR="127.0.0.1:%d" % port,
+                   SOC_TPU_NUM_PROCESSES=str(len(dirs)),
+                   SOC_TPU_PROCESS_ID=str(k),
+                   SOC_TPU_DIST_TIMEOUT=str(MP_GROUP_TIMEOUT))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_CODE, "pipeline", "run.ini"],
+            cwd=d, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    out, errs = [None] * len(procs), [""] * len(procs)
+    try:
+        for k, p in enumerate(procs):
+            try:
+                stdout, errs[k] = p.communicate(
+                    timeout=max(1.0, MP_TIMEOUT - (time.time() - t0)))
+            except subprocess.TimeoutExpired:
+                errs[k] = "timed out after %d s" % MP_TIMEOUT
+                break
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("RESULT ")]
+            if p.returncode != 0 or not line:
+                break
+            out[k] = json.loads(line[0][7:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.time() - t0
+    if any(r is None for r in out):
+        fail("phase 19 %s: a process failed:\n%s" % (tag, "\n".join(
+            "--- process %d (rc %s):\n%s" % (k, p.returncode, e[-2500:])
+            for k, (p, e) in enumerate(zip(procs, errs)) if e)))
+    for r in out:
+        print("phase 19 %s: process %d of %d: absorption %.2f s, A2E %.2f "
+              "s, maps %.2f s, wall %.2f s; transport passes' device "
+              "spans (CUDA events) %s s; in collectives %.3f s; "
+              "a2e_all_sizes %d, a2e_clamp %d launches [%s]"
+              % (tag, r["rank"], r["size"], r["absorption_s"], r["a2e_s"],
+                 r["maps_s"], r["wall_s"],
+                 ", ".join("%.3f" % x for x in r["spans"]),
+                 r["collectives_s"], r["launches"], r["clamp"], card),
+              flush=True)
+    return out, wall
+
+
+def _hold_ranks(tag, out, dirs, before, ref):
+    """Phase 19's checks: every process's balance, launches and digests;
+    process 0's files against ``ref`` within the rerun bound; the other
+    processes wrote nothing."""
+    for r in out:
+        if r["rc"] != 0 or r["foreign"]:
+            fail("phase 19 %s: process %d: rc %s, imported %s"
+                 % (tag, r["rank"], r["rc"], r["foreign"]))
+        if r["balance"] > BALANCE_TOL:
+            fail("phase 19 %s: process %d's energy balance %.3e"
+                 % (tag, r["rank"], r["balance"]))
+        if (r["launches"], r["clamp"]) != (1, 0):
+            fail("phase 19 %s: process %d launched a2e_all_sizes %d and "
+                 "a2e_clamp %d times (expected 1 and 0)"
+                 % (tag, r["rank"], r["launches"], r["clamp"]))
+        for key in ("absorbed", "emitted"):
+            if r[key] != out[0][key]:
+                fail("phase 19 %s: process %d's %s differs from process "
+                     "0's" % (tag, r["rank"], key))
+    print("phase 19 %s: every process holds the same absorbed and emitted "
+          "arrays (sha256 %s, %s); balance max %.3e (tolerance %.1e)"
+          % (tag, out[0]["absorbed"], out[0]["emitted"],
+             max(r["balance"] for r in out), BALANCE_TOL), flush=True)
+    readers = {"absorbed.data": read_cell_frequency_array,
+               "emitted.data": read_cell_frequency_array,
+               "map_dir_00.bin": read_map_file}
+    for name, read in readers.items():
+        got, want = read(os.path.join(dirs[0], name)), ref[name]
+        ok = got.shape == want.shape and np.isfinite(got).all() and \
+            np.allclose(got, want, rtol=PRODUCT_RTOL,
+                        atol=PRODUCT_ATOL * np.abs(want).max())
+        err = float(np.abs(got - want).max() / np.abs(want).max()) \
+            if got.shape == want.shape else float("inf")
+        print("phase 19 %s: process 0's %s against the one-process run: "
+              "max |diff| / max = %.3e, allclose(rtol %.0e, atol %.0e of "
+              "the max): %s" % (tag, name, err, PRODUCT_RTOL, PRODUCT_ATOL,
+                                ok), flush=True)
+        if not ok:
+            fail("phase 19 %s: %s differs from the one-process run"
+                 % (tag, name))
+    for d, files in zip(dirs[1:], before[1:]):
+        if sorted(os.listdir(d)) != files:
+            fail("phase 19 %s: a process other than 0 wrote into %s: %s"
+                 % (tag, d, sorted(set(os.listdir(d)) - set(files))))
+
+
+def processes_phase(dev, work, args, report, ref):
+    """Phase 19: the `pipeline` verb as several processes (parallel/dist.py
+    over torch.distributed): (a) MP_RANKS processes on this card, one shard
+    each of phase 9's mesh, held to phase 4's outputs ``ref``; (b) one
+    process a card, where two or more are visible."""
+    import torch
+    card = report["card"]
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = visible.split(",") if visible else \
+        [str(i) for i in range(torch.cuda.device_count())]
+    here = cards[dev.index or 0]
+    dirs = _rank_dirs(work, "mp", MP_RANKS, "devices %d\n" % MP_RANKS,
+                      args)
+    before = [sorted(os.listdir(d)) for d in dirs]
+    out, wall = _run_ranks("(a)", dirs, [here] * MP_RANKS, card)
+    _hold_ranks("(a)", out, dirs, before, ref)
+    report["a2e_all_sizes"]["mp_launches"] = [r["launches"] for r in out]
+    report["processes"] = dict(a_wall_s=wall, a_absorption_s=max(
+        r["absorption_s"] for r in out))
+    print("phase 19 (a): %d processes on %s, one shard each (dp 3 x freq "
+          "2): wall %.2f s, the slowest absorption %.2f s (phase 9's one "
+          "thread over the same mesh: %.2f s) [%s]"
+          % (MP_RANKS, dev, wall, report["processes"]["a_absorption_s"],
+             report["stages_devices"]["absorption_s"], card), flush=True)
+    if len(cards) < 2:
+        print("phase 19 (b): needs two cards or more, saw %d: not run"
+              % len(cards), flush=True)
+        return
+    from soc_tpu_torch.pipeline import full
+    n = len(cards)
+    dirs = _rank_dirs(work, "mpc", n, "devices %d\n" % n, args)
+    before = [sorted(os.listdir(d)) for d in dirs]
+    out, wall = _run_ranks("(b)", dirs, cards, card)
+    _hold_ranks("(b)", out, dirs, before, ref)
+    # the same mesh from one host thread in this process, for the
+    # comparison within this call
+    thread = _rank_dirs(work, "mpc_thread", 1, "", args)[0]
+    res_rt, _, _ = full.run_pipeline(
+        os.path.join(thread, "run.ini"), dev,
+        devices=[torch.device("cuda", i) for i in range(n)])
+    report["processes"].update(
+        b_wall_s=wall, b_absorption_s=max(r["absorption_s"] for r in out),
+        b_thread_absorption_s=res_rt.timings["constant_sources"])
+    print("phase 19 (b): %d processes, one a card: wall %.2f s; the "
+          "absorption %s s a process (the slowest %.2f s), each card's "
+          "transport span %s s; the same mesh from one host thread %.2f "
+          "s, one pool on one card (phase 4) %.2f s; PR 3 run 7 on four "
+          "H100s: `devices 4` from one host thread %.3f s, one pool %.3f "
+          "s [%s]"
+          % (n, wall, ", ".join("%.2f" % r["absorption_s"] for r in out),
+             report["processes"]["b_absorption_s"],
+             ", ".join("%.3f" % sum(r["spans"]) for r in out),
+             report["processes"]["b_thread_absorption_s"],
+             report["stages"]["absorption_s"], PR3_THREAD_S, PR3_POOL_S,
+             card), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bgpackets", type=int, default=FULL_BGPACKETS)
@@ -3565,11 +3828,13 @@ def main():
         checkpoint_phase(dev, work, args, report, plain["b"])
         t8 = time.time()
         domains_phase(dev, work, args, report)
+        t9 = time.time()
+        processes_phase(dev, work, args, report, ref)
         print("phase 10: %.2f s; phase 11: %.2f s; phase 12: %.2f s; phase "
               "13: %.2f s (%s); phase 14: %.2f s (%s); phase 15: %.2f s "
               "(%s); phase 16: %.2f s (%s); phase 17: %.2f s (%s); phase "
-              "18: %.2f s (%s); the smoke so far %.2f s, phase 10 %.2f s "
-              "of it [%s]"
+              "18: %.2f s (%s); phase 19: %.2f s (%s); the smoke so far "
+              "%.2f s, phase 10 %.2f s of it [%s]"
               % (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["slice"].items()),
@@ -3585,9 +3850,12 @@ def main():
                  t8 - t7,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["ckpt"].items()),
-                 time.time() - t8,
+                 t9 - t8,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["domains"].items()),
+                 time.time() - t9,
+                 ", ".join("%s %.2f s" % kv
+                           for kv in report["processes"].items()),
                  time.time() - T_START, t1 - t0, card), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3610,7 +3878,8 @@ def main():
              "a2e_all_sizes_global", "a2e_clamp_global"]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    extra = ("shards", "ckpt_launches", "domain_launches", "octree_launches", "octree_ms", "octree_plain_ms",
+    extra = ("shards", "ckpt_launches", "domain_launches", "mp_launches",
+             "octree_launches", "octree_ms", "octree_plain_ms",
              "octree_bound_ms", "octree_max_abs_err", "sources_launches",
              "sources_ms", "sources_plain_ms", "sources_bound_ms",
              "sources_max_abs_err", "pol_launches", "pol_ms",

@@ -31,7 +31,8 @@ Options, anywhere on the line:
   --lanes N     the packet pool of rt, sca and pipeline
   --profile[=DIR]  the whole command under torch.profiler (CPU activity,
                 and CUDA with a CUDA device), its Chrome trace written to
-                DIR/trace_<verb>.json (default DIR: soc_profile)
+                DIR/trace_<verb>.json (default DIR: soc_profile; under
+                several processes DIR/trace_<verb>.rank<k>.json)
 
 The ini keyword `devices N` runs the product path (for `sca`, each
 source's packets split) over N devices (cuda:0 .. cuda:N-1, or the CPU N
@@ -39,6 +40,22 @@ times with '--device cpu'); `domains N` (rt and pipeline) runs the
 transport over N Z-slabs of the grid on the same devices. `sca` writes
 outcoming.socs (or, with `fits 1`, <scattering>.fits). soc_tpu's `bench`
 verb is not ported yet: see ROADMAP.md.
+
+Several processes, as soc_tpu runs under jax.distributed: start the same
+command once a process with soc_tpu's variables SOC_TPU_COORDINATOR
+(host:port of process 0's rendezvous), SOC_TPU_NUM_PROCESSES and
+SOC_TPU_PROCESS_ID (or SOC_TPU_DISTRIBUTED=auto under torchrun), e.g.
+
+  SOC_TPU_COORDINATOR=127.0.0.1:29511 SOC_TPU_NUM_PROCESSES=2 \
+  SOC_TPU_PROCESS_ID=k python -m soc_tpu_torch rt run.ini   (k = 0, 1)
+
+A process's devices are its visible cards (CUDA_VISIBLE_DEVICES; several
+processes may share one), or with '--device cpu' CPU shards
+(SOC_TPU_LOCAL_DEVICE_IDS=0,1,2,3 gives it four); `devices N` in rt and
+the pipeline spans every process's devices, each process steps its own
+shards, and every one holds the replicated result; process 0 writes the
+files. The host verbs run on process 0 alone; `domains` and `sca`'s
+`devices N` are refused over several processes (parallel/dist.py).
 """
 
 import os
@@ -91,6 +108,10 @@ def main(argv=None, results=None):
     timings 'mabu') for callers that check them."""
     argv = sys.argv[1:] if argv is None else list(argv)
     results = {} if results is None else results
+    # several processes: the process group from soc_tpu's variables
+    # (SOC_TPU_COORDINATOR / SOC_TPU_DISTRIBUTED=auto); no-op otherwise
+    from .parallel import dist
+    dist.maybe_initialize()
     if not argv or argv[0] in ("-h", "--help"):
         return _usage()
     if argv[0] in _LATER:
@@ -114,6 +135,16 @@ def main(argv=None, results=None):
             print("soc_tpu_torch: no CUDA device; pass --device cpu to run "
                   "on the CPU", file=sys.stderr)
             return 2
+    if dist.process_count() > 1 and verb not in ("rt", "sca", "pipeline"):
+        # a host verb computes and writes its files in one process: the
+        # others wait for process 0's exit code
+        rc = _run(opts, verb, args, device, results) \
+            if dist.process_index() == 0 else None
+        return dist.share(rc)
+    return _run(opts, verb, args, device, results)
+
+
+def _run(opts, verb, args, device, results):
     if opts["profile"] is None:
         return _dispatch(verb, args, device, opts["lanes"], results)
     return _profiled(opts["profile"], verb, args, device, opts["lanes"],
@@ -122,9 +153,11 @@ def main(argv=None, results=None):
 
 def _profiled(out_dir, verb, args, device, lanes, results):
     """The verb under torch.profiler, its Chrome trace written to
-    out_dir/trace_<verb>.json."""
+    out_dir/trace_<verb>.json (a process of several: trace_<verb>.rank<k>
+    .json, so processes in one directory keep their own)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from .parallel import dist
     acts = [ProfilerActivity.CPU]
     if device is not None and device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
@@ -133,7 +166,9 @@ def _profiled(out_dir, verb, args, device, lanes, results):
         if device is not None and device.type == "cuda":
             torch.cuda.synchronize(device)
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "trace_%s.json" % verb)
+    tag = verb if dist.process_count() == 1 \
+        else "%s.rank%d" % (verb, dist.process_index())
+    path = os.path.join(out_dir, "trace_%s.json" % tag)
     prof.export_chrome_trace(path)
     print("soc_tpu_torch: profile written to %s" % path)
     return rc

@@ -7,6 +7,11 @@ Cell coordinates: a cell is (level, ind) with ``ind`` local to the level;
 positions are level-local (root: [0,NX]x[0,NY]x[0,NZ]; deeper levels:
 octet coordinates in [0,2]^3).
 
+Two forms of the walk: the PAR-array form (index_global, index_update,
+get_step, march_path_lengths: soc_tpu's library and speed-of-light march)
+and the ancestor-stack form (*_stack) that the transport and the maps
+run, which carries each lane's ancestors instead of reading PAR.
+
 Integer lane fields (level, ind, ancestor stack) are int64 here so they can
 index tensors directly. Every gather clamps its index into range first, as
 JAX's gathers do implicitly. ``jnp.mod`` is a floored modulo: it is
@@ -50,6 +55,114 @@ def _gidx(grid, level, ind):
     """Clamped global cell index of (level, ind)."""
     off = grid.off.to(torch.int64)[level.clamp(0, grid.levels - 1)]
     return (off + ind).clamp(0, grid.cells - 1)
+
+
+def _descend(grid, pos, level, ind, active):
+    """Walk from a (possibly refined) cell down to its leaf: a cell whose
+    density value is a link takes the lane into the child octet, its
+    position rescaled. Unrolled (levels-1) times."""
+    for _ in range(grid.levels - 1):
+        dval = grid.dens[_gidx(grid, level, ind)]
+        go = active & (ind >= 0) & (dval <= 0.0)
+        new_pos = 2.0 * torch.remainder(pos, 1.0)
+        new_ind = _decode_link(dval) + _suboct(new_pos)
+        pos = torch.where(go[..., None], new_pos, pos)
+        ind = torch.where(go, new_ind, ind)
+        level = torch.where(go, level + 1, level)
+    return pos, level, ind
+
+
+def index_global(grid, pos):
+    """Global root-grid position -> (pos_local, level, ind), ind -1
+    outside. IndexG analog."""
+    outside = _outside_root(pos, grid.nx, grid.ny, grid.nz)
+    ind = torch.where(outside, INVALID,
+                      _root_index(pos, grid.nx, grid.ny, grid.nz))
+    return _descend(grid, pos, torch.zeros_like(ind), ind, ~outside)
+
+
+def index_update(grid, pos, level, ind, active):
+    """Neighbour lookup after a boundary step, the up-walk reading the PAR
+    array. Index() analog: (level, ind) is the cell the ray was in, pos
+    has just crossed its boundary in that level's coordinates. Walk up
+    until pos falls inside the current octet or the root grid, then down
+    to the leaf. Returns (pos, level, ind) with ind -1 for rays that left.
+    """
+    if grid.levels == 1:
+        outside = _outside_root(pos, grid.nx, grid.ny, grid.nz)
+        new_ind = torch.where(outside, INVALID,
+                              _root_index(pos, grid.nx, grid.ny, grid.nz))
+        return pos, level, torch.where(active, new_ind, ind)
+
+    at_root = active & (level == 0)
+    outside0 = _outside_root(pos, grid.nx, grid.ny, grid.nz)
+    root_ind = _root_index(pos, grid.nx, grid.ny, grid.nz)
+    ind = torch.where(at_root, torch.where(outside0, INVALID, root_ind), ind)
+
+    par = grid.par.to(torch.int64)
+    up = active & (level > 0)
+    for _ in range(grid.levels - 1):
+        parent = par[_gidx(grid, level, ind)]
+        plevel = level - 1
+        # the parent at the root: the octet [0,2] -> [0,1] + its root cell
+        pos_a = 0.5 * pos + torch.stack(
+            [torch.remainder(parent, grid.nx),
+             torch.remainder(parent // grid.nx, grid.ny),
+             parent // (grid.nx * grid.ny)], -1).to(pos.dtype)
+        ind_a = torch.where(_outside_root(pos_a, grid.nx, grid.ny, grid.nz),
+                            INVALID,
+                            _root_index(pos_a, grid.nx, grid.ny, grid.nz))
+        # the parent inside an octet one level up
+        sid = torch.remainder(parent, 8)
+        pos_b = 0.5 * pos + torch.stack(
+            [torch.remainder(sid, 2), torch.remainder(sid // 2, 2),
+             sid // 4], -1).to(pos.dtype)
+        inside_b = torch.all((pos_b >= 0.0) & (pos_b <= 2.0), dim=-1)
+        ind_b = parent - sid + _suboct(pos_b)
+        rootcase = up & (plevel == 0)
+        octcase = up & (plevel > 0)
+        pos = torch.where(rootcase[..., None], pos_a,
+                          torch.where(octcase[..., None], pos_b, pos))
+        ind = torch.where(rootcase, ind_a,
+                          torch.where(octcase,
+                                      torch.where(inside_b, ind_b, parent),
+                                      ind))
+        level = torch.where(up, plevel, level)
+        up = up & ~(rootcase | (octcase & inside_b)) & (level > 0)
+
+    return _descend(grid, pos, level, ind, active & (ind >= 0))
+
+
+def get_step(grid, pos, dir, level, ind, active):
+    """Advance to the next cell through index_update: (ds_gl, pos, level,
+    ind), ds in root-grid units (ds_local * 2^-level)."""
+    ds_local, new_pos = boundary_step(pos, dir)
+    ds_gl = ds_local * torch.exp2(-level.to(ds_local.dtype))
+    pos = torch.where(active[..., None], new_pos, pos)
+    pos, level, ind = index_update(grid, pos, level, ind, active)
+    return ds_gl, pos, level, ind
+
+
+def march_path_lengths(grid, pos0, dir, max_steps=10000):
+    """March rays from global positions to their exit and return each
+    ray's path length in root-grid units: the traversal alone, no physics
+    (the speed-of-light bound of packet stepping, and a geometric check).
+    soc_tpu's fixed-bound march, run on the rays' device: at most
+    max_steps steps, stopping once every ray has left."""
+    pos, level, ind = index_global(grid, pos0)
+    total = torch.zeros(pos.shape[:-1], dtype=torch.float32,
+                        device=pos.device)
+    for _ in range(max_steps):
+        active = ind >= 0
+        if not bool(active.any()):
+            break
+        ds, npos, nlevel, nind = get_step(grid, pos, dir, level, ind,
+                                          active)
+        total = total + torch.where(active, ds, 0.0)
+        pos = torch.where(active[..., None], npos, pos)
+        level = torch.where(active, nlevel, level)
+        ind = torch.where(active, nind, ind)
+    return total
 
 
 def _anc_read(anc, level):

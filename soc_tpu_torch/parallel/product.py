@@ -43,7 +43,18 @@ repeat in the list: its shards then share that device and its stream;
 the tests and the smoke run use this to drive the layout on one card or
 on the CPU.
 
-Not ported here: soc_tpu's multi-host globalisation (parallel/dist.py).
+Several processes (parallel/dist.py): a mesh built over the global
+device list (``owners``, the rank of each shard's device) spans every
+process, shard i still on global device i. A rank steps only its own
+shards (map_shards, map_steps; the others' slots are None, their slabs
+meta tensors that hold a shape and no memory) and every rank takes part
+in every combination, a rank with no shard too: run_freqs gathers each
+shard's TABS, escape, launch and miss vectors, clones, XAB and ROI tally
+onto every rank and adds them in shard order; fold_intf and reduce_intf
+move each block's dp partials to the rank of its dp-0 slab and add them
+in dp order there; solve_temperature and emission gather their cell
+ranges. A run over P processes adds in the same order as one process over
+the same shard list, so on the CPU it equals that run bit for bit.
 """
 
 import contextlib
@@ -54,6 +65,7 @@ import torch
 
 from ..solve import equilibrium
 from ..solve.a2e_kernel import shard_ranges
+from . import dist
 from ..transport.propagate import pool_lanes, transport_steps
 
 
@@ -76,30 +88,63 @@ class ProductMesh:
 
     The freq axis gets the largest divisor of N that also divides NFREQ
     (soc_tpu's rule: the tally per shard shrinks by F and so does each
-    shard's frequency loop); the rest is packet data-parallelism.
-    devices: None for cuda:0 .. cuda:N-1 (raises when fewer cards are
+    shard's frequency loop), or ``freq_axis`` (parallel/mesh.make_mesh's
+    explicit F; 1 where it does not divide N); the rest is packet
+    data-parallelism. devices: None for the global device list's first N
+    cards (cuda:0 .. cuda:N-1 in one process; raises when fewer are
     visible), or an explicit list of N devices, which may repeat one.
+    owners: the rank of each device (dist.global_devices); given, the
+    mesh spans those processes, else every shard is this process's.
+    nfreq may be None with freq_axis (make_mesh): with_nfreq binds it.
     """
 
-    def __init__(self, n, nfreq, devices=None):
+    def __init__(self, n, nfreq, devices=None, freq_axis=None, owners=None):
         if devices is None:
-            visible = torch.cuda.device_count()
-            if n > visible:
-                raise ValueError("devices %d: only %d visible" % (n, visible))
-            devices = [torch.device("cuda", i) for i in range(n)]
+            devices, owners = dist.global_devices(torch.device("cuda"), n)
+            if n > len(devices):
+                raise ValueError("devices %d: only %d visible"
+                                 % (n, len(devices)))
+            devices, owners = devices[:n], owners[:n]
         devices = [torch.device(d) for d in devices]
         if len(devices) != n:
             raise ValueError("devices %d: a list of %d devices was given"
                              % (n, len(devices)))
-        f = max(d for d in range(1, n + 1) if n % d == 0 and nfreq % d == 0)
+        if freq_axis is not None:
+            f = freq_axis if n % freq_axis == 0 else 1
+        else:
+            f = max(d for d in range(1, n + 1)
+                    if n % d == 0 and nfreq % d == 0)
         self.n_dp = n // f
         self.n_freq = f
         self.nfreq = nfreq
-        self.nf_local = nfreq // f
+        self.nf_local = None if nfreq is None else nfreq // f
         self.devices = devices
+        self.multi = owners is not None and dist.process_count() > 1
+        self.owners = list(owners) if owners is not None else [0] * n
+        me = dist.process_index()
+        self.mine = [o == me or not self.multi for o in self.owners]
         self._replicas = {}
 
     route = "mesh"      # a pass's route over the mesh (driver stats)
+
+    def with_nfreq(self, nfreq):
+        """This mesh's layout for NFREQ channels (soc_tpu's assert: NFREQ
+        must divide the freq axis)."""
+        assert nfreq % self.n_freq == 0, \
+            "NFREQ must divide the freq mesh axis"
+        if self.nfreq == nfreq:
+            return self
+        pm = ProductMesh(len(self.devices), nfreq, self.devices,
+                         freq_axis=self.n_freq,
+                         owners=self.owners if self.multi else None)
+        pm._replicas = self._replicas
+        return pm
+
+    def lead(self, default):
+        """The device of what runs on one device (the replicated renders):
+        the first shard's in one process, else ``default`` (every rank
+        renders on its own)."""
+        return default if self.multi else self.devices[0]
 
     def run_freqs(self, *args, **kw):
         """run_freqs over this mesh (the driver calls a pass's layout)."""
@@ -121,21 +166,27 @@ class ProductMesh:
         return hit[1]
 
     def map_shards(self, fn):
-        """[fn(i, device) for every shard i], one after the other in the
-        calling thread, each under its device's scope; results in shard
-        order. A shard's exception propagates."""
+        """[fn(i, device) for every shard i of this rank], one after the
+        other in the calling thread, each under its device's scope;
+        results in shard order, None for another rank's shard. A shard's
+        exception propagates."""
         out = []
         for i, d in enumerate(self.devices):
+            if not self.mine[i]:
+                out.append(None)
+                continue
             with _on(d):
                 out.append(fn(i, d))
         return out
 
     def map_steps(self, fn):
-        """As map_shards for a generator function ``fn``: the shards'
-        generators are advanced in turn, one step each, each under its
-        device's scope, until every one has returned; their return values
-        in shard order. A shard's exception propagates."""
-        steps = {i: fn(i, d) for i, d in enumerate(self.devices)}
+        """As map_shards for a generator function ``fn``: this rank's
+        shards' generators are advanced in turn, one step each, each under
+        its device's scope, until every one has returned; their return
+        values in shard order (None for another rank's shard). A shard's
+        exception propagates."""
+        steps = {i: fn(i, d) for i, d in enumerate(self.devices)
+                 if self.mine[i]}
         out = [None] * len(self.devices)
         while steps:
             for i in list(steps):
@@ -147,25 +198,59 @@ class ProductMesh:
                         del steps[i]
         return out
 
+    def gather_shards(self, values):
+        """Every shard's value in shard order, from ``values`` (this rank's
+        shards' values, None for the others'): the list itself in one
+        process; over several, every rank's gathered, another rank's
+        tensors arriving as host tensors."""
+        if not self.multi:
+            return values
+        mine = {i: dist.host(v) for i, v in enumerate(values)
+                if self.mine[i]}
+        out = list(values)
+        for got in dist.gather_objects(mine):
+            for i, v in got.items():
+                if not self.mine[i]:
+                    out[i] = _tensors(v)
+        return out
+
     # ---- per-frequency tally: one dp-partial [CELLS, L] slab per shard
     def zeros_intf(self, cells, comps=0):
         """Zero slabs [CELLS, NFREQ/F(, comps)] float32, one per shard on
-        its device, in shard order (soc_tpu's zeros_intf(cells, comps))."""
+        its device, in shard order (soc_tpu's zeros_intf(cells, comps));
+        another rank's shard gets a meta tensor of that shape."""
         shape = (cells, self.nf_local) + ((comps,) if comps else ())
-        return [torch.zeros(shape, dtype=torch.float32, device=d)
-                for d in self.devices]
+        return [torch.zeros(shape, dtype=torch.float32,
+                            device=d if self.mine[i] else "meta")
+                for i, d in enumerate(self.devices)]
 
     def reduce_intf(self, slabs, device):
         """The slabs summed over dp (in dp order) and concatenated over
         freq in block order: [CELLS, NFREQ(, comps)] on ``device``, column
-        fq*L + fl the global channel fq*L + fl."""
+        fq*L + fl the global channel fq*L + fl. Over several processes
+        each block is summed on the rank of its dp-0 slab and shared with
+        every rank."""
         blocks = []
         for fq in range(self.n_freq):
-            acc = slabs[fq].to(device)
-            for dp in range(1, self.n_dp):
-                acc = acc + slabs[dp * self.n_freq + fq].to(device)
+            dst = self.owners[fq]
+            acc = None
+            for dp in range(self.n_dp):
+                i = dp * self.n_freq + fq
+                t = self._move(slabs[i], i, dst)
+                if t is not None:
+                    acc = t.to(device) if acc is None else acc + t.to(device)
+            if self.multi:
+                acc = dist.broadcast(acc, dst, slabs[fq].shape,
+                                     torch.float32).to(device)
             blocks.append(acc)
         return torch.cat(blocks, 1)
+
+    def _move(self, t, i, dst):
+        """Shard i's tensor ``t`` onto rank ``dst`` (None elsewhere); in
+        one process ``t`` itself."""
+        if not self.multi:
+            return t
+        return dist.move(t, self.owners[i], dst, t.shape, t.dtype)
 
     def fold_intf(self, slabs, parts=None):
         """End of a sharded pass: each block's dp partials (``parts``, a
@@ -178,15 +263,20 @@ class ProductMesh:
             for dp in range(0 if parts is not None else 1, self.n_dp):
                 i = dp * self.n_freq + fq
                 src = slabs[i] if parts is None else parts[i]
-                acc.add_(src.to(acc.device))
-                if parts is None:
+                t = self._move(src, i, self.owners[fq])
+                if t is not None:
+                    acc.add_(t.to(acc.device))
+                if parts is None and self.mine[i]:
                     src.zero_()
 
     def scatter_intf(self, host, slabs):
         """A reduced [CELLS, NFREQ(, comps)] host tally (a checkpoint's)
-        into the slabs: block fq into its dp-0 slab, the others zero."""
+        into this rank's slabs: block fq into its dp-0 slab, the others
+        zero."""
         host = np.asarray(host, np.float32)
         for i, slab in enumerate(slabs):
+            if not self.mine[i]:
+                continue
             dp, fq = divmod(i, self.n_freq)
             if dp == 0:
                 blk = host[:, fq * self.nf_local:(fq + 1) * self.nf_local]
@@ -194,6 +284,17 @@ class ProductMesh:
             else:
                 slab.zero_()
         return slabs
+
+
+def _tensors(value):
+    """dist.host's NumPy arrays back as host tensors."""
+    if isinstance(value, np.ndarray):
+        return torch.from_numpy(value)
+    if isinstance(value, (list, tuple)):
+        return type(value)(_tensors(v) for v in value)
+    if isinstance(value, dict):
+        return {k: _tensors(v) for k, v in value.items()}
+    return value
 
 
 def _to(tree, dev):
@@ -294,21 +395,34 @@ def run_freqs(pm, grid, physics, kind, params, sel, counts, tabs, intf,
             roi=sroi, tally_col0=col0 + fq * L if per_freq_tally else 0)
         return dtabs, res, sroi
 
-    for dtabs, res, sroi in pm.map_steps(shard):
+    def result(got):
+        # what a shard hands on: its TABS and, if it ran a pool, its
+        # vectors, XAB, clones and ROI tally (not its slab)
+        if got is None:
+            return None
+        dtabs, res, sroi = got
+        if res is None:
+            return dtabs, None
+        return dtabs, dict(
+            escaped=res[2], launched=res[-2], missed=res[-1],
+            xab=res[4] if with_ali else None,
+            clones=int(res[5 if with_ali else 4]) if split_max > 0 else 0,
+            roi=None if sroi is None else sroi["tally"])
+
+    for dtabs, res in pm.gather_shards([result(g)
+                                        for g in pm.map_steps(shard)]):
         own += dtabs.to(own.device)
         if res is None:
             continue
         out["pools"] += 1
-        out["escaped"] += res[2].cpu().numpy()
-        out["launched"] += res[-2].cpu().numpy()
-        out["missed"] += res[-1].cpu().numpy()
+        for k in ("escaped", "launched", "missed"):
+            out[k] += res[k].cpu().numpy()
         if with_ali:
-            x = res[4].to(tabs.device)
+            x = res["xab"].to(tabs.device)
             out["xab"] = x if out["xab"] is None else out["xab"] + x
-        if split_max > 0:
-            out["clones"] += int(res[5 if with_ali else 4])
-        if sroi is not None:
-            roi["tally"].add_(sroi["tally"].to(roi["tally"].device))
+        out["clones"] += res["clones"]
+        if res["roi"] is not None:
+            roi["tally"].add_(res["roi"].to(roi["tally"].device))
     if with_ali and out["xab"] is None:
         out["xab"] = torch.zeros_like(tabs)
     return tabs + own, intf, out
@@ -323,8 +437,8 @@ def one_shard(device, nfreq):
 def solve_temperature(pm, grid, table, tabs, gl_pc_parsec, beta=1.0,
                       cr_heating=0.0):
     """Equilibrium temperature [CELLS] on tabs' device, the cells split
-    into contiguous ranges over all shards (elementwise, so equal to the
-    one-device solve bit for bit); beta ALI's escape probability (a
+    into contiguous ranges over all shards and gathered onto every rank
+    (elementwise, so equal to the one-device solve bit for bit); beta ALI's escape probability (a
     scalar or [CELLS]), cr_heating as equilibrium.temperature_lookup's."""
     lev = equilibrium.cell_levels(grid)
     ranges = shard_ranges(grid.cells, len(pm.devices))
@@ -337,13 +451,14 @@ def solve_temperature(pm, grid, table, tabs, gl_pc_parsec, beta=1.0,
             pm.replica(grid, dev).dens[c0:c1], lev[c0:c1].to(dev),
             gl_pc_parsec, beta=b, cr_heating=cr_heating)
 
-    return torch.cat([t.to(tabs.device) for t in pm.map_shards(shard)])
+    return torch.cat([t.to(tabs.device)
+                      for t in pm.gather_shards(pm.map_shards(shard))])
 
 
 def emission(pm, freq, abs_gl, temperature, gl_pc_parsec):
     """Thermal emission [CELLS, NFREQ] on temperature's device, the cells
-    split over all shards (elementwise: equal to the one-device emission
-    bit for bit)."""
+    split over all shards and gathered onto every rank (elementwise:
+    equal to the one-device emission bit for bit)."""
     ranges = shard_ranges(temperature.shape[0], len(pm.devices))
 
     def shard(i, dev):
@@ -352,4 +467,4 @@ def emission(pm, freq, abs_gl, temperature, gl_pc_parsec):
                                     temperature[c0:c1].to(dev), gl_pc_parsec)
 
     return torch.cat([e.to(temperature.device)
-                      for e in pm.map_shards(shard)])
+                      for e in pm.gather_shards(pm.map_shards(shard))])

@@ -46,6 +46,13 @@ phases 1 and 2 runs over N Z-slabs of the grid, one a device
 those that cross a slab face to its neighbour; the solves, the A2E stage
 and the maps run on the run's device. soc_tpu's refusals stand under it:
 `roi`, SUBITERATIONS, `checkpoint`, `mmapabs` and `devices`.
+Several processes (parallel/dist.py, the CLI's SOC_TPU_COORDINATOR,
+SOC_TPU_NUM_PROCESSES and SOC_TPU_PROCESS_ID): `devices N` spans every
+process's devices (N < 0 all of them), each process steps its own shards
+and every one holds the same RunResult; process 0 alone writes the run's
+files (soc_tpu has every process write them). The sharded map is off
+there (every process renders the map whole, as soc_tpu's does), and
+`domains` is refused.
 With `checkpoint <file> [N]` (utils/checkpoint.py) the tallies and the
 completed units (a source or cell pass, an mmapabs block, a pass over the
 mesh, an iteration's state) are written to the file every N units; the same command run again resumes after the last
@@ -137,13 +144,19 @@ def check_supported(cfg, devices=None, domains=None):
 
 
 def run(ini_path=None, cfg=None, device=None, lanes=DEFAULT_LANES,
-        write_files=True, workdir=None, devices=None, domains=None):
+        write_files=True, workdir=None, devices=None, domains=None,
+        emitted=None):
     """Full run of one ini on ``device``; returns RunResult. workdir
     defaults to the ini's directory. ``devices``, a list of devices (which
     may repeat one), runs the product path over them in place of the
     ini's `devices N`; ``domains``, a list of devices (which may repeat
     one), the Z-slab path in place of the ini's `domains N`. The outputs
-    are gathered on ``device``."""
+    are gathered on ``device``. ``emitted``, an [CELLS, NFREQ] array (or
+    its remit or FSELECT columns), is the map-only mode's emission in
+    place of the ini's emitted file (the pipeline's map run takes it from
+    memory). Under several processes (parallel/dist.py) only process 0
+    writes files."""
+    from ..parallel import dist
     if device is None:
         raise ValueError("run: pass the device explicitly ('cuda' or 'cpu')")
     device = torch.device(device)
@@ -153,11 +166,12 @@ def run(ini_path=None, cfg=None, device=None, lanes=DEFAULT_LANES,
     if workdir is None:
         workdir = os.path.dirname(os.path.abspath(ini_path)) if ini_path \
             else "."
+    write_files = write_files and dist.process_index() == 0
     orig = os.getcwd()
     os.chdir(workdir)
     try:
         return _run_inner(cfg, device, lanes, write_files, t_start,
-                          devices, domains)
+                          devices, domains, emitted)
     finally:
         os.chdir(orig)
 
@@ -284,13 +298,16 @@ def _tally_mesh(layout):
 
 def _pass_absorbed(tally, col0, pm):
     """Per channel, float64, the absorption a pass's own per-frequency
-    tally holds (a tensor from column col0, or over a mesh its slabs)."""
+    tally holds (a tensor from column col0, or over a mesh its slabs,
+    every rank's summed in shard order)."""
     out = np.zeros(pm.nfreq)
     slabs = tally if isinstance(tally, list) else [tally]
-    for i, slab in enumerate(slabs):
+    sums = pm.gather_shards([
+        None if slab.is_meta else _absorbed_of(slab).sum(
+            0, dtype=torch.float64).cpu().numpy() for slab in slabs])
+    for i, (slab, part) in enumerate(zip(slabs, sums)):
         c = col0 + (i % pm.n_freq) * slab.shape[1]
-        out[c:c + slab.shape[1]] += _absorbed_of(slab).sum(
-            0, dtype=torch.float64).cpu().numpy()
+        out[c:c + slab.shape[1]] += np.asarray(part)
     return out
 
 
@@ -1023,12 +1040,31 @@ def _product_setup(cfg, nfreq, device, devices=None):
     """The (dp x freq) mesh of the product path, or None for a one-device
     run: over ``devices`` when given, else over the ini's `devices N`
     (cuda:0 .. cuda:N-1 on a card, the CPU N times on the CPU; N < 0 means
-    every visible card)."""
+    every visible card). Under several processes N counts the global
+    device list (dist.global_devices: every process's cards, or its CPU
+    shards), N < 0 all of it, and a device list is refused: it names one
+    process's devices."""
+    from ..parallel import dist
     from ..parallel.product import ProductMesh
     if devices is not None:
+        if dist.process_count() > 1:
+            raise ValueError(
+                "devices: a device list names one process's devices; "
+                "under %d processes use the ini's `devices N`"
+                % dist.process_count())
         return ProductMesh(len(devices), nfreq, devices) \
             if len(devices) > 1 else None
     n = int(cfg.n_devices)
+    if dist.process_count() > 1:
+        if n == 0 or n == 1:
+            return None
+        devs, owners = dist.global_devices(device, n)
+        if n < 0:
+            n = len(devs)
+        if n > len(devs):
+            raise ValueError("devices %d: only %d visible" % (n, len(devs)))
+        return ProductMesh(n, nfreq, devs[:n], owners=owners[:n]) \
+            if n > 1 else None
     if n < 0:
         n = torch.cuda.device_count() if device.type == "cuda" else 1
     if n <= 1:
@@ -1044,7 +1080,16 @@ def _domain_setup(cfg, grid, device, domains=None):
     times on the CPU; N <= 1 means none. `roi`, SUBITERATIONS and
     `checkpoint` are refused with soc_tpu's words (`mmapabs`: _host_tally;
     an NZ that N does not divide: split_grid_slabs)."""
+    from ..parallel import dist
     from ..parallel.domain import DomainSet
+    if dist.process_count() > 1 and (domains is not None
+                                     or int(cfg.n_domains) > 1):
+        # soc_tpu's Z-slab path fetches slab tallies that span the other
+        # processes' devices and raises; this one refuses before it runs
+        raise ValueError("domains %d: not supported over %d processes "
+                         "(run it in one process, or use `devices`)"
+                         % (len(domains) if domains is not None
+                            else int(cfg.n_domains), dist.process_count()))
     if domains is None:
         n = int(cfg.n_domains)
         if n <= 1:
@@ -1072,14 +1117,25 @@ def _domain_setup(cfg, grid, device, domains=None):
 
 def _checkpoint_setup(cfg, nfreq, pmesh, host):
     """The run's RunCheckpoint: the fingerprint takes the mesh's layout
-    and the mmapabs block width, which shape the units."""
+    and the mmapabs block width, which shape the units, and the process
+    count: a device name is one process's (each rank's cuda:0 is another
+    card), so a layout over P processes is never taken for one over
+    another count. Under several processes every rank reads the file and
+    process 0 alone writes it; they meet at a barrier before any unit
+    runs, so no rank reads a file written by this run."""
+    from ..parallel import dist
     from ..utils.checkpoint import RunCheckpoint, fingerprint_of
     layout = "one" if pmesh is None else "mesh %d x %d (%s)" % (
         pmesh.n_dp, pmesh.n_freq, ",".join(map(str, pmesh.devices)))
     if host is not None:
         layout += " blocks of %d" % host.cols
-    return RunCheckpoint(cfg.file_checkpoint, cfg.checkpoint_every,
-                         fingerprint_of(cfg, layout), nfreq)
+    if dist.process_count() > 1:
+        layout += " over %d processes" % dist.process_count()
+    ckpt = RunCheckpoint(cfg.file_checkpoint, cfg.checkpoint_every,
+                         fingerprint_of(cfg, layout), nfreq,
+                         write=dist.process_index() == 0)
+    dist.barrier()
+    return ckpt
 
 
 def _restore(ckpt, tabs, intf, roi, pmesh):
@@ -1107,7 +1163,8 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _run_inner(cfg, device, lanes, write_files, t_start, devices, domains):
+def _run_inner(cfg, device, lanes, write_files, t_start, devices, domains,
+               emitted_in=None):
     cfg.validate()
     check_supported(cfg, devices, domains)
     res = RunResult()
@@ -1165,9 +1222,12 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices, domains):
         timings["total"] = time.time() - t_start
         return res
 
-    # ---- map-only mode (iterations 0 + an existing emitted file)
-    if cfg.iterations < 1 and os.path.exists(cfg.file_emitted):
-        emitted = read_cell_frequency_array(cfg.file_emitted)
+    # ---- map-only mode (iterations 0 + an existing emitted file, or the
+    # caller's emission)
+    if cfg.iterations < 1 and (emitted_in is not None
+                               or os.path.exists(cfg.file_emitted)):
+        emitted = read_cell_frequency_array(cfg.file_emitted) \
+            if emitted_in is None else np.asarray(emitted_in, np.float32)
         if emitted.shape[1] != nfreq:
             # a remit-band (or libmaps FSELECT) file: embed into the full
             # frequency grid
@@ -1783,8 +1843,9 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
     along the line of sight.
     With ``pmesh`` the plain orthographic map's rows and channels are
     split over the mesh when NY divides by dp and the selected channels
-    by freq (soc_tpu's conditions, driver.py:2063-2068 there); every other
-    map renders on the first shard's device, as soc_tpu falls back.
+    by freq, in one process (soc_tpu's conditions, driver.py:2063-2068
+    there); every other map renders on the first shard's device, as
+    soc_tpu falls back, and under several processes on each one's own.
     Each render's seconds, rays and march steps (None for the sharded
     map) go to res.render_passes.
     """
@@ -1837,9 +1898,10 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
                   and cfg.maxlos >= 1e9
                   and cfg.npix[1] % pmesh.n_dp == 0
                   and fsel is not None
-                  and int(fsel.sum()) % pmesh.n_freq == 0)
+                  and int(fsel.sum()) % pmesh.n_freq == 0
+                  and not pmesh.multi)
     if pmesh is not None and not shard_maps:
-        device = pmesh.devices[0]
+        device = pmesh.lead(device)
         grid = pmesh.replica(grid, device)
     if not cfg.nomap and emitted is not None and fsel.any():
         centre = cfg.mapcentre
@@ -1986,7 +2048,7 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
         # outside the `nomap` gate, on the first shard's device
         _polarization_maps(
             cfg, grid if pmesh is None else pmesh.replica(
-                grid, pmesh.devices[0]), medium, res, freq, emitted,
+                grid, pmesh.lead(grid.device)), medium, res, freq, emitted,
             write_files, timed, ext_cells, gl_cm)
     timings["maps"] = time.time() - t0
 

@@ -12,7 +12,11 @@ The modes `makelib` (a full solve, then the library built from it) and
 answering the emission) are the reference's ASOC_driver.py modes.
 Under `devices N` the three stages share the absorption run's devices.
 The reference's intermediate files are still written, so any stage can be
-re-run or inspected.
+re-run or inspected. Under several processes (parallel/dist.py) every
+process runs the three stages (the A2E solve of every cell on its own
+devices) and process 0 alone writes the files (the solver and simple-dust
+files before the others read them, emitted.data, the library and the
+surrogates); the map run takes the emission from memory.
 """
 
 import copy
@@ -25,6 +29,7 @@ from ..config import RunConfig
 from ..constants import PARSEC, um2f
 from ..io.dust import read_simple_dust, write_simple_dust
 from ..io.fields import write_cell_frequency_array
+from ..parallel import dist
 from ..solve import solver_prep
 from ..solve.grain_model import gset_effective_optics, read_gset_dust
 from ..solve.solver_file import read_solver, write_solver
@@ -297,7 +302,8 @@ def emission_stage(cfg, comps, absorbed, abu, freq, device, dens=None,
                                  emit_d[::thin][:, iemit], device,
                                  hidden=cfg.nn_net, stats=stats)
             steps += stats["steps"]
-            nnmod.nn_save("%s_%s.nn" % (cfg.nn_make, comp.name), model)
+            if dist.process_index() == 0:
+                nnmod.nn_save("%s_%s.nn" % (cfg.nn_make, comp.name), model)
         timings["nn_fit"] = time.time() - t0
         timings["nn_fit_steps"] = steps
     return emitted, pemitted
@@ -355,8 +361,9 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, mode, devices,
     default_lib = os.path.splitext(cfg.file_optical[0])[0] + ".lib"
 
     # Stage 1: absorption run (nosolve; all frequencies tallied, or under
-    # uselib only the FSELECT ones)
-    cfg_rt = absorption_config(cfg)
+    # uselib only the FSELECT ones); the simple-dust files it may write
+    # are written by process 0 before the others look for them
+    cfg_rt = dist.first(absorption_config, cfg)
     rt_optical = cfg_rt.file_optical
     if mode == "uselib":
         cfg_rt.lib_abs = True
@@ -374,7 +381,7 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, mode, devices,
 
     # Stage 2: A2E_pre + A2E_MABU emission (or the library / NN variants)
     t0 = time.time()
-    comps = build_components(cfg, freq, ne=ne)
+    comps = dist.first(build_components, cfg, freq, ne=ne)
     t_prep = time.time() - t0
     # the absorbed payload marks parent cells -1e20: mask them
     valid = absorbed[:, 0] > -1e19
@@ -409,12 +416,15 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, mode, devices,
         return out
 
     emitted = _expand(emitted_part)
-    write_cell_frequency_array(cfg.file_emitted, emitted)
+    writer = dist.process_index() == 0
+    if writer:
+        write_cell_frequency_array(cfg.file_emitted, emitted)
     pemitted = None
     if pemitted_part is not None:
         # the aligned dusts' polarised emission (A2E_MABU.py:589, 651-656)
         pemitted = _expand(pemitted_part)
-        write_cell_frequency_array(cfg.file_emitted + ".P", pemitted)
+        if writer:
+            write_cell_frequency_array(cfg.file_emitted + ".P", pemitted)
 
     if mode == "makelib":
         # the binned lookup library of this full solve, from the leaf
@@ -426,16 +436,17 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, mode, devices,
         leaf = valid[::thin]
         lib = libmod.build_library(abs_clean[::thin][leaf],
                                    emitted_part[leaf], ref_idx)
-        libmod.save_library(lib_path, lib)
+        if writer:
+            libmod.save_library(lib_path, lib)
         stage["library_build"] = time.time() - t0
 
-    # Stage 3: map run from the emitted file
+    # Stage 3: map run from the emission (the emitted file's, from memory)
     cfg_map = copy.deepcopy(cfg)
     cfg_map.file_optical = rt_optical
     cfg_map.iterations = 0
     cfg_map.nosolve = True
     res_map = driver.run(cfg=cfg_map, device=device, lanes=lanes,
-                         workdir=".", devices=res_rt.devices)
+                         workdir=".", devices=devices, emitted=emitted)
     res_map.timings.update(stage)
     res_map.timings["a2e_prep"] = t_prep
     res_map.timings["a2e"] = t_a2e

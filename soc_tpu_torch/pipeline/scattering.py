@@ -87,12 +87,24 @@ def run(ini_path=None, cfg=None, device=None, lanes=DEFAULT_LANES,
     device) runs every source over them in place of the ini's `devices
     N`. ``passes``, a list if given, receives one dict a source pass:
     its source, channels, packets, pools, seconds, events, peel-off rays,
-    lane steps of the transport and of the peel-off and their bodies."""
+    lane steps of the transport and of the peel-off and their bodies.
+    Under several processes (parallel/dist.py) every process runs the
+    whole run on its own device and process 0 alone writes files;
+    `devices N` over them is refused (soc_tpu runs it: ROADMAP)."""
+    from ..parallel import dist
     if device is None:
         raise ValueError("run: pass the device explicitly ('cuda' or 'cpu')")
     device = torch.device(device)
     if cfg is None:
         cfg = RunConfig(ini_path)
+    if dist.process_count() > 1 and (
+            devices is not None or int(cfg.n_devices) not in (0, 1)):
+        raise ValueError(
+            "sca: devices %d over %d processes is not supported yet (run "
+            "it in one process)" % (len(devices) if devices is not None
+                                    else int(cfg.n_devices),
+                                    dist.process_count()))
+    write_files = write_files and dist.process_index() == 0
     if workdir is None:
         workdir = os.path.dirname(os.path.abspath(ini_path)) if ini_path \
             else "."

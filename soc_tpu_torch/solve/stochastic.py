@@ -169,11 +169,19 @@ def fused_weights_nonneg(solver, nstoch=999):
 def a2e_devices(device, devices=None):
     """The devices the stochastic sizes' solve is split over, as soc_tpu
     splits it (stochastic.py:300-303 there): the given list, else every
-    visible card when ``device`` is CUDA, else ``device`` alone. The
-    environment variable SOC_TPU_A2E_SHARD=0 turns the split off."""
+    visible card when ``device`` is CUDA, else ``device`` alone. Under
+    several processes (parallel/dist.py) the process's own devices
+    whatever the list (a mesh's global list names other processes'
+    cards): each solves every cell on its own, as soc_tpu's processes do
+    (stochastic.py:294-298 there), and holds EMITTED without a
+    collective. The environment variable SOC_TPU_A2E_SHARD=0 turns the
+    split off."""
+    from ..parallel import dist
     device = torch.device(device)
     if os.environ.get("SOC_TPU_A2E_SHARD", "1") == "0":
         return [device]
+    if dist.process_count() > 1:
+        return dist.local_devices(device)
     if devices is not None:
         return [torch.device(d) for d in devices]
     if device.type == "cuda":

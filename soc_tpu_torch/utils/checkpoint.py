@@ -34,7 +34,9 @@ File: an .npz with the unit keys ('done'), their vectors ('units',
 [NU, 6, NFREQ] float64), the fingerprint and the named arrays; written to
 a temporary file and made visible only by os.replace, so a process killed
 while writing leaves the previous checkpoint whole. Enabled by the ini's
-`checkpoint <file> [every_n_units]`.
+`checkpoint <file> [every_n_units]`. Under several processes every rank
+keeps the same units and snapshots (the tallies are replicated) and reads
+the file; process 0 alone writes it (``write``).
 """
 
 import hashlib
@@ -76,11 +78,15 @@ def host_copy(value):
 
 
 class RunCheckpoint:
-    def __init__(self, path, every=1, fingerprint="", nfreq=0, log=True):
+    def __init__(self, path, every=1, fingerprint="", nfreq=0, log=True,
+                 write=True):
         """path: the .npz file (read when it exists and its fingerprint
         matches, else ignored and later overwritten); every: flush every N
-        recorded units; nfreq: the length of a unit's vectors."""
+        recorded units; nfreq: the length of a unit's vectors; write:
+        False for a process that holds the units but leaves the file to
+        another (process 0 of several)."""
         self.path = path
+        self.write = write
         self.every = max(1, int(every))
         self.fingerprint = str(fingerprint)
         self.nfreq = int(nfreq)
@@ -185,7 +191,7 @@ class RunCheckpoint:
         ``arrays``, the newest) to the file, atomically."""
         self._hold(arrays)
         self._since_save = 0
-        if not self.path:
+        if not (self.path and self.write):
             return
         t0 = time.time()
         tmp = self.path + ".tmp.npz"

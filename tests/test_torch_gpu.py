@@ -3,7 +3,8 @@ against their plain twin, the wrapper's checks, the sharded A2E solve
 against one launch, the probes' four kernels against their plain
 versions, the slice on the card against the slice on the CPU, and the
 `devices N` path over cuda:0 three times against the one-device run,
-and the scattered-light runs on the card against the CPU's.
+the scattered-light runs on the card against the CPU's, and two processes
+on cuda:0 (parallel/dist.py) against one process.
 Every test here carries the ``gpu`` marker and skips where there is no
 CUDA device. This file imports no jax, so it runs on a
 machine without it; tests/conftest.py does import jax, hence on the card:
@@ -1316,3 +1317,77 @@ def test_graphed_pools_equal_eager(cuda, tmp_path, monkeypatch, slabs):
         a, b = getattr(graphed, f), getattr(eager, f)
         np.testing.assert_allclose(a, b, rtol=1e-4,
                                    atol=1e-6 * np.abs(b).max())
+
+
+def test_two_processes_on_one_card(cuda, tmp_path):
+    """chip_smoke.py phase 19 (a) at a small size: the `pipeline` verb as
+    two processes on cuda:0 (soc_tpu's variables, `devices 2`), held to
+    one process's `devices 2` run within chip_smoke's rerun bound (1e-4
+    relative or 1e-6 of the maximum: the card's atomics add in another
+    order); the balance within 0.5% a channel; each process launches
+    a2e_all_sizes once and a2e_clamp never; both hold the same absorbed
+    and emitted arrays; process 1 writes no file."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    from soc_tpu_torch.io.fields import read_cell_frequency_array
+    here = os.path.dirname(os.path.abspath(__file__))
+    kw = dict(kind="gset", nfreq=8, nsize=4, bgpac=24576,
+              extra="nenumber 32\ndevices 2\n")
+    one = write_model(str(tmp_path / "one"), 16, **kw)
+    full.run_pipeline(one, cuda, lanes=1 << 14, devices=[cuda] * 2)
+    dirs = [tmp_path / "r0", tmp_path / "r1"]
+    inis = [write_model(str(d), 16, **kw) for d in dirs]
+    for name in ("TST_simple.dust", "gs_TST.solver"):   # as in a shared
+        with open(tmp_path / "one" / name, "rb") as a, \
+                open(dirs[1] / name, "wb") as b:        # directory
+            b.write(a.read())
+    before = sorted(os.listdir(dirs[1]))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    for k, ini in enumerate(inis):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=os.environ.get(
+            "CUDA_VISIBLE_DEVICES", "0").split(",")[0],
+            PYTHONPATH=os.path.dirname(here),
+            SOC_TPU_COORDINATOR="127.0.0.1:%d" % port,
+            SOC_TPU_NUM_PROCESSES="2", SOC_TPU_PROCESS_ID=str(k),
+            SOC_TPU_DIST_TIMEOUT="120")
+        spec = dict(runs=[["pipeline", os.path.basename(ini), "--lanes",
+                           str(1 << 14)]])
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(here, "_torch_mp_worker.py"),
+             json.dumps(spec)], cwd=str(dirs[k]), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    out = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=600)
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("RESULT ")]
+            assert p.returncode == 0 and line, stderr[-3000:]
+            out.append(json.loads(line[0][7:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for res in out:
+        assert res["foreign"] == [] and res["size"] == 2
+        assert (res["a2e_launches"], res["clamp_launches"]) == (1, 0)
+        assert res["runs"][0]["digests"]["balance"] <= 5e-3
+    for key in ("absorbed", "emitted", "ctabs"):
+        assert out[0]["runs"][0]["digests"][key] \
+            == out[1]["runs"][0]["digests"][key]
+    for name in ("absorbed.data", "emitted.data", "map_dir_00.bin"):
+        read = read_cell_frequency_array if name.endswith(".data") \
+            else (lambda f: np.fromfile(f, np.float32)[2:])
+        got, want = read(str(dirs[0] / name)), \
+            read(str(tmp_path / "one" / name))
+        assert got.shape == want.shape and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-6 * np.abs(want).max())
+    assert sorted(os.listdir(dirs[1])) == before
