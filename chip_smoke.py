@@ -358,6 +358,30 @@ Phases (any failure exits non-zero before the final line):
      needs two. Every
      process has MP_TIMEOUT seconds; a failure kills the others and
      fails the phase with their stderr
+ 20. `sca` with `devices 4` over processes: phase 15 (a)'s model
+     (BASELINE config 4's octree, ffs 1) cut to its background in one
+     direction over (a)'s optically thinnest channel (2.87 um): a pool's
+     cost is its drain tail, paid a shard, and its longest packets' many
+     scatterings set that tail (at 0.21 um, with one direction or with
+     three and two channels, the phase took 41-43 s); one process with
+     devices cuda:0
+     four times, then two processes on this card of two shards each
+     (SOC_TPU_LOCAL_DEVICE_IDS 0,0), started as phase 19 starts its. Both
+     processes' maps equal (sha256); process 0's outcoming.socs against
+     the one process's maps within phase 9's rerun bound (the peel-off's
+     atomics add in another order on every run, so the card gives no bit
+     for bit, which the CPU tests hold); process 1 writes no file; each
+     run's seconds
+ 21. the `bench` verb's module (soc_tpu_torch/bench.py): (a)
+     march_path_lengths of 2^17 rays on the soc_example grid in blocks of
+     32 steps, a block one CUDA graph, against the step-by-step form, bit
+     for bit, both timed; (b) its sections as functions at cut sizes:
+     their own arguments (repeats 1, 2^20 octree packets, 2^16 scattered
+     light packets, 16,384 A2E cells, iters 20, a 128x128 map) and
+     soc_tpu's knobs as tests/test_bench_harness.py sets them (a 16^3
+     large model, 4,096 streamed rows, a 32^3 xl model, 8,192 packets):
+     every key of each section present, every rate finite and positive,
+     every `sane` true, a2e_all_sizes launched (bench_launches)
 The kernels line gives each kernel's launches on its path (phase 4 for the
 A2E kernel, and under octree_* its launches, time, plain time and bound
 on phase 11's octree, under sources_* on phase 12 (b)'s, under pol_* on
@@ -365,7 +389,8 @@ phase 14 (a)'s with the align weights; 6 for the clamp kernel, 7 for the probes,
 sharded A2E, whose other numbers phase 8 takes over the same six shards,
 and under ckpt_launches its launches on phase 17 (c)'s resumed run;
 under domain_launches the A2E kernel's on phase 18 (b)'s; under
-mp_launches each process's in phase 19 (a);
+mp_launches each process's in phase 19 (a); under bench_launches phase
+21's;
 15 (e) for the two kernels' global-memory forms, a2e_all_sizes_global and
 a2e_clamp_global, at NE 1856 and under nf1088_* at NFREQ 1088; under
 config5_* phase 16 (a)'s launches, the kernel's time on the first dust's
@@ -487,6 +512,14 @@ MESH_PSPACKETS = 5000   # (b2): packets a point source and channel
 DOMAIN_SLABS = 4        # phase 18: Z slabs, cuda:0 four times
 DOMAIN_RTOL, DOMAIN_ATOL, DOMAIN_SHARE = 1e-3, 1e-6, 0.98   # the rule
 DOMAIN_MIRROR = "z"     # phase 18 (c): the bottom slab's face
+SCA_MP_SHARDS = 4       # phase 20: `devices 4`: cuda:0 four times in one
+SCA_MP_RANKS = 2        # process, and two processes of two shards each
+SCA_SIMUM_20 = (2.5, 3.0)   # phase 20: (a)'s thinnest channel, 2.87 um
+# phase 21: the bench's sections at cut sizes: soc_tpu's knobs as
+# tests/test_bench_harness.py sets them, then each section's own sizes
+BENCH_KNOBS = dict(SOC_BENCH_LARGE_N="16", SOC_BENCH_LARGE_ROWS=str(1 << 12),
+                   SOC_BENCH_XL_N="32", SOC_BENCH_XL_PKTS=str(1 << 13))
+BENCH_CUT_LANES = 1 << 16   # phase 21: the 16^3 and 32^3 sections' pools
 MP_RANKS = PRODUCT_SHARDS   # phase 19 (a): processes on one card, one
                             # shard each of phase 9's (dp 3 x freq 2) mesh
 MP_TIMEOUT = 600        # phase 19: seconds a process may take
@@ -542,6 +575,27 @@ print("RESULT " + json.dumps(dict(
     balance=float(np.abs(bal).max()), spans=spans, collectives_s=coll[0],
     absorption_s=a.timings["constant_sources"], a2e_s=m.timings["a2e"],
     maps_s=m.timings["maps"], wall_s=time.time() - t0,
+    foreign=sorted(k for k in sys.modules
+                   if k.split(".")[0] in ("jax", "soc_tpu")))), flush=True)
+"""
+# phase 20: one process of the `sca` verb (python -c SCA_RANK_CODE <cli
+# args>): its maps' sha256, its source passes' seconds and its wall time
+SCA_RANK_CODE = r"""
+import hashlib, json, sys, time
+import numpy as np
+import torch
+t0 = time.time()
+from soc_tpu_torch import cli
+from soc_tpu_torch.parallel import dist
+results = {}
+rc = cli.main(sys.argv[1:], results)
+torch.cuda.synchronize()
+maps = np.ascontiguousarray(results["sca"])
+print("RESULT " + json.dumps(dict(
+    rc=rc, rank=dist.process_index(), size=dist.process_count(),
+    maps=hashlib.sha256(maps.tobytes()).hexdigest()[:16],
+    passes=[(p["source"], p["seconds"], p["packets"], p["events"])
+            for p in results["sca_passes"]], wall_s=time.time() - t0,
     foreign=sorted(k for k in sys.modules
                    if k.split(".")[0] in ("jax", "soc_tpu")))), flush=True)
 """
@@ -3593,11 +3647,13 @@ def _rank_dirs(work, tag, n, extra, args):
     return dirs
 
 
-def _run_ranks(tag, dirs, cards, card):
-    """The `pipeline` verb as len(dirs) processes of one group (soc_tpu's
-    variables), process k in dirs[k] on card cards[k]; each has
-    MP_TIMEOUT seconds, and any failure kills the others and fails the
-    phase with their stderr. Returns (RESULT dicts in rank order, wall)."""
+def _run_ranks(tag, dirs, cards, card, argv=("pipeline", "run.ini"),
+               code=RANK_CODE, env_extra=None, phase="phase 19"):
+    """A verb (``argv``, run by ``code``: the `pipeline` verb by default)
+    as len(dirs) processes of one group (soc_tpu's variables), process k
+    in dirs[k] on card cards[k] (and ``env_extra``); each has MP_TIMEOUT
+    seconds, and any failure kills the others and fails the phase with
+    their stderr. Returns (RESULT dicts in rank order, wall)."""
     import socket
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
@@ -3610,9 +3666,10 @@ def _run_ranks(tag, dirs, cards, card):
                    PYTHONPATH=HERE, SOC_TPU_COORDINATOR="127.0.0.1:%d" % port,
                    SOC_TPU_NUM_PROCESSES=str(len(dirs)),
                    SOC_TPU_PROCESS_ID=str(k),
-                   SOC_TPU_DIST_TIMEOUT=str(MP_GROUP_TIMEOUT))
+                   SOC_TPU_DIST_TIMEOUT=str(MP_GROUP_TIMEOUT),
+                   **(env_extra or {}))
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", RANK_CODE, "pipeline", "run.ini"],
+            [sys.executable, "-c", code, *argv],
             cwd=d, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True))
     out, errs = [None] * len(procs), [""] * len(procs)
@@ -3636,9 +3693,14 @@ def _run_ranks(tag, dirs, cards, card):
                 p.communicate()
     wall = time.time() - t0
     if any(r is None for r in out):
-        fail("phase 19 %s: a process failed:\n%s" % (tag, "\n".join(
+        fail("%s %s: a process failed:\n%s" % (phase, tag, "\n".join(
             "--- process %d (rc %s):\n%s" % (k, p.returncode, e[-2500:])
             for k, (p, e) in enumerate(zip(procs, errs)) if e)))
+    return out, wall
+
+
+def _print_ranks(tag, out, card):
+    """Phase 19's line a process: its stages, spans and collectives."""
     for r in out:
         print("phase 19 %s: process %d of %d: absorption %.2f s, A2E %.2f "
               "s, maps %.2f s, wall %.2f s; transport passes' device "
@@ -3649,7 +3711,6 @@ def _run_ranks(tag, dirs, cards, card):
                  ", ".join("%.3f" % x for x in r["spans"]),
                  r["collectives_s"], r["launches"], r["clamp"], card),
               flush=True)
-    return out, wall
 
 
 def _hold_ranks(tag, out, dirs, before, ref):
@@ -3713,6 +3774,7 @@ def processes_phase(dev, work, args, report, ref):
                       args)
     before = [sorted(os.listdir(d)) for d in dirs]
     out, wall = _run_ranks("(a)", dirs, [here] * MP_RANKS, card)
+    _print_ranks("(a)", out, card)
     _hold_ranks("(a)", out, dirs, before, ref)
     report["a2e_all_sizes"]["mp_launches"] = [r["launches"] for r in out]
     report["processes"] = dict(a_wall_s=wall, a_absorption_s=max(
@@ -3731,6 +3793,7 @@ def processes_phase(dev, work, args, report, ref):
     dirs = _rank_dirs(work, "mpc", n, "devices %d\n" % n, args)
     before = [sorted(os.listdir(d)) for d in dirs]
     out, wall = _run_ranks("(b)", dirs, cards, card)
+    _print_ranks("(b)", out, card)
     _hold_ranks("(b)", out, dirs, before, ref)
     # the same mesh from one host thread in this process, for the
     # comparison within this call
@@ -3753,6 +3816,222 @@ def processes_phase(dev, work, args, report, ref):
              report["processes"]["b_thread_absorption_s"],
              report["stages"]["absorption_s"], PR3_THREAD_S, PR3_POOL_S,
              card), flush=True)
+
+
+def sca_processes_phase(dev, work, report):
+    """Phase 20: `sca` with `devices 4` over processes (see the module
+    docstring)."""
+    import torch
+    from soc_tpu_torch.example_model import write_sca_model
+    from soc_tpu_torch.pipeline import scattering
+    card = report["card"]
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    here = (visible.split(",") if visible else
+            [str(i) for i in range(torch.cuda.device_count())])[dev.index or 0]
+
+    def model(tag):
+        d = os.path.join(work, "sca_mp_" + tag)
+        ini = write_sca_model(d, N, nfreq=44, npix=64, map_dx=N / 64.0,
+                              octree=OCTREE, simum=SCA_SIMUM_20,
+                              bgpac=SCA_BGPACKETS, ffs=1,
+                              extra="devices %d\n" % SCA_MP_SHARDS)
+        return d, ini
+
+    t0 = time.time()
+    _, ini = model("one")
+    t1 = time.time()
+    one = scattering.run(ini, device=dev, devices=[dev] * SCA_MP_SHARDS)
+    torch.cuda.synchronize()
+    one_s = time.time() - t1
+    print("phase 20: one process, devices %d on %s: %.2f s, maps %s [%s]"
+          % (SCA_MP_SHARDS, dev, one_s, one.shape, card), flush=True)
+    dirs = [model("r%d" % k)[0] for k in range(SCA_MP_RANKS)]
+    before = sorted(os.listdir(dirs[1]))
+    shards = ",".join(["0"] * (SCA_MP_SHARDS // SCA_MP_RANKS))
+    out, wall = _run_ranks("", dirs, [here] * SCA_MP_RANKS, card,
+                           argv=("sca", "run.ini"), code=SCA_RANK_CODE,
+                           env_extra=dict(SOC_TPU_LOCAL_DEVICE_IDS=shards),
+                           phase="phase 20")
+    for r in out:
+        print("phase 20: process %d of %d (%d shards on %s): wall %.2f s, "
+              "passes %s [%s]" % (
+                  r["rank"], r["size"], SCA_MP_SHARDS // SCA_MP_RANKS, dev,
+                  r["wall_s"], ", ".join("%s %.2f s (%d packets, %d events)"
+                                         % tuple(p) for p in r["passes"]),
+                  card), flush=True)
+        if r["rc"] != 0 or r["foreign"] or r["size"] != SCA_MP_RANKS:
+            fail("phase 20: process %d: rc %s, size %s, imported %s"
+                 % (r["rank"], r["rc"], r["size"], r["foreign"]))
+        if r["maps"] != out[0]["maps"]:
+            fail("phase 20: process %d's maps differ from process 0's"
+                 % r["rank"])
+    raw = np.fromfile(os.path.join(dirs[0], "outcoming.socs"), np.float32)
+    got = raw[3 + 44:].reshape(one.shape)
+    diff = float(np.abs(got - one).max() / np.abs(one).max())
+    ex = _within(got, one, PRODUCT_RTOL, PRODUCT_ATOL)
+    print("phase 20: every process's maps equal (sha256 %s); process 0's "
+          "outcoming.socs against the one-process run: bit for bit %s, max "
+          "|diff| / max %.3e, excess over 1e-4 relative or 1e-6 of the "
+          "peak %.3e (the peel-off's atomics add in another order each "
+          "run) [%s]" % (out[0]["maps"], bool(np.array_equal(got, one)),
+                         diff, ex, card), flush=True)
+    if not np.isfinite(got).all() or one.max() <= 0 or ex > 0:
+        fail("phase 20: the processes' maps differ from the one-process "
+             "run beyond the rerun bound")
+    if sorted(os.listdir(dirs[1])) != before:
+        fail("phase 20: process 1 wrote into %s: %s" % (
+            dirs[1], sorted(set(os.listdir(dirs[1])) - set(before))))
+    report["sca_mp"] = dict(one_s=one_s, ranks_wall_s=wall,
+                            total_s=time.time() - t0)
+    print("phase 20: two processes' wall %.2f s (each reaches the card "
+          "first), one process %.2f s; phase 20 %.2f s [%s]"
+          % (wall, one_s, time.time() - t0, card), flush=True)
+
+
+BENCH_KEYS = dict(      # phase 21: the keys each section must return
+    sca=("chord_equivalents", "lane_steps_ffs", "peel_lane_steps_ffs",
+         "lane_steps_march", "step_parity"),
+    link=("up_mbps", "down_mbps", "up_both", "down_both",
+          "serial_ceiling_cells_per_sec", "duplex_ceiling_cells_per_sec"),
+    large=("cells", "levels", "gather_melem_per_s", "scatter_melem_per_s",
+           "stepping_rate_msteps_per_s",
+           "stepping_inloop_bound_msteps_per_s",
+           "sol_stepping_fraction_vs_random_floor", "bg_transport_pps",
+           "bg_transport_s_all", "bg_channels", "a2e_stream_cells_per_sec",
+           "a2e_stream_rows", "a2e_link", "a2e_link_efficiency",
+           "a2e_link_efficiency_duplex", "driver_e2e_s",
+           "driver_e2e_phases", "driver_e2e_t_range",
+           "map_render_s_512x512x44", "sane"),
+    xl=("cells", "upload_s", "gather_melem_per_s", "bg_transport_pps",
+        "bg_transport_s", "map_render_s_256x256x1", "sane"))
+
+
+def bench_phase(dev, work, report):
+    """Phase 21: the `bench` verb's module (see the module docstring)."""
+    import torch
+    from soc_tpu_torch import bench
+    from soc_tpu_torch.ops import traverse
+    from soc_tpu_torch.pipeline import driver
+    from soc_tpu_torch.solve import a2e_kernel
+    from soc_tpu_torch.transport.sources import background_entry
+    card = report["card"]
+    t0 = time.time()
+    bw = os.path.join(work, "bench")
+    bench.prepare_workdir(bw)
+    # (a) the march's block form, one CUDA graph a block, against the
+    # step-by-step form on the soc_example grid
+    grid, _ = bench.load_workload(bw, dev)
+    rng = np.random.default_rng(7)
+    stream = torch.as_tensor(rng.integers(0, 2**31, 1 << 17,
+                                          dtype=np.int64), device=dev)
+    pos, d = background_entry(grid.nx, grid.ny, grid.nz, stream, 1, 99)
+    lengths, ms = {}, {}
+    for block in (1, traverse.MARCH_BLOCK):
+        march = traverse.PathMarch(grid, block)
+        march(pos, d)                    # warm (and capture the block)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        for _ in range(3):
+            lengths[block] = march(pos, d)
+        torch.cuda.synchronize()
+        ms[block] = (time.time() - t1) / 3 * 1e3
+    same = bool(torch.equal(lengths[1], lengths[traverse.MARCH_BLOCK]))
+    print("phase 21: (a) march_path_lengths of 131,072 rays on the %d^3 "
+          "grid: %s %.3f ms, %s %.3f ms (host clock, synchronised, mean of "
+          "3 after a warm-up); bit for bit %s [%s]"
+          % (grid.nx, traverse.march_form(dev, 1), ms[1],
+             traverse.march_form(dev), ms[traverse.MARCH_BLOCK], same,
+             card), flush=True)
+    if not same:
+        fail("phase 21: (a) the march's block form differs from the "
+             "step-by-step form")
+    # (b) the sections at cut sizes
+    saved = {k: os.environ.get(k) for k in list(BENCH_KNOBS) +
+             ["SOC_BENCH_DIR"]}
+    os.environ.update(BENCH_KNOBS, SOC_BENCH_DIR=bw)
+    try:
+        lanes = driver.DEFAULT_LANES
+        a2e_kernel.launches = 0
+        rates, secs = {}, {}
+
+        def timed_section(name, fn, *args, **kw):
+            t1 = time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            secs[name] = time.time() - t1
+            return out
+        tr = timed_section("transport", bench.bench_transport, bw, lanes,
+                           repeats=1, device=dev)
+        tgrid, medium = tr.pop("grid"), tr.pop("medium")
+        rates["bg_transport_pps"] = tr["pps"]
+        rates["speed_of_light_pps"] = timed_section(
+            "speed_of_light", bench.bench_speed_of_light, tgrid,
+            tr["packets"], repeats=1)
+        rates["stepping_rate"], rates["stepping_bound"] = timed_section(
+            "sol_stepping", bench.bench_sol_stepping, lanes, iters=20,
+            device=dev)
+        rates["octree3_pps"] = timed_section(
+            "octree3", bench.bench_octree, medium, lanes,
+            total_packets=1 << 20, repeats=1)
+        rates["octree6_pps"] = timed_section(
+            "octree6", bench.bench_octree, medium, lanes,
+            total_packets=1 << 20, repeats=1, depth=6)
+        (rates["sca_peeloff_pps"], rates["sca_march_pps"],
+         sca) = timed_section("sca", bench.bench_sca, lanes,
+                              total_packets=1 << 16, repeats=1, device=dev)
+        (rates["a2e_cells_per_sec"], rates["a2e_device_cells_per_sec"],
+         link) = timed_section("a2e", bench.bench_a2e, bw, cells=1 << 14,
+                               device=dev)
+        scaling = timed_section("scaling", bench.bench_scaling, lanes,
+                                total=1 << 14, device=dev)
+        rates["map_render_s"] = timed_section(
+            "map", bench.bench_map, tgrid, medium,
+            np.loadtxt(os.path.join(bw, "freq.dat")), npix=128)
+        large = timed_section("large", bench.bench_large, bw,
+                              BENCH_CUT_LANES, repeats=1, device=dev)
+        xl = timed_section("xl", bench.bench_xl, bw, BENCH_CUT_LANES,
+                           device=dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = a2e_kernel.launches
+    report["a2e_all_sizes"]["bench_launches"] = launches
+    print("phase 21: (b) sections at cut sizes (lanes %d; 16^3 and 32^3 "
+          "models at %d): %s; seconds %s; large %s; xl %s; scaling %s; "
+          "a2e_all_sizes launched %d times [%s]"
+          % (lanes, BENCH_CUT_LANES, json.dumps(rates),
+             json.dumps({k: round(v, 2) for k, v in secs.items()}),
+             json.dumps(large), json.dumps(xl), json.dumps(scaling),
+             launches, card), flush=True)
+    missing = [(name, k) for name, got in (("sca", sca), ("link", link),
+                                          ("large", large), ("xl", xl))
+               for k in BENCH_KEYS[name] if k not in got]
+    bad = [k for k, v in rates.items()
+           if v is None or not np.isfinite(v) or v <= 0]
+    bad += ["large " + k for k in BENCH_KEYS["large"][2:6]
+            + ("bg_transport_pps", "a2e_stream_cells_per_sec",
+               "driver_e2e_s", "map_render_s_512x512x44")
+            if not (np.isfinite(large[k]) and large[k] > 0)]
+    # a 16^3 table's gather floor may round the fraction to 0.0
+    if not large["sol_stepping_fraction_vs_random_floor"] >= 0:
+        bad.append("large sol_stepping_fraction_vs_random_floor")
+    bad += ["xl " + k for k in ("gather_melem_per_s", "bg_transport_pps",
+                                "map_render_s_256x256x1")
+            if not (np.isfinite(xl[k]) and xl[k] > 0)]
+    sane = tr["sane"] and large["sane"] and xl["sane"]
+    if missing or bad or not sane or launches < 1 \
+            or large["cells"] != 16 ** 3 + 8 * 4096 + 8 * 512 \
+            or xl["cells"] != 32 ** 3 \
+            or not (scaling is None or scaling["efficiency"] > 0):
+        fail("phase 21: (b) missing %s, not finite and positive %s, sane "
+             "%s, %d a2e_all_sizes launches, cells %s / %s"
+             % (missing, bad, sane, launches, large.get("cells"),
+                xl.get("cells")))
+    report["bench"] = dict(secs, total_s=time.time() - t0)
+    print("phase 21: %.2f s [%s]" % (time.time() - t0, card), flush=True)
 
 
 def main():
@@ -3830,10 +4109,15 @@ def main():
         domains_phase(dev, work, args, report)
         t9 = time.time()
         processes_phase(dev, work, args, report, ref)
+        t10 = time.time()
+        sca_processes_phase(dev, work, report)
+        t11 = time.time()
+        bench_phase(dev, work, report)
         print("phase 10: %.2f s; phase 11: %.2f s; phase 12: %.2f s; phase "
               "13: %.2f s (%s); phase 14: %.2f s (%s); phase 15: %.2f s "
               "(%s); phase 16: %.2f s (%s); phase 17: %.2f s (%s); phase "
-              "18: %.2f s (%s); phase 19: %.2f s (%s); the smoke so far "
+              "18: %.2f s (%s); phase 19: %.2f s (%s); phase 20: %.2f s "
+              "(%s); phase 21: %.2f s (%s); the smoke so far "
               "%.2f s, phase 10 %.2f s of it [%s]"
               % (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
                  ", ".join("%s %.2f s" % kv
@@ -3853,9 +4137,15 @@ def main():
                  t9 - t8,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["domains"].items()),
-                 time.time() - t9,
+                 t10 - t9,
                  ", ".join("%s %.2f s" % kv
                            for kv in report["processes"].items()),
+                 t11 - t10,
+                 ", ".join("%s %.2f s" % kv
+                           for kv in report["sca_mp"].items()),
+                 time.time() - t11,
+                 ", ".join("%s %.2f s" % kv
+                           for kv in report["bench"].items()),
                  time.time() - T_START, t1 - t0, card), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3879,6 +4169,7 @@ def main():
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     extra = ("shards", "ckpt_launches", "domain_launches", "mp_launches",
+             "bench_launches",
              "octree_launches", "octree_ms", "octree_plain_ms",
              "octree_bound_ms", "octree_max_abs_err", "sources_launches",
              "sources_ms", "sources_plain_ms", "sources_bound_ms",

@@ -22,10 +22,15 @@ reference executables').
                                         ~  DE_to_GSET.jl (DustEM compiler)
   python -m soc_tpu_torch sampleini [file]
                                         ~  WriteSampleIni (ASOC_aux.py:1670)
+  python -m soc_tpu_torch bench        ~  python -m soc_tpu bench (bench.py):
+                                           one JSON line of the port's
+                                           metrics (soc_tpu_torch/bench.py;
+                                           its knobs SOC_BENCH_*)
 
 Options, anywhere on the line:
   --device D    a torch device name for the verbs that compute on tensors
-                (rt, sca, pipeline, a2e, a2e_lib, mabu); default 'cuda',
+                (rt, sca, pipeline, a2e, a2e_lib, mabu, bench); default
+                'cuda',
                 '--device cpu' runs on the CPU. Without a CUDA device a
                 'cuda' run exits 2.
   --lanes N     the packet pool of rt, sca and pipeline
@@ -38,8 +43,7 @@ The ini keyword `devices N` runs the product path (for `sca`, each
 source's packets split) over N devices (cuda:0 .. cuda:N-1, or the CPU N
 times with '--device cpu'); `domains N` (rt and pipeline) runs the
 transport over N Z-slabs of the grid on the same devices. `sca` writes
-outcoming.socs (or, with `fits 1`, <scattering>.fits). soc_tpu's `bench`
-verb is not ported yet: see ROADMAP.md.
+outcoming.socs (or, with `fits 1`, <scattering>.fits).
 
 Several processes, as soc_tpu runs under jax.distributed: start the same
 command once a process with soc_tpu's variables SOC_TPU_COORDINATOR
@@ -51,11 +55,12 @@ SOC_TPU_PROCESS_ID (or SOC_TPU_DISTRIBUTED=auto under torchrun), e.g.
 
 A process's devices are its visible cards (CUDA_VISIBLE_DEVICES; several
 processes may share one), or with '--device cpu' CPU shards
-(SOC_TPU_LOCAL_DEVICE_IDS=0,1,2,3 gives it four); `devices N` in rt and
-the pipeline spans every process's devices, each process steps its own
-shards, and every one holds the replicated result; process 0 writes the
-files. The host verbs run on process 0 alone; `domains` and `sca`'s
-`devices N` are refused over several processes (parallel/dist.py).
+(SOC_TPU_LOCAL_DEVICE_IDS=0,1,2,3 gives it four); `devices N` in rt, sca
+and the pipeline spans every process's devices, each process steps its
+own shards, and every one holds the replicated result; process 0 writes
+the files. `bench` runs in every process (its scaling section's mesh
+spans them), process 0 printing its line. The host verbs run on process
+0 alone; `domains` is refused over several processes (parallel/dist.py).
 """
 
 import os
@@ -63,11 +68,12 @@ import sys
 
 import numpy as np
 
-_LATER = {"bench": "'The `bench` verb for the port'"}
 _MIN_ARGS = {"rt": 1, "sca": 1, "pipeline": 1, "a2e_pre": 3, "a2e": 3,
              "eqsolve": 3, "a2e_lib": 6, "mabu": 3, "dust": 2,
-             "sampleini": 0}
-_DEVICE_VERBS = ("rt", "sca", "pipeline", "a2e", "a2e_lib", "mabu")
+             "sampleini": 0, "bench": 0}
+_DEVICE_VERBS = ("rt", "sca", "pipeline", "a2e", "a2e_lib", "mabu", "bench")
+# the verbs every process of a group runs
+_GROUP_VERBS = ("rt", "sca", "pipeline", "bench")
 
 
 def _usage():
@@ -105,7 +111,8 @@ def main(argv=None, results=None):
     receives the verb's RunResult objects ('rt'; 'absorption', 'emitted'
     and 'map' for the pipeline; for `sca` the maps array 'sca' and its
     source passes' stats 'sca_passes'; for `mabu` the emission stage's
-    timings 'mabu') for callers that check them."""
+    timings 'mabu'; for `bench` its result dict 'bench') for callers that
+    check them."""
     argv = sys.argv[1:] if argv is None else list(argv)
     results = {} if results is None else results
     # several processes: the process group from soc_tpu's variables
@@ -114,11 +121,6 @@ def main(argv=None, results=None):
     dist.maybe_initialize()
     if not argv or argv[0] in ("-h", "--help"):
         return _usage()
-    if argv[0] in _LATER:
-        print("soc_tpu_torch: verb %r is not ported yet (ROADMAP.md: %s); "
-              "use python -m soc_tpu %s" % (argv[0], _LATER[argv[0]],
-                                            argv[0]), file=sys.stderr)
-        return 2
     args, opts = _options(argv)
     verb, args = args[0], args[1:]
     if verb not in _MIN_ARGS:
@@ -135,7 +137,7 @@ def main(argv=None, results=None):
             print("soc_tpu_torch: no CUDA device; pass --device cpu to run "
                   "on the CPU", file=sys.stderr)
             return 2
-    if dist.process_count() > 1 and verb not in ("rt", "sca", "pipeline"):
+    if dist.process_count() > 1 and verb not in _GROUP_VERBS:
         # a host verb computes and writes its files in one process: the
         # others wait for process 0's exit code
         rc = _run(opts, verb, args, device, results) \
@@ -180,6 +182,12 @@ def _nearest(freq, values):
 
 
 def _dispatch(verb, args, device, lanes, results):
+    if verb == "bench":
+        # soc_tpu's verb takes no arguments; its knobs are SOC_BENCH_*
+        from . import bench
+        results["bench"] = bench.main(device=device)
+        return 0
+
     if verb == "rt":
         from .pipeline import driver
         if len(args) > 1:

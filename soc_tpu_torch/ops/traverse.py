@@ -143,26 +143,90 @@ def get_step(grid, pos, dir, level, ind, active):
     return ds_gl, pos, level, ind
 
 
-def march_path_lengths(grid, pos0, dir, max_steps=10000):
+MARCH_BLOCK = 32        # march_path_lengths: steps between readbacks
+
+
+def march_path_lengths(grid, pos0, dir, max_steps=10000, block=MARCH_BLOCK):
     """March rays from global positions to their exit and return each
     ray's path length in root-grid units: the traversal alone, no physics
     (the speed-of-light bound of packet stepping, and a geometric check).
     soc_tpu's fixed-bound march, run on the rays' device: at most
-    max_steps steps, stopping once every ray has left."""
-    pos, level, ind = index_global(grid, pos0)
-    total = torch.zeros(pos.shape[:-1], dtype=torch.float32,
-                        device=pos.device)
-    for _ in range(max_steps):
-        active = ind >= 0
-        if not bool(active.any()):
-            break
-        ds, npos, nlevel, nind = get_step(grid, pos, dir, level, ind,
-                                          active)
-        total = total + torch.where(active, ds, 0.0)
-        pos = torch.where(active[..., None], npos, pos)
-        level = torch.where(active, nlevel, level)
-        ind = torch.where(active, nind, ind)
-    return total
+    max_steps steps, stopping once every ray has left.
+
+    The form a caller gets (march_form names it): blocks of ``block``
+    steps, then one readback of whether any ray is left; on a CUDA device
+    a block is captured as a CUDA graph and replayed
+    (utils.graphs.GraphedBlock: the same kernels in the same order),
+    elsewhere it runs eagerly. ``block=1`` is the step-by-step form, a
+    readback every step. A ray that has left is masked exactly as in a
+    single step, so the steps a block runs past the last ray change
+    nothing: every form gives the same lengths bit for bit. A caller that
+    marches the same grid again keeps a PathMarch, which captures once."""
+    return PathMarch(grid, block)(pos0, dir, max_steps)
+
+
+def march_form(device, block=MARCH_BLOCK):
+    """The name of the march_path_lengths form on ``device``."""
+    if block <= 1:
+        return "step by step, a readback every step"
+    how = "one CUDA graph replayed" if torch.device(device).type == "cuda" \
+        else "eager"
+    return "blocks of %d steps (%s), a readback a block" % (block, how)
+
+
+class PathMarch:
+    """march_path_lengths on one grid, keeping each shape of rays' graphed
+    block across calls (as soc_tpu's bench keeps its jitted march)."""
+
+    def __init__(self, grid, block=MARCH_BLOCK):
+        self.grid, self.block = grid, max(1, int(block))
+        self.blocks = {}
+
+    def __call__(self, pos0, dir, max_steps=10000):
+        grid = self.grid
+        block = min(self.block, max_steps)
+        pos, level, ind = index_global(grid, pos0)
+        total = torch.zeros(pos.shape[:-1], dtype=torch.float32,
+                            device=pos.device)
+        state = (pos, level, ind, total)
+        run = self._block(dir, block) if block > 1 else None
+        done = 0
+        while done < max_steps and bool((state[2] >= 0).any()):
+            k = min(block, max_steps - done)
+            if k == block and run is not None:
+                state = run(*state, dir)
+            else:
+                for _ in range(k):
+                    state = _march_step(grid, dir, *state)
+            done += k
+        # a graph's output buffers are reused by its next replay
+        return state[3].clone() if run is not None else state[3]
+
+    def _block(self, dir, block):
+        from ..utils.graphs import GraphedBlock
+        key = (tuple(dir.shape), str(dir.device), block)
+        if key not in self.blocks:
+            grid = self.grid
+
+            def steps(pos, level, ind, total, dir):
+                state = (pos, level, ind, total)
+                for _ in range(block):
+                    state = _march_step(grid, dir, *state)
+                return state
+            self.blocks[key] = GraphedBlock(steps, dir.device)
+        return self.blocks[key]
+
+
+def _march_step(grid, dir, pos, level, ind, total):
+    """One step of march_path_lengths; rays that have left stay as they
+    are."""
+    active = ind >= 0
+    ds, npos, nlevel, nind = get_step(grid, pos, dir, level, ind, active)
+    total = total + torch.where(active, ds, 0.0)
+    pos = torch.where(active[..., None], npos, pos)
+    level = torch.where(active, nlevel, level)
+    ind = torch.where(active, nind, ind)
+    return pos, level, ind, total
 
 
 def _anc_read(anc, level):

@@ -25,7 +25,8 @@ ASOCS.py:43-49); otherwise [NDIR, NY, NX] orthographic maps. Two or more
 dusts with one `dsc` file each turn WITH_MSF on (the species roulette
 and the abundance-weighted mean DSC; abundances 1/NDUST unless read from
 the `abundance` files). `devices N` splits each source's budget over N
-devices by id range (scattered.simulate_scattering_sharded).
+devices by id range (scattered.simulate_scattering_sharded), over
+several processes too, each stepping its own shards.
 
 Output container `outcoming.socs` (ASOCS.py:385-402):
   flat maps: int32 [NY, NX, NFREQ] + float32 FFREQ + [NFREQ, NDIR, NY, NX]
@@ -88,22 +89,17 @@ def run(ini_path=None, cfg=None, device=None, lanes=DEFAULT_LANES,
     N`. ``passes``, a list if given, receives one dict a source pass:
     its source, channels, packets, pools, seconds, events, peel-off rays,
     lane steps of the transport and of the peel-off and their bodies.
-    Under several processes (parallel/dist.py) every process runs the
-    whole run on its own device and process 0 alone writes files;
-    `devices N` over them is refused (soc_tpu runs it: ROADMAP)."""
+    Under several processes (parallel/dist.py) `devices N` spans every
+    process's devices (dist.global_devices, as for rt): a process steps
+    its own shards and every process returns the same maps; without it
+    every process runs the whole run on its own device. Process 0 alone
+    writes files."""
     from ..parallel import dist
     if device is None:
         raise ValueError("run: pass the device explicitly ('cuda' or 'cpu')")
     device = torch.device(device)
     if cfg is None:
         cfg = RunConfig(ini_path)
-    if dist.process_count() > 1 and (
-            devices is not None or int(cfg.n_devices) not in (0, 1)):
-        raise ValueError(
-            "sca: devices %d over %d processes is not supported yet (run "
-            "it in one process)" % (len(devices) if devices is not None
-                                    else int(cfg.n_devices),
-                                    dist.process_count()))
     write_files = write_files and dist.process_index() == 0
     if workdir is None:
         workdir = os.path.dirname(os.path.abspath(ini_path)) if ini_path \

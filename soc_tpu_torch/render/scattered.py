@@ -1087,8 +1087,13 @@ def simulate_scattering_sharded(pm, grid, physics, source_params,
     parameters), so every packet keeps its stream; a mixed pool splits
     each channel's ``per_freq``. Each shard runs its own pool on its
     device (grid and physics copied there once), the shards stepped in
-    turn; the maps are summed on the first device in shard order. Returns
-    the map (and the shards' stats summed)."""
+    turn; the maps are summed on the first device in shard order. Over
+    several processes (pm spans them: parallel/dist.py) a process steps
+    only its own shards, every process gathers every shard's map and
+    stats (ProductMesh.gather_shards) and adds the maps in shard order on
+    the grid's device, as one process adds them: every process holds the
+    one-process sum, on the CPU bit for bit. Returns the map (and the
+    shards' stats summed)."""
     n = len(pm.devices)
     mixed = source_params.get("ifreq") is None
     total = int(source_params["per_freq"]) if mixed else int(total_packets)
@@ -1110,11 +1115,12 @@ def simulate_scattering_sharded(pm, grid, physics, source_params,
             healpix_nside, obs_pos))
 
     parts = pm.map_steps(shard)
-    first = pm.devices[0]
-    out = parts[0][0].to(first)
-    for part, _ in parts[1:]:
+    maps = pm.gather_shards([None if p is None else p[0] for p in parts])
+    first = pm.lead(grid.device)
+    out = maps[0].to(first)
+    for part in maps[1:]:
         out = out + part.to(first)
     if not return_stats:
         return out
-    stats = {k: sum(s[k] for _, s in parts) for k in parts[0][1]}
-    return out, stats
+    stats = pm.gather_shards([None if p is None else p[1] for p in parts])
+    return out, {k: sum(s[k] for s in stats) for k in stats[0]}

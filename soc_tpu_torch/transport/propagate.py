@@ -779,18 +779,22 @@ class PoolRun:
     (dead, not emigrants) per frequency, serve the pending clones,
     ``before_refill`` (the slab runner's arrivals), refill from the budget
     of ``total`` ids, then ``inner`` march steps with a service every
-    REFILL_PERIOD. With ``births`` the weights launched and born outside
-    the grid are summed per frequency too.
+    REFILL_PERIOD (soc_tpu's service period, capped at ``inner``). With
+    ``births`` the weights launched and born outside the grid are summed
+    per frequency too.
 
     On a CUDA device the march block is captured as one CUDA graph at the
-    second body and replayed after: the eager block issues some hundred
-    kernels a march step from one host thread, which the card finishes
-    faster than the host issues them. The replay runs the same kernels:
-    the state is copied into the graph's inputs, and the pool takes its
-    outputs; the tallies are the same tensors."""
+    second body and replayed after (utils.graphs.GraphedBlock): the eager
+    block issues some hundred kernels a march step from one host thread,
+    which the card finishes faster than the host issues them. The replay
+    runs the same kernels: the state is copied into the graph's inputs,
+    and the pool takes its outputs; the tallies are the same tensors."""
 
     def __init__(self, kit, st, gen, params, total, births=False,
                  inner=REFILL_PERIOD):
+        if inner % min(inner, REFILL_PERIOD):
+            raise ValueError("inner %d: a multiple of %d, or fewer"
+                             % (inner, REFILL_PERIOD))
         self.kit, self.st, self.gen, self.params = kit, st, gen, params
         self.total, self.inner = int(total), int(inner)
         device = kit.grid.device
@@ -807,8 +811,10 @@ class PoolRun:
             self.births = (torch.zeros_like(self.esc_w),
                            torch.zeros_like(self.esc_w), self.esc_slot)
         self.next_id = torch.zeros((), dtype=torch.int64, device=device)
-        self.graphed = CUDA_GRAPHS and device.type == "cuda"
-        self.graph = None
+        self.block = None
+        if CUDA_GRAPHS and device.type == "cuda":
+            from ..utils.graphs import GraphedBlock
+            self.block = GraphedBlock(self._block_fn(), device)
         self.bodies = 0
 
     def more(self):
@@ -838,45 +844,42 @@ class PoolRun:
                 self.births)
         lane_c = kit.lane_const_of(st.b)
         self.bodies += 1
-        if self.graphed and self.bodies > 1:
+        if self.block is not None:
             self._replay(lane_c)
         else:
             self._marches(st, lane_c)
 
     def _marches(self, st, lane_c):
-        for _ in range(self.inner // REFILL_PERIOD):
+        # soc_tpu's blocks: a service, then min(inner, REFILL_PERIOD) march
+        # steps, inner // that many times
+        period = min(self.inner, REFILL_PERIOD)
+        for _ in range(self.inner // period):
             self.kit.service(st)
-            for _ in range(REFILL_PERIOD):
+            for _ in range(period):
                 self.kit.march(st, lane_c)
 
-    def _replay(self, lane_c):
-        if self.graph is None:
-            # capture on a side stream (the first body, eager, warmed the
-            # kernels up); a capture records and runs nothing
-            self.g_in = {k: v.clone()
-                         for k, v in _pool_tensors(self.st).items()}
-            self.g_lc = tuple(c.clone() for c in lane_c)
+    def _block_fn(self):
+        """The march block as a function of the pool's tensors (in the
+        order _pool_tensors names them at the first body) and the lane
+        constants, returning the tensors the block replaced: the
+        GraphedBlock's fn."""
+        def fn(*tensors):
+            n = len(self.names)
             work = replace(self.st, sp=None if self.st.sp is None
                            else dict(self.st.sp))
-            _set_pool_tensors(work, self.g_in)
-            graph = torch.cuda.CUDAGraph()
-            main = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                graph.capture_begin()
-                try:
-                    self._marches(work, self.g_lc)
-                finally:
-                    graph.capture_end()
-            main.wait_stream(side)
-            self.graph, self.g_out = graph, _pool_tensors(work)
-        for k, v in _pool_tensors(self.st).items():
-            self.g_in[k].copy_(v)
-        for c, v in zip(self.g_lc, lane_c):
-            c.copy_(v)
-        self.graph.replay()
-        _set_pool_tensors(self.st, self.g_out)
+            _set_pool_tensors(work, dict(zip(self.names, tensors[:n])))
+            self._marches(work, tensors[n:])
+            return tuple(_pool_tensors(work)[k] for k in self.names)
+        return fn
+
+    def _replay(self, lane_c):
+        """The march block through the GraphedBlock: eager at the first
+        body, captured at the second, replayed from then on."""
+        pool = _pool_tensors(self.st)
+        if self.bodies == 1:
+            self.names = list(pool)
+        out = self.block(*(pool[k] for k in self.names), *lane_c)
+        _set_pool_tensors(self.st, dict(zip(self.names, out)))
 
     def finish(self):
         """The last flush (lanes that died in the last block); returns
@@ -885,7 +888,7 @@ class PoolRun:
         st = self.st
         self.esc_w.index_add_(0, st.b.ifreq * ESC_SPREAD + self.esc_slot,
                               st.esc_pending.double())
-        self.graph = self.g_in = self.g_out = self.g_lc = None
+        self.block = None
         nfreq = self.kit.nfreq
         births = None if self.births is None else tuple(
             w.view(nfreq, ESC_SPREAD).sum(1) for w in self.births[:2])
@@ -896,7 +899,8 @@ def transport_run(grid, physics, source_params, total_packets, tabs, intf,
                   seed, source_kind="bg", nlanes=1 << 17,
                   per_freq_tally=False, with_ali=False, xab=None,
                   split_max=0, births=False, mirror_mask=0, roi=None,
-                  tally_col0=0):
+                  tally_col0=0, max_iters=1 << 30,
+                  refill_period=REFILL_PERIOD):
     """Drain ``total_packets`` packets through the grid with lane refill.
 
     physics : dict of device tensors 'kabs', 'ksca', 'tw' [NFREQ] and
@@ -918,6 +922,12 @@ def transport_run(grid, physics, source_params, total_packets, tabs, intf,
     mirror_mask : the mirrored faces (driver.mirror_mask_of)
     roi : the ROI save, dict(mask [CELLS] bool tensor, box, dim (rnx, rny,
         rnz, step), nside, tally [NFREQ, NELEM * NPIX] added to in place)
+    max_iters : at most this many refill bodies, even with budget left
+        (soc_tpu's loop bound: a fixed count of bodies on an unlimited
+        budget runs exactly max_iters * refill_period * nlanes lane steps)
+    refill_period : march steps a body (PoolRun's ``inner``): a service
+        then min(refill_period, REFILL_PERIOD) march steps, repeated;
+        REFILL_PERIOD or fewer, or a multiple of it
 
     Returns (tabs, intf, escaped [NFREQ] float64, absorbed scalar) on the
     device, then xab when with_ali, the clones served (int64 scalar) when
@@ -929,7 +939,8 @@ def transport_run(grid, physics, source_params, total_packets, tabs, intf,
                                  total_packets, tabs, intf, seed,
                                  source_kind, nlanes, per_freq_tally,
                                  with_ali, xab, split_max, births,
-                                 mirror_mask, roi, tally_col0))
+                                 mirror_mask, roi, tally_col0, max_iters,
+                                 refill_period))
 
 
 def drain(steps):
@@ -945,12 +956,14 @@ def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
                     seed, source_kind="bg", nlanes=1 << 17,
                     per_freq_tally=False, with_ali=False, xab=None,
                     split_max=0, births=False, mirror_mask=0, roi=None,
-                    tally_col0=0):
+                    tally_col0=0, max_iters=1 << 30,
+                    refill_period=REFILL_PERIOD):
     """transport_run as a generator: it yields after each refill body (the
     escape flush, the clone service, a refill, a service step and
-    REFILL_PERIOD march steps queued on the device, in soc_tpu's order)
+    refill_period march steps queued on the device, in soc_tpu's order)
     and returns transport_run's result, so one host thread can step the
-    pools of several devices in turn (ProductMesh.map_steps)."""
+    pools of several devices in turn (ProductMesh.map_steps). The body
+    count is the host's, so a run stops after exactly max_iters bodies."""
     from .sources import GENERATORS
     gen = GENERATORS[source_kind]
     ncomp = intf.shape[2] if per_freq_tally and intf.ndim == 3 else 1
@@ -967,9 +980,10 @@ def transport_steps(grid, physics, source_params, total_packets, tabs, intf,
         st.roi = torch.zeros(kit.roi_size + nlanes, dtype=torch.float32,
                              device=device)
         st.roi_spare = kit.roi_size + torch.arange(nlanes, device=device)
-    run = PoolRun(kit, st, gen, source_params, total_packets, births)
+    run = PoolRun(kit, st, gen, source_params, total_packets, births,
+                  inner=refill_period)
     body = 0
-    while True:
+    while body < max_iters:
         if body % CHECK_EVERY == 0 and body > 0:
             if not bool(run.more().item()):
                 break

@@ -8,12 +8,15 @@ spec: {"runs": [argv, ...]} runs each argv through soc_tpu_torch's CLI
 soc_tpu's variables in the environment; "threads" sets
 torch.set_num_threads (1 by default); "stop_after" k raises after the
 checkpoint's k-th record (a run stopped after its k-th unit); "owners"
-N reports the rank of each shard of a CPU `devices N` mesh. The
+N reports the rank of each shard of a CPU `devices N` mesh;
+"bench_scaling" {"lanes", "total"} runs soc_tpu_torch.bench's scaling
+section over the group's CPU shards and reports it with the process's
+bench directory. The
 process prints one line "RESULT <json>": its rank and process count, the
 A2E kernels' launches, per run the exit code, or the ValueError's words,
 and sha256 digests of the run's arrays (with the pipeline's largest
-energy imbalance a channel), and the foreign modules it loaded
-(soc_tpu, jax: none).
+energy imbalance a channel, and `sca`'s events), and the foreign
+modules it loaded (soc_tpu, jax: none).
 """
 
 import hashlib
@@ -47,6 +50,9 @@ def digests(verb, results):
                     emitted=digest(results["emitted"]),
                     map=digest(m.maps.get(0)), escaped=digest(a.escaped),
                     balance=float(abs(bal).max()))
+    if verb == "sca":
+        return dict(maps=digest(results["sca"]),
+                    events=sum(p["events"] for p in results["sca_passes"]))
     return {}
 
 
@@ -78,6 +84,14 @@ def main():
             continue
         out["runs"].append(dict(verb=argv[0], rc=rc,
                                 digests=digests(argv[0], results)))
+    if spec.get("bench_scaling"):
+        # soc_tpu_torch.bench's scaling section over the group's CPU shards
+        from soc_tpu_torch import bench
+        dist.maybe_initialize()
+        kw = spec["bench_scaling"]
+        out["bench_scaling"] = bench.bench_scaling(
+            kw["lanes"], kw["total"], device="cpu")
+        out["bench_dir"] = bench._workdir()
     if spec.get("owners"):
         # the ranks owning the shards of a CPU `devices N` mesh
         n = spec["owners"]

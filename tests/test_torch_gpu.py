@@ -1391,3 +1391,133 @@ def test_two_processes_on_one_card(cuda, tmp_path):
         np.testing.assert_allclose(got, want, rtol=1e-4,
                                    atol=1e-6 * np.abs(want).max())
     assert sorted(os.listdir(dirs[1])) == before
+
+
+def test_march_graph_form_equals_step_form(cuda, monkeypatch):
+    """march_path_lengths on the card: blocks of MARCH_BLOCK steps, a
+    block captured as one CUDA graph and replayed (the first block eager),
+    against the step-by-step form, bit for bit (the same kernels on the
+    same values, a ray that has left masked); through one PathMarch of
+    blocks of 4 steps twice, the second call only replaying its captured
+    graph."""
+    from soc_tpu_torch.ops import traverse
+    from soc_tpu_torch.transport.sources import background_entry
+    from soc_tpu_torch.utils import graphs
+    calls = []
+    real = graphs.GraphedBlock.__call__
+
+    def counted(self, *args):
+        calls.append(self.graph is not None)
+        return real(self, *args)
+    monkeypatch.setattr(graphs.GraphedBlock, "__call__", counted)
+    from soc_tpu_torch.example_model import octree_cloud
+    from soc_tpu_torch.grid import grid_from_arrays
+    lcells, values = octree_cloud(16, 4, 8)
+    grid = grid_from_arrays(16, 16, 16, lcells, values, cuda)
+    stream = torch.arange(1 << 14, device=cuda) * 7919
+    pos, d = background_entry(16, 16, 16, stream, 1, 99)
+    step = traverse.march_path_lengths(grid, pos, d, block=1)
+    torch.testing.assert_close(traverse.march_path_lengths(grid, pos, d),
+                               step, rtol=0, atol=0)
+    march = traverse.PathMarch(grid, 4)      # blocks of 4: many a march
+    del calls[:]
+    torch.testing.assert_close(march(pos, d), step, rtol=0, atol=0)
+    assert calls[:2] == [False, False] and len(calls) > 2 \
+        and all(calls[2:])                   # eager, capture, replays
+    del calls[:]
+    torch.testing.assert_close(march(pos, d), step, rtol=0, atol=0)
+    assert calls and all(calls)
+
+
+def test_max_iters_stops_on_card(cuda, monkeypatch):
+    """transport_run(max_iters=7) on the card: exactly 7 bodies (7 is not
+    a multiple of CHECK_EVERY), the march block of each through the
+    pool's GraphedBlock (propagate.PoolRun): the first eager, the second
+    captured, the third to the seventh graph replays."""
+    from soc_tpu_torch.grid import uniform_grid
+    from soc_tpu_torch.io.dust import hg_scattering_function
+    from soc_tpu_torch.transport import propagate
+    from soc_tpu_torch.utils import graphs
+    replays = []
+    real = graphs.GraphedBlock.__call__
+
+    def counted(self, *args):
+        replays.append(self.graph is not None)
+        return real(self, *args)
+    monkeypatch.setattr(graphs.GraphedBlock, "__call__", counted)
+    grid = uniform_grid(16, 16, 16, cuda)
+    _, csc = hg_scattering_function(np.linspace(0.0, 0.5, 4), 256)
+    phys = dict(kabs=torch.full((4,), 0.05, device=cuda),
+                ksca=torch.full((4,), 0.05, device=cuda),
+                tw=torch.ones(4, device=cuda),
+                csc=torch.as_tensor(csc, device=cuda))
+    params = dict(photons=torch.ones(4, device=cuda), per_freq=1 << 20,
+                  hi_base=0)
+    steps = propagate.transport_steps(
+        grid, phys, params, 4 << 20, torch.zeros(grid.cells, device=cuda),
+        torch.zeros((1, 1), device=cuda), 5, nlanes=1 << 12, max_iters=7,
+        refill_period=8)
+    bodies = sum(1 for _ in steps)
+    assert bodies == 7 and replays == [False, False] + [True] * 5
+
+
+def test_sca_devices_two_processes_on_one_card(cuda, tmp_path):
+    """chip_smoke.py phase 20 at a small size: `sca` with `devices 4` as
+    two processes on cuda:0 (two shards each: SOC_TPU_LOCAL_DEVICE_IDS
+    0,0), against one process's devices=[cuda:0] x 4: both processes
+    return the same maps (sha256), held to the one process's within
+    chip_smoke's rerun bound (1e-4 relative or 1e-6 of the maximum: the
+    peel-off's atomics add in another order on every run); process 1
+    writes no file."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    from soc_tpu_torch.pipeline import scattering
+    here = os.path.dirname(os.path.abspath(__file__))
+    kw = dict(nfreq=8, simum=(0.05, 3.0), extra="devices 4\n")
+    one = write_sca_model(str(tmp_path / "one"), 16, **kw)
+    want = scattering.run(one, device=cuda, lanes=1 << 14,
+                          devices=[cuda] * 4)
+    dirs = [tmp_path / "r0", tmp_path / "r1"]
+    for d in dirs:
+        write_sca_model(str(d), 16, **kw)
+    before = sorted(os.listdir(dirs[1]))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    for k, d in enumerate(dirs):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=os.environ.get(
+            "CUDA_VISIBLE_DEVICES", "0").split(",")[0],
+            PYTHONPATH=os.path.dirname(here),
+            SOC_TPU_COORDINATOR="127.0.0.1:%d" % port,
+            SOC_TPU_NUM_PROCESSES="2", SOC_TPU_PROCESS_ID=str(k),
+            SOC_TPU_LOCAL_DEVICE_IDS="0,0", SOC_TPU_DIST_TIMEOUT="120")
+        spec = dict(runs=[["sca", "run.ini", "--lanes", str(1 << 14)]])
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(here, "_torch_mp_worker.py"),
+             json.dumps(spec)], cwd=str(d), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    out = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=600)
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("RESULT ")]
+            assert p.returncode == 0 and line, stderr[-3000:]
+            out.append(json.loads(line[0][7:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert all(r["foreign"] == [] and r["size"] == 2 for r in out)
+    assert out[0]["runs"][0]["digests"] == out[1]["runs"][0]["digests"]
+    raw = np.fromfile(str(dirs[0] / "outcoming.socs"), np.float32)
+    got = raw[3 + 8:].reshape(want.shape)
+    assert np.isfinite(got).all() and want.max() > 0
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-6 * np.abs(want).max())
+    assert sorted(os.listdir(dirs[1])) == before

@@ -1,7 +1,7 @@
 """soc_tpu_torch's CLI verbs against soc_tpu's CLI on the same files:
 a2e_pre, dust, a2e (nstoch / IFREQ / aalg, and the streamed solve against
 the in-memory one), eqsolve, a2e_lib, mabu (ofreq, mapum, remit),
-sampleini, --profile and the refused `bench`. Inputs come from
+sampleini, --profile and the `bench` verb's dispatch. Inputs come from
 example_model and numpy seeds.
 
 Tolerances: a2e_pre, dust, eqsolve and sampleini are host NumPy copies
@@ -319,11 +319,26 @@ def test_profile_writes_a_trace(tmp_path, monkeypatch, solver_files):
     assert (tmp_path / "soc_profile" / "trace_sampleini.json").exists()
 
 
-def test_bench_refused_and_usage(capsys):
-    assert cli.main(["bench"]) == 2
-    assert "The `bench` verb for the port" in capsys.readouterr().err
+def test_bench_refused_and_usage(capsys, monkeypatch):
+    """The `bench` verb, once refused, dispatches to
+    soc_tpu_torch.bench.main (a stub here) with the --device given, its
+    result in results['bench']; the usage text lists it; a verb the CLI
+    does not know, or too few arguments, prints the usage and exits 1."""
+    from soc_tpu_torch import bench
+    calls = []
+
+    def stub(device=None):
+        calls.append(device)
+        return {"metric": "stub"}
+    monkeypatch.setattr(bench, "main", stub)
+    results = {}
+    assert cli.main(["bench", "--device", "cpu"], results) == 0
+    assert [str(d) for d in calls] == ["cpu"]
+    assert results["bench"] == {"metric": "stub"}
+    capsys.readouterr()
     for argv in ([], ["nosuchverb"], ["a2e", "x"], ["a2e_lib", "a", "b"]):
         assert cli.main(argv) == 1
+    assert "python -m soc_tpu_torch bench" in capsys.readouterr().out
 
 
 def test_cuda_verbs_need_a_card(tmp_path, monkeypatch):

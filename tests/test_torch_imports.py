@@ -66,5 +66,6 @@ print("\\n".join(sorted(sys.modules)))
     assert out.returncode == 0, out.stderr[-2000:]
     loaded = out.stdout.split()
     assert "soc_tpu_torch.parallel.product" in loaded
+    assert "soc_tpu_torch.bench" in loaded
     bad = [m for m in loaded if _foreign(m)]
     assert not bad, bad

@@ -277,20 +277,25 @@ def test_pipeline_over_two_processes_equals_one_process(tmp_path,
 
 def test_domains_and_sca_devices_are_refused(tmp_path):
     """Over two processes `domains` raises (soc_tpu's Z-slab path fails
-    there on a tally it cannot fetch) and so does `sca` with `devices`
-    (soc_tpu runs it; not ported yet): neither runs per process. A host
-    verb runs on process 0, and both return its exit code."""
+    there on a tally it cannot fetch); `sca` with `devices` was refused
+    too before it ran over processes, and now runs: both processes return
+    its maps (tests/test_torch_sca_processes.py holds them to one process
+    and to soc_tpu). A host verb runs on process 0, and both return its
+    exit code."""
     dom = write_model(str(tmp_path / "dom"), 8, kind="eqdust", nfreq=4,
                       bgpac=3072, extra="domains 2\n")
     sca = write_sca_model(str(tmp_path / "sca"), 8, nfreq=4,
                           extra="devices 2\n")
     specs = [dict(runs=[["rt", dom, "--device", "cpu"],
-                        ["sca", sca, "--device", "cpu"],
+                        ["sca", sca, "--device", "cpu", "--lanes", LANES],
                         ["sampleini", "sample.ini"]])] * 2
+    maps = set()
     for rc, res, err in spawn(specs, [tmp_path] * 2, nproc=2):
         assert rc == 0 and res is not None, err[-2000:]
-        dom_err, sca_err = (r["error"] for r in res["runs"][:2])
+        dom_err = res["runs"][0]["error"]
         assert "domains 2" in dom_err and "2 processes" in dom_err
-        assert "sca: devices 2 over 2 processes" in sca_err
+        assert res["runs"][1]["rc"] == 0, res["runs"][1]
+        maps.add(res["runs"][1]["digests"]["maps"])
         assert res["runs"][2]["rc"] == 0
+    assert len(maps) == 1
     assert os.path.exists(tmp_path / "sample.ini")

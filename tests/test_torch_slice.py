@@ -91,13 +91,22 @@ def test_pipeline_matches_soc_tpu(tmp_path, monkeypatch):
     assert rm.maps[0].shape == (16, 6, 6)
 
 
-def test_cli_rt_on_cpu_and_verbs(tmp_path, capsys):
+def test_cli_rt_on_cpu_and_verbs(tmp_path, capsys, monkeypatch):
+    """`rt` through the CLI on the CPU; the host verbs given too few
+    arguments fail; `bench` (refused before it was ported) reaches
+    soc_tpu_torch.bench.main, a stub here."""
+    from soc_tpu_torch import bench
     ini = write_model(str(tmp_path), 6, kind="eqdust", nfreq=8)
     assert cli.main(["rt", ini, "--device", "cpu", "--lanes", "2048"]) == 0
     assert "soc_tpu_torch rt done" in capsys.readouterr().out
     assert (tmp_path / "tmp.T").exists()
-    for verb in ("eqsolve", "a2e", "mabu", "dust", "bench"):
+    for verb in ("eqsolve", "a2e", "mabu", "dust"):
         assert cli.main([verb, ini]) != 0
+    calls = []
+    monkeypatch.setattr(bench, "main",
+                        lambda device=None: calls.append(str(device)))
+    assert cli.main(["bench", "--device", "cpu"]) == 0
+    assert calls == ["cpu"]
     assert cli.main([]) != 0
 
 

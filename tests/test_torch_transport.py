@@ -298,3 +298,54 @@ def test_profile_busy_seconds_is_interval_union():
     assert n == 4
     assert busy == pytest.approx(30e-6)
     assert busy_seconds([ev("CPU", 0, 1)]) == (None, 0)
+
+
+@pytest.mark.parametrize("grid", ["uniform", "octree"])
+@pytest.mark.parametrize("refill", [8, 16])
+def test_transport_run_max_iters_matches(setup, grid, refill):
+    """soc_tpu's max_iters and refill_period: 7 refill bodies (not a
+    multiple of CHECK_EVERY) of ``refill`` march steps on a budget they
+    cannot drain, port against soc_tpu at test_transport_run_totals_match's
+    tolerances (a diverged packet moves at most its own weight); the port
+    runs exactly 7 bodies (one yield of transport_steps each), and the
+    packets still in flight keep the run short of the drained one."""
+    iters, total, lanes = 7, 6 * 2400, 1024
+    assert iters % tprop.CHECK_EVERY
+    jg, tg = setup["grids"][grid]
+    jp, tp = _params(setup, total // NFREQ)
+    jt, ji, je, ja = jprop.transport_run(
+        jg, setup["jphys"], jp, jnp.int32(total),
+        jnp.zeros(jg.cells, jnp.float32),
+        jnp.zeros((jg.cells, NFREQ), jnp.float32), np.uint32(SEED),
+        source_kind="bg", nlanes=lanes, per_freq_tally=True,
+        esc_bins=NFREQ, max_iters=iters, refill_period=refill)
+    steps = tprop.transport_steps(
+        tg, setup["tphys"], tp, total, torch.zeros(tg.cells),
+        torch.zeros((tg.cells, NFREQ)), SEED, source_kind="bg",
+        nlanes=lanes, per_freq_tally=True, max_iters=iters,
+        refill_period=refill)
+    bodies = 0
+    while True:
+        try:
+            next(steps)
+            bodies += 1
+        except StopIteration as stop:
+            tt, ti, te, ta = stop.value
+            break
+    assert bodies == iters
+    ti, te, ji, je = ti.numpy(), te.numpy(), np.asarray(ji), np.asarray(je)
+    np.testing.assert_allclose(ti.sum(0), ji.sum(0), rtol=2e-3)
+    np.testing.assert_allclose(te, je, rtol=2e-3)
+    assert abs(float(ta) - float(ja)) / float(ja) < 2e-3
+    np.testing.assert_allclose(tt.sum().item(), float(jt.sum()), rtol=2e-3)
+    close = np.isclose(ti, ji, rtol=1e-4, atol=1e-6 * ji.max())
+    assert close.mean() > 0.9
+    full = _run_torch(setup, total, lanes, grid)
+    assert float(ta) < 0.9 * full[3]
+    # the keyword's run equals the generator's bit for bit
+    again = tprop.transport_run(
+        tg, setup["tphys"], tp, total, torch.zeros(tg.cells),
+        torch.zeros((tg.cells, NFREQ)), SEED, source_kind="bg",
+        nlanes=lanes, per_freq_tally=True, max_iters=iters,
+        refill_period=refill)
+    np.testing.assert_array_equal(again[1].numpy(), ti)

@@ -139,3 +139,29 @@ def test_march_path_lengths_matches(grid, kind):
     edge = float(tg.nx)
     t = np.where(d > 0, (edge - pos) / d, -pos / d).min(1)
     np.testing.assert_allclose(got.numpy(), t, rtol=0, atol=0.03)
+
+
+@pytest.mark.parametrize("grid", ["regular", "octree"])
+@pytest.mark.parametrize("kind", ["random", "axis"])
+@pytest.mark.parametrize("cut", [None, 7])
+def test_march_block_form_equals_step_form(grid, kind, cut):
+    """march_path_lengths in blocks of 5 and of MARCH_BLOCK steps (a
+    readback a block) against the step-by-step form (block=1): bit for
+    bit, a ray that has left being masked in every step; with max_steps
+    cut to 7 (not a multiple of either block) too. Each form holds to
+    soc_tpu's march with the same max_steps at the bound above."""
+    jg, tg = grids(grid)
+    pos, d = rays(kind, 128, tg.nx)
+    steps = max_steps(tg) if cut is None else cut
+    tp, td = torch.as_tensor(pos), torch.as_tensor(d)
+    step = ttr.march_path_lengths(tg, tp, td, max_steps=steps, block=1)
+    want = np.asarray(jmarch(jg, jnp.asarray(pos), jnp.asarray(d),
+                             max_steps=steps))
+    for block in (5, ttr.MARCH_BLOCK):
+        got = ttr.march_path_lengths(tg, tp, td, max_steps=steps,
+                                     block=block)
+        np.testing.assert_array_equal(got.numpy(), step.numpy())
+    np.testing.assert_allclose(step.numpy(), want,
+                               rtol=max_steps(tg) * ULP, atol=0)
+    assert "blocks of 32" in ttr.march_form("cpu")
+    assert "step by step" in ttr.march_form("cpu", 1)
