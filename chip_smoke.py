@@ -149,7 +149,7 @@ Phases (any failure exits non-zero before the final line):
      variance at these packets), their mean |relative difference| within
      2e-2, each level's signed mean within 1e-3, 3e-3 and 3e-2 (levels
      0-2), each lit channel's absorption over the leaf cells within 1%
-     (bounds from profile_phase13's seed-to-seed readings); (c2) `rt`
+     (bounds from seed-to-seed readings on an H100); (c2) `rt`
      with `mirror xyz` (the three low faces, an octant of a symmetric
      cloud) at a quarter of `bgpackets` (one batch of the background, a
      fifth of (a)'s packets; cut with 12 (b) and (c) to keep the smoke
@@ -436,7 +436,7 @@ EMWEI_PACKETS = CELLPACKETS // 4   # phase 10 (c): a quarter of them
 # (tests/test_iterations.py, on every cell of an 8^3 model), on all but
 # ITER_SHARE of the leaf cells and ITER_MAX on every one: at 2 packets a
 # cell the coldest, densest cells (3.1-3.6 K on level 2) scatter by up to
-# 2.5% between two iterations of one plain run (profile_phase2 on an H100)
+# 2.5% between two iterations of one plain run (on an H100)
 ITER_RTOL, ITER_SHARE, ITER_MAX = 0.02, 1e-4, 0.05
 SPLIT = 4               # phase 12: `split 4`: at most 15 clones a packet
 PSPACKETS = 50000       # phase 12 (a): packets a point source and channel
@@ -454,8 +454,8 @@ ROI_NSIDE = 8           # cells, clear of the refined block and the faces
 ROI_PACKETS = 589824    # phase 13 (b): 4 a (element, pixel) pair a channel
 ROI_RTOL = 0.1          # (b) in-box absorption, soc_tpu's tests/test_roi.py
 MMAP_BLOCK = 11         # phase 13 (a): channels a device block of mmapabs
-# phase 13 (c1) against (a), each bound set from the readings of
-# `python -m soc_tpu_torch.profile_phase13` on an H100 (PERF.md, PR 9):
+# phase 13 (c1) against (a), each bound set from seed-to-seed readings
+# of weight_readings on an H100 (PERF.md):
 # soc_tpu's 5% (tests/test_ini_wiring.py) on all but WEIGHT_SHARE of the
 # leaf cells (the pair reads 1.3e-3, (c1) at another seed against (a)
 # 3.2e-3); the leaf cells' mean |relative T difference| (8.8e-3; 1.4e-2
@@ -493,7 +493,7 @@ A2E_BEYOND = ((44, 1856), (1088, 256))   # (e): (NFREQ, NE), beyond both
 # nothing in one (which floors that library axis at log10 1e-33), and the
 # two dusts' abundances vary cell to cell. On an H100 the library reads a
 # median of 0.1703, the NN 0.1767-0.1785 with three or four nnabs
-# channels (`python -m soc_tpu_torch.profile_surrogates`, PERF.md, PR 12):
+# channels (PERF.md):
 # each median bound is that reading with soc_tpu's ~50% headroom.
 # NN_EMIT_CHANNELS: the FIR channels of nnemit
 LIB_MEDIAN, LIB_P90 = 0.25, 0.7
@@ -1715,6 +1715,27 @@ def sources_phase(dev, work, args, report, plain_bg):
     report["sources_abu"] = dict(optishalf_rel=trel)
 
 
+def weight_readings(t, ref, absorbed, absorbed_ref, leaf, lev, lit,
+                    rtol=0.05):
+    """Phase 13 (c1)'s readings of a run (temperatures t, absorbed file)
+    against a reference run: dict of the largest |relative difference| of
+    a lit channel's absorption over the leaf cells (``channel``), the leaf
+    cells' mean |relative temperature difference| (``mean_abs``), the
+    largest |signed mean| of one level's leaf cells (``level_mean``, with
+    each level's in ``levels``) and the share of leaf cells beyond rtol
+    (``beyond``)."""
+    rel = (np.asarray(t, np.float64) / ref - 1.0)
+    wa = np.asarray(absorbed, np.float64)[leaf].sum(0)
+    aa = np.asarray(absorbed_ref, np.float64)[leaf].sum(0)
+    levels = [float(rel[leaf & (lev == k)].mean())
+              for k in range(int(lev.max()) + 1) if (leaf & (lev == k)).any()]
+    r = rel[leaf]
+    return dict(channel=float(np.abs(wa[lit] / aa[lit] - 1.0).max()),
+                mean_abs=float(np.abs(r).mean()),
+                level_mean=float(np.abs(levels).max()), levels=levels,
+                beyond=float((np.abs(r) > rtol).mean()))
+
+
 def _variant(ini, name, subs=(), add=""):
     """A second ini beside ``ini`` (the same model files), named name.ini,
     with the (old, new) line substitutions ``subs`` and the lines ``add``;
@@ -1775,7 +1796,6 @@ def slice_phase(dev, work, args, report, plain_bg=None):
                                              write_point_sources)
     from soc_tpu_torch.io.fits import read_fits_image
     from soc_tpu_torch.pipeline import driver
-    from soc_tpu_torch.profile_phase13 import weight_readings
     from soc_tpu_torch.solve import equilibrium
     from soc_tpu_torch.transport.roi import read_roi_file, roi_cell_mask
     card = report["card"]

@@ -38,6 +38,8 @@ Options, anywhere on the line:
                 and CUDA with a CUDA device), its Chrome trace written to
                 DIR/trace_<verb>.json (default DIR: soc_profile; under
                 several processes DIR/trace_<verb>.rank<k>.json)
+                and the program's spans and counters to
+                DIR/spans_<verb>[.rank<k>].json
 
 The ini keyword `devices N` runs the product path (for `sca`, each
 source's packets split) over N devices (cuda:0 .. cuda:N-1, or the CPU N
@@ -154,24 +156,34 @@ def _run(opts, verb, args, device, results):
 
 
 def _profiled(out_dir, verb, args, device, lanes, results):
-    """The verb under torch.profiler, its Chrome trace written to
-    out_dir/trace_<verb>.json (a process of several: trace_<verb>.rank<k>
-    .json, so processes in one directory keep their own)."""
+    """The verb under torch.profiler and the program's tracer
+    (utils/trace.py), its Chrome trace written to
+    out_dir/trace_<verb>.json and its spans and counters to
+    out_dir/spans_<verb>.json (a process of several: <verb>.rank<k>, so
+    processes in one directory keep their own)."""
+    import json
     import torch
     from torch.profiler import ProfilerActivity, profile
     from .parallel import dist
+    from .utils import trace
     acts = [ProfilerActivity.CPU]
     if device is not None and device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        rc = _dispatch(verb, args, device, lanes, results)
-        if device is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
+        trace.start()
+        try:
+            rc = _dispatch(verb, args, device, lanes, results)
+            if device is not None and device.type == "cuda":
+                torch.cuda.synchronize(device)
+        finally:
+            records = trace.stop()
     os.makedirs(out_dir, exist_ok=True)
     tag = verb if dist.process_count() == 1 \
         else "%s.rank%d" % (verb, dist.process_index())
     path = os.path.join(out_dir, "trace_%s.json" % tag)
     prof.export_chrome_trace(path)
+    with open(os.path.join(out_dir, "spans_%s.json" % tag), "w") as fp:
+        json.dump(records, fp)
     print("soc_tpu_torch: profile written to %s" % path)
     return rc
 

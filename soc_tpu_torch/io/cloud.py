@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..grid import decode_link_np, grid_from_arrays
+from ..utils import trace
 
 
 def read_hierarchy(path):
@@ -77,11 +78,15 @@ def read_cloud(path, device, kdensity=1.0, max_levels=999):
 
 
 def write_cell_field(path, grid, values):
-    """Write per-cell values (e.g. temperature) in the cloud container."""
-    lcells = grid.lcells.cpu().numpy()
-    off = grid.off.cpu().numpy()
-    if isinstance(values, torch.Tensor):
-        values = values.cpu().numpy()
-    values = np.asarray(values, np.float32)
-    per_level = [values[off[l]: off[l] + lcells[l]] for l in range(grid.levels)]
-    write_hierarchy(path, grid.nx, grid.ny, grid.nz, lcells, per_level)
+    """Write per-cell values (e.g. temperature) in the cloud container
+    (the span `io.write`)."""
+    with trace.span("io.write") as sp:
+        lcells = grid.lcells.cpu().numpy()
+        off = grid.off.cpu().numpy()
+        if isinstance(values, torch.Tensor):
+            values = values.cpu().numpy()
+        values = np.asarray(values, np.float32)
+        per_level = [values[off[l]: off[l] + lcells[l]]
+                     for l in range(grid.levels)]
+        write_hierarchy(path, grid.nx, grid.ny, grid.nz, lcells, per_level)
+        sp.set(bytes=20 + 4 * grid.levels + values.nbytes)

@@ -1,7 +1,7 @@
 """Codecs for per-cell field files and map files.
 
-The port's own copy of ``soc_tpu.io.fields``, the same code: the port
-imports nothing of soc_tpu.
+The port's own copy of ``soc_tpu.io.fields``, the same code but for the
+spans: the port imports nothing of soc_tpu.
 
 absorbed.data / emitted.data (ASOC.py:619-638, 3972-3977): int32 header
 [CELLS, NFREQ] followed by float32 [CELLS, NFREQ].
@@ -11,9 +11,13 @@ header followed by float32 [NFREQ, NY, NX] surface brightness in Jy/sr.
 
 background intensity: bare float32 [NFREQ] (ASOC_aux.py:1081).
 point-source luminosities: float32 [NFREQ] per source file (ASOC_aux.py:1107).
+
+Each write is the span `io.write` (utils/trace.py), attr ``bytes``.
 """
 
 import numpy as np
+
+from ..utils import trace
 
 
 def read_cell_frequency_array(path):
@@ -26,7 +30,8 @@ def read_cell_frequency_array(path):
 
 def write_cell_frequency_array(path, data):
     data = np.asarray(data, np.float32)
-    with open(path, "wb") as fp:
+    with trace.span("io.write", bytes=8 + data.nbytes), \
+            open(path, "wb") as fp:
         np.asarray(data.shape, np.int32).tofile(fp)
         data.tofile(fp)
 
@@ -44,7 +49,8 @@ def write_map_file(path, maps):
     if maps.ndim == 2:
         maps = maps[None]
     nf, ny, nx = maps.shape
-    with open(path, "wb") as fp:
+    with trace.span("io.write", bytes=8 + maps.nbytes), \
+            open(path, "wb") as fp:
         np.asarray([nx, ny], np.int32).tofile(fp)
         maps.tofile(fp)
 

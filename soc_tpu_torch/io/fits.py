@@ -11,6 +11,8 @@ packages write the same bytes.
 
 import numpy as np
 
+from ..utils import trace
+
 
 def _card(key, value, comment=""):
     if isinstance(value, bool):
@@ -61,7 +63,8 @@ def write_fits_image(path, data, ra_deg=0.0, de_deg=0.0, pix_deg=None,
     header += " " * ((2880 - len(header) % 2880) % 2880)
     payload = (data[0] if nf == 1 else data).astype(">f4").tobytes()
     payload += b"\0" * ((2880 - len(payload) % 2880) % 2880)
-    with open(path, "wb") as fp:
+    with trace.span("io.write", bytes=len(header) + len(payload)), \
+            open(path, "wb") as fp:
         fp.write(header.encode("ascii"))
         fp.write(payload)
 

@@ -213,7 +213,7 @@ class PathMarch:
                 for _ in range(block):
                     state = _march_step(grid, dir, *state)
                 return state
-            self.blocks[key] = GraphedBlock(steps, dir.device)
+            self.blocks[key] = GraphedBlock(steps, dir.device, kind="path")
         return self.blocks[key]
 
 

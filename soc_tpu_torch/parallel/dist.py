@@ -34,12 +34,22 @@ rank that dies ends the others' collectives with an error at once; one
 that hangs ends them after the group's timeout, SOC_TPU_DIST_TIMEOUT
 seconds (a deployment setting: the slowest rank's longest pass must fit
 in it while the others wait). Nothing retries or falls back.
+
+Each collective is the span `dist.<op>` of utils/trace.py, with the
+rank's collective count since tracing began (``seq``) and the bytes of
+its payload's tensors and arrays (``bytes``): a rank arrives at a
+collective where its span starts. post() and fetch() reach the group's
+key-value store, which waits on no other rank.
 """
 
 import datetime
 import os
+import pickle
 
+import numpy as np
 import torch
+
+from ..utils import trace
 
 _state = dict(group=False, rank=0, size=1, table=None)
 TIMEOUT_S = 1800.0      # SOC_TPU_DIST_TIMEOUT's default
@@ -151,10 +161,33 @@ def global_devices(device, n=None):
 
 
 # ---- collectives (every rank calls each one, in the same order)
+def _nbytes(obj):
+    """Bytes of the tensors and arrays in ``obj``, walked through lists,
+    tuples and dicts (nothing is pickled to count them)."""
+    if torch.is_tensor(obj):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, np.ndarray):
+        return obj.nbytes
+    if isinstance(obj, (list, tuple)):
+        return sum(_nbytes(v) for v in obj)
+    if isinstance(obj, dict):
+        return sum(_nbytes(v) for v in obj.values())
+    return 0
+
+
+def _span(op, payload=None):
+    """The collective's span; its attrs only while tracing."""
+    if not trace.enabled():
+        return trace.span("dist." + op)
+    return trace.span("dist." + op, seq=trace.count("dist.collectives"),
+                      bytes=_nbytes(payload))
+
+
 def barrier():
     import torch.distributed as tdist
     if process_count() > 1:
-        tdist.barrier()
+        with _span("barrier"):
+            tdist.barrier()
 
 
 def first(fn, *args, **kw):
@@ -174,16 +207,20 @@ def first(fn, *args, **kw):
 def gather_objects(obj):
     """[every rank's obj] in rank order (picklable host objects)."""
     import torch.distributed as tdist
-    out = [None] * process_count()
-    tdist.all_gather_object(out, obj)
+    with _span("gather_objects", obj):
+        out = [None] * process_count()
+        tdist.all_gather_object(out, obj)
     return out
 
 
 def share(obj, src=0):
     """Rank ``src``'s obj on every rank."""
     import torch.distributed as tdist
-    box = [obj]
-    tdist.broadcast_object_list(box, src=src)
+    with _span("share") as sp:
+        box = [obj]
+        tdist.broadcast_object_list(box, src=src)
+        if sp:
+            sp.set(bytes=_nbytes(box[0]))
     return box[0]
 
 
@@ -191,12 +228,17 @@ def broadcast(t, src, shape, dtype):
     """Rank ``src``'s tensor ``t`` (any device) on every rank: ``t`` itself
     on ``src``, a host copy elsewhere (the others pass None)."""
     import torch.distributed as tdist
-    if process_index() == src:
-        tdist.broadcast(t.detach().to("cpu").contiguous(), src=src)
-        return t
-    buf = torch.empty(tuple(shape), dtype=dtype)
-    tdist.broadcast(buf, src=src)
-    return buf
+    with _span("broadcast") as sp:
+        if process_index() == src:
+            host_t = t.detach().to("cpu").contiguous()
+            tdist.broadcast(host_t, src=src)
+            out = t
+        else:
+            host_t = out = torch.empty(tuple(shape), dtype=dtype)
+            tdist.broadcast(out, src=src)
+        if sp:
+            sp.set(bytes=_nbytes(host_t))
+    return out
 
 
 def move(t, src, dst, shape, dtype):
@@ -206,13 +248,45 @@ def move(t, src, dst, shape, dtype):
     me = process_index()
     if src == dst:
         return t if me == src else None
-    if me == src:
-        tdist.send(t.detach().to("cpu").contiguous(), dst=dst)
-    elif me == dst:
-        buf = torch.empty(tuple(shape), dtype=dtype)
-        tdist.recv(buf, src=src)
-        return buf
-    return None
+    with _span("move") as sp:
+        out = None
+        if me == src:
+            host_t = t.detach().to("cpu").contiguous()
+            tdist.send(host_t, dst=dst)
+            if sp:
+                sp.set(bytes=_nbytes(host_t))
+        elif me == dst:
+            out = torch.empty(tuple(shape), dtype=dtype)
+            tdist.recv(out, src=src)
+            if sp:
+                sp.set(bytes=_nbytes(out))
+    return out
+
+
+def _store():
+    """The process group's key-value store, or None."""
+    from torch.distributed import distributed_c10d
+    try:
+        return distributed_c10d._get_default_store()
+    except (AttributeError, RuntimeError, ValueError):
+        return None
+
+
+def post(key, obj):
+    """Put ``obj`` (picklable) under ``key`` in the group's store; waits
+    on no other rank."""
+    store = _store()
+    if store is not None:
+        store.set(key, pickle.dumps(obj))
+
+
+def fetch(key):
+    """What a rank posted under ``key``, or None where nothing is there
+    yet (never waits)."""
+    store = _store()
+    if store is None or not store.check([key]):
+        return None
+    return pickle.loads(store.get(key))
 
 
 def host(value):

@@ -86,6 +86,7 @@ from ..transport import sources
 from ..transport.roi import (read_roi_file, roi_cell_mask, roi_nelem,
                              write_roi_file)
 from ..transport.sources import stream_hi_base
+from ..utils import trace
 
 # lanes of the packet pool: eager sweeps cost the same number of launches
 # at any width, so a wider pool is cheaper per packet until the drain tail
@@ -170,8 +171,9 @@ def run(ini_path=None, cfg=None, device=None, lanes=DEFAULT_LANES,
     orig = os.getcwd()
     os.chdir(workdir)
     try:
-        return _run_inner(cfg, device, lanes, write_files, t_start,
-                          devices, domains, emitted)
+        with trace.run("driver.run"):
+            return _run_inner(cfg, device, lanes, write_files, t_start,
+                              devices, domains, emitted)
     finally:
         os.chdir(orig)
 
@@ -380,8 +382,9 @@ def _scale_absorbed(grid, tally, gl_cm, nnn_limit=0.0, block=1 << 20):
 def _write_emitted_file(cfg, freq, emitted):
     """emitted.data with the reference ABI: only the REMIT-band columns."""
     mask = remit_mask_of(cfg, freq)
-    write_cell_frequency_array(cfg.file_emitted,
-                               np.asarray(emitted)[:, mask])
+    with trace.span("io.write"):
+        write_cell_frequency_array(cfg.file_emitted,
+                                   np.asarray(emitted)[:, mask])
 
 
 def _physics(medium, physics_extra=None):
@@ -419,8 +422,25 @@ def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
     and its absorbed energy (the sum and the per-cell TABS it added, a
     host array, the pass's own: exact whatever tabs held before);
     ``restored`` when a unit came from the checkpoint."""
+    timing = {}
+    with trace.span("transport.pass", into=timing, key="seconds",
+                    source=phase) as sp:
+        tabs, intf, stats = _source_pass_run(
+            grid, medium, kind, phase, params, counts, sel, tabs, intf, seed,
+            lanes, per_freq_tally, physics_extra, split_max, mirror_mask,
+            roi, pmesh, ckpt)
+        sp.set(packets=stats["packets"])
+    if stats["pools"]:
+        stats["seconds"] = timing["seconds"]
+    return tabs, intf, stats
+
+
+def _source_pass_run(grid, medium, kind, phase, params, counts, sel, tabs,
+                     intf, seed, lanes, per_freq_tally, physics_extra,
+                     split_max, mirror_mask, roi, pmesh, ckpt):
+    """_source_pass's work; its caller times it (the span
+    `transport.pass`, whose end is the pass's ``seconds``)."""
     from ..parallel import product
-    t0 = time.time()
     nfreq = medium.nfreq
     mesh = _tally_mesh(pmesh)
     sel = np.asarray(sel, np.int64)
@@ -481,7 +501,7 @@ def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
         stats.update(vec)
         return tabs, intf, stats
     stats.update(absorbed_energy=float(own.sum(dtype=torch.float64)),
-                 tabs=own.cpu().numpy(), seconds=time.time() - t0, **vec)
+                 tabs=own.cpu().numpy(), **vec)
     return tabs, intf, stats
 
 
@@ -940,8 +960,23 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
     escaped and, with per-frequency tallies, absorbed; over Z-slabs the
     slab count and domain.run_freqs's 'domain' numbers.
     """
+    timing = {}
+    with trace.span("transport.pass", into=timing, key="seconds",
+                    source="cell") as sp:
+        out = _cell_emission_run(grid, medium, cfg, emitted, tabs, intf,
+                                 seed, lanes, per_freq_tally, iteration,
+                                 physics_extra, pmesh, ckpt)
+        sp.set(packets=out[4]["packets"])
+    out[4]["seconds"] = timing["seconds"]
+    return out
+
+
+def _cell_emission_run(grid, medium, cfg, emitted, tabs, intf, seed, lanes,
+                       per_freq_tally, iteration, physics_extra, pmesh,
+                       ckpt):
+    """simulate_cell_emission's work; its caller times it (the span
+    `transport.pass`, whose end is the pass's ``seconds``)."""
     from ..parallel import product
-    t0 = time.time()
     device = grid.device
     nfreq = medium.nfreq
     mesh = _tally_mesh(pmesh)
@@ -1019,7 +1054,6 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
                  slabs=getattr(pmesh, "n_slabs", 0))
     if dstats is not None:
         stats["domain"] = dstats
-    stats["seconds"] = time.time() - t0
     return tabs, intf, escaped, xab, stats
 
 
@@ -1171,31 +1205,31 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices, domains,
     timings = res.timings
 
     # ---- model input
-    t0 = time.time()
-    grid = read_cloud(cfg.file_cloud, device, cfg.kdensity, cfg.max_levels)
-    optics = [read_simple_dust(f, cfg.gl) for f in cfg.file_optical]
-    freq = optics[0].freq
-    cfg.freq = freq
-    cfg.nfreq = len(freq)
-    nfreq = len(freq)
-    bins = cfg.dsc_bins if cfg.dsc_bins > 0 else 2500
-    abu = read_abundances(cfg, grid.cells, len(optics))
-    # MSF takes one scattering function a dust; otherwise only the first
-    # file is read
-    scafuncs = [read_scattering_function(f, nfreq, bins)
-                for f in (cfg.file_scafunc if abu is not None
-                          else cfg.file_scafunc[:1])]
-    dsc, csc = scafuncs[0]
-    medium = medium_from_optics(optics, dsc, csc, device, freq)
-    pmesh = _product_setup(cfg, nfreq, device, devices)
-    physics_extra = {**(abundance_physics(cfg, optics, scafuncs, abu,
-                                          device) or {}),
-                     **weighting_physics(cfg, medium, abu)} or None
-    res.grid, res.medium, res.freq = grid, medium, freq
-    res.devices = None if pmesh is None else pmesh.devices
-    seed = res.seed = int(np.uint32(max(0.0, cfg.seed) * 2**31)
-                          + np.uint32(12345))
-    timings["input"] = time.time() - t0
+    with trace.span("driver.input", into=timings, key="input"):
+        grid = read_cloud(cfg.file_cloud, device, cfg.kdensity,
+                          cfg.max_levels)
+        optics = [read_simple_dust(f, cfg.gl) for f in cfg.file_optical]
+        freq = optics[0].freq
+        cfg.freq = freq
+        cfg.nfreq = len(freq)
+        nfreq = len(freq)
+        bins = cfg.dsc_bins if cfg.dsc_bins > 0 else 2500
+        abu = read_abundances(cfg, grid.cells, len(optics))
+        # MSF takes one scattering function a dust; otherwise only the first
+        # file is read
+        scafuncs = [read_scattering_function(f, nfreq, bins)
+                    for f in (cfg.file_scafunc if abu is not None
+                              else cfg.file_scafunc[:1])]
+        dsc, csc = scafuncs[0]
+        medium = medium_from_optics(optics, dsc, csc, device, freq)
+        pmesh = _product_setup(cfg, nfreq, device, devices)
+        physics_extra = {**(abundance_physics(cfg, optics, scafuncs, abu,
+                                              device) or {}),
+                         **weighting_physics(cfg, medium, abu)} or None
+        res.grid, res.medium, res.freq = grid, medium, freq
+        res.devices = None if pmesh is None else pmesh.devices
+        seed = res.seed = int(np.uint32(max(0.0, cfg.seed) * 2**31)
+                              + np.uint32(12345))
     gl_cm = cfg.gl * PARSEC
     if write_files:
         np.asarray([cfg.bgpac, cfg.pspac, cfg.dfpac, cfg.clpac],
@@ -1251,198 +1285,215 @@ def _run_inner(cfg, device, lanes, write_files, t_start, devices, domains,
         return res
 
     # ---- phase 1: the constant sources
-    t0 = time.time()
-    dset = _domain_setup(cfg, grid, device, domains)
-    res.domains = None if dset is None else dset.devices
-    per_freq_tally = (not cfg.noabsorbed) or cfg.save_intensity > 0
-    tabs = torch.zeros(grid.cells, dtype=torch.float32, device=device)
-    host = _host_tally(cfg, grid, nfreq, device, pmesh, dset) \
-        if per_freq_tally else None
-    if pmesh is not None and per_freq_tally:
-        # dp-partial per-frequency slabs, one per shard on its device
-        # (under `mmapabs` too: the slabs take the host tally's place)
-        intf = pmesh.zeros_intf(grid.cells,
-                                4 if cfg.save_intensity == 2 else 0)
-    elif host is not None:
-        intf = host
-    else:
-        shape = (1, 1)
-        if cfg.save_intensity == 2:
-            shape = (grid.cells, nfreq, 4)      # (I, Ix, Iy, Iz)
-        elif per_freq_tally:
-            shape = (grid.cells, nfreq)
-        intf = torch.zeros(shape, dtype=torch.float32, device=device)
-    # `simum`: only the channels inside the band are simulated; `libabs`:
-    # of those only the FSELECT reference frequencies (ASOC.py:63-65,
-    # 1126-1131)
-    sim = (freq >= cfg.sim_f[0]) & (freq <= cfg.sim_f[1])
-    if cfg.lib_abs and cfg.fselect:
-        sim &= nearest_freq_mask(freq, cfg.fselect)
-    sel = np.nonzero(sim)[0]
-    escaped = np.zeros(nfreq)
-    injected = np.zeros(nfreq)
-    packets = 0
-    roi = roi_save_setup(cfg, grid, nfreq)
-    ckpt = None
-    if cfg.file_checkpoint:
-        ckpt = _checkpoint_setup(cfg, nfreq, pmesh, host)
-        tabs, intf = _restore(ckpt, tabs, intf, roi, pmesh)
-    res.checkpoint = ckpt
-    kw = dict(sel=sel, physics_extra=physics_extra,
-              passes=res.source_passes, roi=roi, pmesh=dset or pmesh,
-              ckpt=ckpt)
-    split_max = split_max_of(cfg, grid)
-    if cfg.file_constant_load:
-        # CLOAD: the constant sources are not simulated; their integrated
-        # heating comes from a previous run's csave file (ASOC.py:1013-1020)
-        tabs = torch.as_tensor(np.fromfile(cfg.file_constant_load,
-                                           np.float32, grid.cells),
-                               device=device)
-    else:
-        if cfg.bgpac > 0 and cfg.file_background:
-            ibg = read_background_intensity(cfg.file_background, nfreq)
-            ibg = ibg * cfg.scale_background
-            tabs, intf, esc, inj, packets = simulate_background(
-                grid, medium, cfg, ibg, tabs, intf, seed, lanes,
-                per_freq_tally, split_max=split_max, **kw)
-            escaped += esc
-            injected += inj
-        if cfg.bgpac > 0 and cfg.file_hpbg:
-            hpbg = np.fromfile(cfg.file_hpbg, np.float32).reshape(nfreq, -1)
-            hpbg = hpbg * cfg.scale_background
-            tabs, intf, esc, inj = simulate_hpbg(
-                grid, medium, cfg, hpbg, tabs, intf, seed + 3, lanes,
-                per_freq_tally, cfg.has_key("hpbgw"), split_max=split_max,
-                **kw)
-            escaped += esc
-            injected += inj
-        if cfg.no_ps > 0 and cfg.pspac > 0:
-            lps = np.zeros((cfg.no_ps, nfreq), np.float32)
-            for i, f in enumerate(cfg.file_pointsource):
-                lps[i] = np.fromfile(f, np.float32, nfreq) * cfg.ps_scale[i]
-            tabs, intf, esc, inj = simulate_point_sources(
-                grid, medium, cfg, lps, tabs, intf, seed, lanes,
-                per_freq_tally, **kw)
-            escaped += esc
-            injected += inj
-        if cfg.file_diffuse and (cfg.dfpac > 0 or cfg.clpac > 0):
-            diffuserad = read_diffuse_field(cfg.file_diffuse, grid.cells)
-            tabs, intf, esc, inj = simulate_diffuse(
-                grid, medium, cfg, diffuserad, tabs, intf, seed + 5, lanes,
-                per_freq_tally, **kw)
-            escaped += esc
-            injected += inj
-        if cfg.file_roi_load and cfg.roipac > 0:
-            tabs, intf, esc, inj = simulate_roi_load(
-                grid, medium, cfg, tabs, intf, seed + 9, lanes,
-                per_freq_tally, sel, res.source_passes, dset or pmesh, ckpt)
-            escaped += esc
-            injected += inj
-    if ckpt is not None and ckpt.pending:
-        # the end of phase 1 (soc_tpu driver.py:1470-1480)
-        ckpt.flush(tabs=tabs, intf=_intf_snapshot(intf, pmesh),
-                   roi=None if roi is None else roi["tally"])
-    _sync(device)
-    # traced in phase 1
-    res.packets = sum(st["packets"] for st in res.source_passes) \
-        if res.source_passes else packets
-    res.ctabs = tabs.cpu().numpy()
-    res.escaped = escaped
-    res.injected = injected
-    if res.source_passes:
-        res.launched = sum(st["launched"] for st in res.source_passes)
-        res.missed = sum(st["missed"] for st in res.source_passes)
-    if write_files and cfg.file_constant_save:
-        # CSAVE: bare float32 [CELLS] integrated constant heating
-        res.ctabs.astype(np.float32).tofile(cfg.file_constant_save)
-    if roi is not None:
-        res.roi_tally = roi["tally"].cpu().numpy()
-        if write_files:
-            rnx, rny, rnz, _ = roi["dim"]
-            write_roi_file(cfg.file_roi_save, rnx, rny, rnz, roi["nside"],
-                           res.roi_tally)
-    timings["constant_sources"] = time.time() - t0
+    with trace.span("driver.sources", into=timings, key="constant_sources"):
+        dset = _domain_setup(cfg, grid, device, domains)
+        res.domains = None if dset is None else dset.devices
+        per_freq_tally = (not cfg.noabsorbed) or cfg.save_intensity > 0
+        tabs = torch.zeros(grid.cells, dtype=torch.float32, device=device)
+        host = _host_tally(cfg, grid, nfreq, device, pmesh, dset) \
+            if per_freq_tally else None
+        if pmesh is not None and per_freq_tally:
+            # dp-partial per-frequency slabs, one per shard on its device
+            # (under `mmapabs` too: the slabs take the host tally's place)
+            intf = pmesh.zeros_intf(grid.cells,
+                                    4 if cfg.save_intensity == 2 else 0)
+        elif host is not None:
+            intf = host
+        else:
+            shape = (1, 1)
+            if cfg.save_intensity == 2:
+                shape = (grid.cells, nfreq, 4)      # (I, Ix, Iy, Iz)
+            elif per_freq_tally:
+                shape = (grid.cells, nfreq)
+            intf = torch.zeros(shape, dtype=torch.float32, device=device)
+        # `simum`: only the channels inside the band are simulated; `libabs`:
+        # of those only the FSELECT reference frequencies (ASOC.py:63-65,
+        # 1126-1131)
+        sim = (freq >= cfg.sim_f[0]) & (freq <= cfg.sim_f[1])
+        if cfg.lib_abs and cfg.fselect:
+            sim &= nearest_freq_mask(freq, cfg.fselect)
+        sel = np.nonzero(sim)[0]
+        escaped = np.zeros(nfreq)
+        injected = np.zeros(nfreq)
+        packets = 0
+        roi = roi_save_setup(cfg, grid, nfreq)
+        ckpt = None
+        if cfg.file_checkpoint:
+            ckpt = _checkpoint_setup(cfg, nfreq, pmesh, host)
+            tabs, intf = _restore(ckpt, tabs, intf, roi, pmesh)
+        res.checkpoint = ckpt
+        kw = dict(sel=sel, physics_extra=physics_extra,
+                  passes=res.source_passes, roi=roi, pmesh=dset or pmesh,
+                  ckpt=ckpt)
+        split_max = split_max_of(cfg, grid)
+        if cfg.file_constant_load:
+            # CLOAD: the constant sources are not simulated; their integrated
+            # heating comes from a previous run's csave file
+            # (ASOC.py:1013-1020)
+            tabs = torch.as_tensor(np.fromfile(cfg.file_constant_load,
+                                               np.float32, grid.cells),
+                                   device=device)
+        else:
+            if cfg.bgpac > 0 and cfg.file_background:
+                ibg = read_background_intensity(cfg.file_background, nfreq)
+                ibg = ibg * cfg.scale_background
+                tabs, intf, esc, inj, packets = simulate_background(
+                    grid, medium, cfg, ibg, tabs, intf, seed, lanes,
+                    per_freq_tally, split_max=split_max, **kw)
+                escaped += esc
+                injected += inj
+            if cfg.bgpac > 0 and cfg.file_hpbg:
+                hpbg = np.fromfile(cfg.file_hpbg,
+                                   np.float32).reshape(nfreq, -1)
+                hpbg = hpbg * cfg.scale_background
+                tabs, intf, esc, inj = simulate_hpbg(
+                    grid, medium, cfg, hpbg, tabs, intf, seed + 3, lanes,
+                    per_freq_tally, cfg.has_key("hpbgw"), split_max=split_max,
+                    **kw)
+                escaped += esc
+                injected += inj
+            if cfg.no_ps > 0 and cfg.pspac > 0:
+                lps = np.zeros((cfg.no_ps, nfreq), np.float32)
+                for i, f in enumerate(cfg.file_pointsource):
+                    lps[i] = np.fromfile(f, np.float32, nfreq) \
+                        * cfg.ps_scale[i]
+                tabs, intf, esc, inj = simulate_point_sources(
+                    grid, medium, cfg, lps, tabs, intf, seed, lanes,
+                    per_freq_tally, **kw)
+                escaped += esc
+                injected += inj
+            if cfg.file_diffuse and (cfg.dfpac > 0 or cfg.clpac > 0):
+                diffuserad = read_diffuse_field(cfg.file_diffuse, grid.cells)
+                tabs, intf, esc, inj = simulate_diffuse(
+                    grid, medium, cfg, diffuserad, tabs, intf, seed + 5, lanes,
+                    per_freq_tally, **kw)
+                escaped += esc
+                injected += inj
+            if cfg.file_roi_load and cfg.roipac > 0:
+                tabs, intf, esc, inj = simulate_roi_load(
+                    grid, medium, cfg, tabs, intf, seed + 9, lanes,
+                    per_freq_tally, sel, res.source_passes, dset or pmesh,
+                    ckpt)
+                escaped += esc
+                injected += inj
+        if ckpt is not None and ckpt.pending:
+            # the end of phase 1 (soc_tpu driver.py:1470-1480)
+            ckpt.flush(tabs=tabs, intf=_intf_snapshot(intf, pmesh),
+                       roi=None if roi is None else roi["tally"])
+        _sync(device)
+        # traced in phase 1
+        res.packets = sum(st["packets"] for st in res.source_passes) \
+            if res.source_passes else packets
+        res.ctabs = tabs.cpu().numpy()
+        res.escaped = escaped
+        res.injected = injected
+        if res.source_passes:
+            res.launched = sum(st["launched"] for st in res.source_passes)
+            res.missed = sum(st["missed"] for st in res.source_passes)
+        if write_files and cfg.file_constant_save:
+            # CSAVE: bare float32 [CELLS] integrated constant heating
+            res.ctabs.astype(np.float32).tofile(cfg.file_constant_save)
+        if roi is not None:
+            res.roi_tally = roi["tally"].cpu().numpy()
+            if write_files:
+                rnx, rny, rnz, _ = roi["dim"]
+                write_roi_file(cfg.file_roi_save, rnx, rny, rnz, roi["nside"],
+                               res.roi_tally)
 
     if cfg.lib_abs:
         # `libabs`: the absorptions of the FSELECT frequencies, then stop
         # (ASOC.py:63-65); res.absorbed keeps every column, the file only
         # the FSELECT ones, for the library (A2E_LIB) to take over
-        t0 = time.time()
-        if pmesh is not None and per_freq_tally:
-            intf = pmesh.reduce_intf(intf, device)
-        if per_freq_tally:
-            absorbed = _absorbed_of(intf.host if isinstance(intf, HostTally)
-                                    else intf)
-            host = absorbed if isinstance(absorbed, np.ndarray) \
-                else np.array(absorbed.cpu().numpy(), np.float32)
-            res.absorbed = _scale_absorbed(grid, host, gl_cm, cfg.nnn_limit)
-            if write_files and cfg.file_absorbed:
-                write_cell_frequency_array(
-                    cfg.file_absorbed,
-                    res.absorbed[:, nearest_freq_mask(freq, cfg.fselect)])
-        timings["outputs"] = time.time() - t0
+        with trace.span("driver.outputs", into=timings, key="outputs"):
+            if pmesh is not None and per_freq_tally:
+                intf = pmesh.reduce_intf(intf, device)
+            if per_freq_tally:
+                with trace.span("driver.readback"):
+                    absorbed = _absorbed_of(
+                        intf.host if isinstance(intf, HostTally) else intf)
+                    host = absorbed if isinstance(absorbed, np.ndarray) \
+                        else np.array(absorbed.cpu().numpy(), np.float32)
+                    res.absorbed = _scale_absorbed(grid, host, gl_cm,
+                                                   cfg.nnn_limit)
+                if write_files and cfg.file_absorbed:
+                    write_cell_frequency_array(
+                        cfg.file_absorbed,
+                        res.absorbed[:, nearest_freq_mask(freq, cfg.fselect)])
         timings["total"] = time.time() - t_start
         return res
 
     # ---- phase 2: iterations (T solve + emission, optional self-heating)
-    t0 = time.time()
     temperature = None
     emitted = None
-    if not cfg.nosolve and cfg.iterations >= 1:
-        table = equilibrium.build_temperature_table(
-            freq, optics[0].abs_gl, cfg.gl, device)
-        # SUBITERATIONS is refused under domains (_domain_setup)
-        phase2 = _subiterations if cfg.has_key("SUBITERATIONS") \
-            else _iterations
-        temperature, emitted, intf = phase2(
-            cfg, grid, medium, optics, table, tabs, intf, seed, lanes,
-            per_freq_tally, freq, gl_cm, write_files, res, dset or pmesh,
-            physics_extra, ckpt)
-        res.temperature = temperature.cpu().numpy()
-        res.emitted = emitted.cpu().numpy()
-    if ckpt is not None and ckpt.pending:
-        ckpt.flush()
-    if pmesh is not None and per_freq_tally:
-        intf = pmesh.reduce_intf(intf, device)
-    timings["solve"] = time.time() - t0
+    with trace.span("driver.solve", into=timings, key="solve"):
+        if not cfg.nosolve and cfg.iterations >= 1:
+            table = equilibrium.build_temperature_table(
+                freq, optics[0].abs_gl, cfg.gl, device)
+            # SUBITERATIONS is refused under domains (_domain_setup)
+            phase2 = _subiterations if cfg.has_key("SUBITERATIONS") \
+                else _iterations
+            temperature, emitted, intf = phase2(
+                cfg, grid, medium, optics, table, tabs, intf, seed, lanes,
+                per_freq_tally, freq, gl_cm, write_files, res,
+                dset or pmesh, physics_extra, ckpt)
+            res.temperature = temperature.cpu().numpy()
+            res.emitted = emitted.cpu().numpy()
+        if ckpt is not None and ckpt.pending:
+            ckpt.flush()
+        if pmesh is not None and per_freq_tally:
+            intf = pmesh.reduce_intf(intf, device)
 
-    # ---- outputs (reference end-of-run scaling)
-    t0 = time.time()
+    # ---- outputs (reference end-of-run scaling): the tally's readback
+    # and scaling, then the files
+    with trace.span("driver.outputs", into=timings, key="outputs"):
+        ext_cells = _outputs(cfg, grid, medium, optics, freq, abu, res,
+                             intf, per_freq_tally, temperature, emitted,
+                             gl_cm, write_files)
+    _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
+                  timings, pmesh, ext_cells)
+    timings["total"] = time.time() - t_start
+    return res
+
+
+def _outputs(cfg, grid, medium, optics, freq, abu, res, intf,
+             per_freq_tally, temperature, emitted, gl_cm, write_files):
+    """The run's outputs into ``res`` and its files: the absorption
+    tally's readback and scaling (the spans `driver.readback`), the
+    intensity, then absorbed.data, the temperatures and emitted.data.
+    Returns WITH_ABU's per-cell extinction for the maps, or None."""
     if per_freq_tally:
-        if isinstance(intf, HostTally):
-            # the out-of-core tally: summed, scaled in place and written
-            # in blocks of rows, never copied whole
-            intf = intf.host
-            absorbed = _absorbed_of(intf)
-            res.absorbed_photons = np.sum(absorbed, 0, dtype=np.float64)
-        else:
-            absorbed = _absorbed_of(intf)
-            res.absorbed_photons = absorbed.sum(
-                0, dtype=torch.float64).cpu().numpy()
+        with trace.span("driver.readback"):
+            if isinstance(intf, HostTally):
+                # the out-of-core tally: summed, scaled in place and
+                # written in blocks of rows, never copied whole
+                intf = intf.host
+                absorbed = _absorbed_of(intf)
+                res.absorbed_photons = np.sum(absorbed, 0, dtype=np.float64)
+            else:
+                absorbed = _absorbed_of(intf)
+                res.absorbed_photons = absorbed.sum(
+                    0, dtype=torch.float64).cpu().numpy()
         if cfg.save_intensity > 0:
             res.intensity = _intensity(grid, medium, freq, intf)
             if write_files:
                 _write_intensity(cfg.file_intensity, res.intensity)
         if not cfg.noabsorbed:
-            host = absorbed if isinstance(absorbed, np.ndarray) \
-                else np.array(absorbed.cpu().numpy(), np.float32)
-            res.absorbed = _scale_absorbed(grid, host, gl_cm, cfg.nnn_limit)
+            with trace.span("driver.readback"):
+                host = absorbed if isinstance(absorbed, np.ndarray) \
+                    else np.array(absorbed.cpu().numpy(), np.float32)
+                res.absorbed = _scale_absorbed(grid, host, gl_cm,
+                                               cfg.nnn_limit)
             if write_files and cfg.file_absorbed:
                 write_cell_frequency_array(cfg.file_absorbed, res.absorbed)
     if write_files and temperature is not None and cfg.file_temperature:
         write_cell_field(cfg.file_temperature, grid, res.temperature)
     if write_files and emitted is not None and cfg.file_emitted:
         _write_emitted_file(cfg, freq, res.emitted)
-    ext_cells = None
-    if abu is not None:
-        abs_d = np.stack([np.asarray(o.abs_gl) for o in optics])
-        sca_d = np.stack([np.asarray(o.sca_gl) for o in optics])
-        ext_cells = (abu @ (abs_d + sca_d)).astype(np.float32)
-    timings["outputs"] = time.time() - t0
-    _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
-                  timings, pmesh, ext_cells)
-    timings["total"] = time.time() - t_start
-    return res
+    if abu is None:
+        return None
+    abs_d = np.stack([np.asarray(o.abs_gl) for o in optics])
+    sca_d = np.stack([np.asarray(o.sca_gl) for o in optics])
+    return (abu @ (abs_d + sca_d)).astype(np.float32)
 
 
 def _absorbed_of(intf):
@@ -1847,9 +1898,17 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
     there); every other map renders on the first shard's device, as
     soc_tpu falls back, and under several processes on each one's own.
     Each render's seconds, rays and march steps (None for the sharded
-    map) go to res.render_passes.
+    map) go to res.render_passes. The phase is the span `maps.render`,
+    its seconds timings["maps"].
     """
-    t0 = time.time()
+    with trace.span("maps.render", into=timings, key="maps"):
+        _render(cfg, grid, medium, res, freq, emitted, write_files, pmesh,
+                ext_cells)
+
+
+def _render(cfg, grid, medium, res, freq, emitted, write_files, pmesh,
+            ext_cells):
+    """_render_phase's work."""
     device = grid.device
     gl_cm = cfg.gl * PARSEC
     if emitted is not None and cfg.level_threshold > 0:
@@ -1968,7 +2027,8 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
             res.maps[0] = phot.cpu().numpy()
             res.tau_maps[0] = tau.cpu().numpy()
             if write_files:
-                res.maps[0].astype(np.float32).tofile("map.healpix")
+                with trace.span("io.write", bytes=res.maps[0].size * 4):
+                    res.maps[0].astype(np.float32).tofile("map.healpix")
         elif cfg.intobs[0] > -1e7:
             # perspective panorama from inside the model
             phot, tau, _ = timed("perspective",
@@ -2050,7 +2110,6 @@ def _render_phase(cfg, grid, medium, res, freq, emitted, write_files,
             cfg, grid if pmesh is None else pmesh.replica(
                 grid, pmesh.lead(grid.device)), medium, res, freq, emitted,
             write_files, timed, ext_cells, gl_cm)
-    timings["maps"] = time.time() - t0
 
 
 def _polarization_maps(cfg, grid, medium, res, freq, emitted, write_files,
@@ -2190,7 +2249,7 @@ def _write_polmap_fits(cfg, freq, band, stack, idir):
 def _write_hier(path, cfg, grid, hier):
     """A MAP_HIER file: int32 NPIX (2) and [NF, LEVELS], then float32
     hier [NF, LEVELS, ...]."""
-    with open(path, "wb") as fp:
+    with trace.span("io.write", bytes=hier.size * 4), open(path, "wb") as fp:
         np.asarray(cfg.npix, np.int32).tofile(fp)
         np.asarray([hier.shape[0], grid.levels], np.int32).tofile(fp)
         hier.astype(np.float32).tofile(fp)

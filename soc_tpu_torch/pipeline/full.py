@@ -33,6 +33,7 @@ from ..parallel import dist
 from ..solve import solver_prep
 from ..solve.grain_model import gset_effective_optics, read_gset_dust
 from ..solve.solver_file import read_solver, write_solver
+from ..utils import trace
 
 from . import driver, mabu
 
@@ -339,8 +340,9 @@ def run_pipeline(ini_path, device, lanes=driver.DEFAULT_LANES, ne=128,
     orig = os.getcwd()
     os.chdir(workdir)
     try:
-        return _run_pipeline_inner(ini_path, device, lanes, ne, mode,
-                                   devices, domains)
+        with trace.run("pipeline.run"):
+            return _run_pipeline_inner(ini_path, device, lanes, ne, mode,
+                                       devices, domains)
     finally:
         os.chdir(orig)
 
@@ -380,12 +382,14 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, mode, devices,
     cfg.freq = freq
 
     # Stage 2: A2E_pre + A2E_MABU emission (or the library / NN variants)
-    t0 = time.time()
-    comps = dist.first(build_components, cfg, freq, ne=ne)
-    t_prep = time.time() - t0
+    stage = {}
+    with trace.span("a2e.prep", into=stage, key="a2e_prep"):
+        comps = dist.first(build_components, cfg, freq, ne=ne)
     # the absorbed payload marks parent cells -1e20: mask them
-    valid = absorbed[:, 0] > -1e19
-    abs_clean = np.where(valid[:, None], absorbed, 0.0).astype(np.float32)
+    with trace.span("a2e.host"):
+        valid = absorbed[:, 0] > -1e19
+        abs_clean = np.where(valid[:, None], absorbed,
+                             0.0).astype(np.float32)
     lib_path = cfg.file_library or default_lib
     if mode == "uselib":
         if not os.path.exists(lib_path):
@@ -398,21 +402,21 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, mode, devices,
     # stay zero
     thin = max(1, cfg.abs_thin)
     abu = read_abundances(cfg, cells, len(comps))
-    stage = {}
-    t0 = time.time()
-    emitted_part, pemitted_part = emission_stage(
-        cfg, comps, abs_clean[::thin], None if abu is None else abu[::thin],
-        freq, device, dens=res_rt.grid.dens.cpu().numpy()[::thin],
-        devices=res_rt.devices, timings=stage)
-    t_a2e = time.time() - t0
+    with trace.span("a2e.stage", into=stage, key="a2e"):
+        emitted_part, pemitted_part = emission_stage(
+            cfg, comps, abs_clean[::thin],
+            None if abu is None else abu[::thin], freq, device,
+            dens=res_rt.grid.dens.cpu().numpy()[::thin],
+            devices=res_rt.devices, timings=stage)
 
     def _expand(part):
-        if thin > 1:
-            out = np.zeros((cells, len(freq)), np.float32)
-            out[::thin] = part
-        else:
-            out = part
-        out[~valid] = 0.0
+        with trace.span("a2e.host"):
+            if thin > 1:
+                out = np.zeros((cells, len(freq)), np.float32)
+                out[::thin] = part
+            else:
+                out = part
+            out[~valid] = 0.0
         return out
 
     emitted = _expand(emitted_part)
@@ -448,7 +452,5 @@ def _run_pipeline_inner(ini_path, device, lanes, ne, mode, devices,
     res_map = driver.run(cfg=cfg_map, device=device, lanes=lanes,
                          workdir=".", devices=devices, emitted=emitted)
     res_map.timings.update(stage)
-    res_map.timings["a2e_prep"] = t_prep
-    res_map.timings["a2e"] = t_a2e
     res_map.pemitted = pemitted
     return res_rt, emitted, res_map

@@ -23,6 +23,7 @@ from ..constants import EMIT_COEFF, FACTOR, H_K, PLANCK, \
 from ..solve.solver_file import SolverData
 
 from ..solve import stochastic
+from ..utils import trace
 
 
 @dataclass
@@ -145,20 +146,21 @@ def solve_emission_multi(components, absorbed, device, abu=None,
     """
     cells, nfreq = absorbed.shape
     ndust = len(components)
-    if abu is None:
-        abu = np.ones((cells, ndust), np.float32)
-    if cr_mode > 0:
-        absorbed = np.asarray(absorbed).copy()
-        absorbed[:, -1] = cr_heating_channel(cr_mode, dens, cells)
-    rabs = relative_cross_sections(components, nfreq)
-
-    emitted = np.zeros((cells, nfreq), np.float32)
-    pemitted = np.zeros((cells, nfreq), np.float32) if pol else None
+    with trace.span("a2e.host"):
+        if abu is None:
+            abu = np.ones((cells, ndust), np.float32)
+        if cr_mode > 0:
+            absorbed = np.asarray(absorbed).copy()
+            absorbed[:, -1] = cr_heating_channel(cr_mode, dens, cells)
+        rabs = relative_cross_sections(components, nfreq)
+        emitted = np.zeros((cells, nfreq), np.float32)
+        pemitted = np.zeros((cells, nfreq), np.float32) if pol else None
+        split_den = np.einsum("cd,fd->cf", abu, rabs)
     per_dust = []
-    split_den = np.einsum("cd,fd->cf", abu, rabs)
     for d, comp in enumerate(components):
         t0 = time.time()
-        absd = split_absorbed(absorbed, rabs, abu, d, den=split_den)
+        with trace.span("a2e.host"):
+            absd = split_absorbed(absorbed, rabs, abu, d, den=split_den)
         spec = pol.get(d) if pol else None
         pemit_d = None
         if comp.kind == "gset":
@@ -179,9 +181,10 @@ def solve_emission_multi(components, absorbed, device, abu=None,
             raise ValueError(f"unknown dust kind {comp.kind!r}")
         if timings is not None:
             timings["a2e_" + comp.name] = time.time() - t0
-        emitted += emit_d * abu[:, d][:, None]
-        if pemit_d is not None:
-            pemitted += pemit_d * abu[:, d][:, None]
+        with trace.span("a2e.host"):
+            emitted += emit_d * abu[:, d][:, None]
+            if pemit_d is not None:
+                pemitted += pemit_d * abu[:, d][:, None]
         if return_components:
             per_dust.append((absd, emit_d))
     out = (emitted,)

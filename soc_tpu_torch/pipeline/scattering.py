@@ -37,7 +37,6 @@ Values are scaled to surface brightness by FREQ 1e23 PLANCK / DX^2
 """
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -54,6 +53,7 @@ from ..solve.equilibrium import cell_levels
 from ..transport.medium import medium_from_optics
 from ..transport.propagate import pool_lanes
 from ..transport.sources import stream_hi_base
+from ..utils import trace
 
 # the lane pool of each of the two loops: a march step is about 250
 # eager kernels that the host issues one by one, so a step's time grows
@@ -300,28 +300,30 @@ def _run_inner(cfg, device, lanes, write_files, devices, per_channel,
             cfg, grid, freq, int(grid.area)):
         if not chans:
             continue
-        t0 = time.time()
-        params = {k: torch.as_tensor(v, device=device)
-                  if isinstance(v, np.ndarray) else v
-                  for k, v in tables.items()}
-        params["hi_base"] = stream_hi_base(tag)
-        runs = ([dict(params, ifreq=i) for i in chans] if per_channel
-                else [dict(params, per_freq=per_freq, sel=torch.as_tensor(
-                    np.asarray(chans, np.int64), device=device))])
-        st = dict(source=tag, channels=len(chans), pools=len(runs),
+        st = dict(source=tag, channels=len(chans),
                   packets=per_freq * len(chans), events=0, rays=0,
-                  lane_steps=0, peel_lane_steps=0, sca_iters=0,
-                  peel_iters=0)
-        for p in runs:
-            out, s = sim(kind, p, per_freq if per_channel
-                         else per_freq * len(chans))
-            total_out += out.to(device)
-            for k in ("events", "rays", "lane_steps", "peel_lane_steps",
-                      "sca_iters", "peel_iters"):
-                st[k] += s[k]
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        st["seconds"] = time.time() - t0
+                  lane_steps=0, peel_lane_steps=0, sca_iters=0, peel_iters=0)
+        with trace.span("transport.pass", into=st, key="seconds",
+                        source=tag, packets=st["packets"]):
+            params = {k: torch.as_tensor(v, device=device)
+                      if isinstance(v, np.ndarray) else v
+                      for k, v in tables.items()}
+            params["hi_base"] = stream_hi_base(tag)
+            runs = ([dict(params, ifreq=i) for i in chans] if per_channel
+                    else [dict(params, per_freq=per_freq,
+                               sel=torch.as_tensor(
+                                   np.asarray(chans, np.int64),
+                                   device=device))])
+            st["pools"] = len(runs)
+            for p in runs:
+                out, s = sim(kind, p, per_freq if per_channel
+                             else per_freq * len(chans))
+                total_out += out.to(device)
+                for k in ("events", "rays", "lane_steps", "peel_lane_steps",
+                          "sca_iters", "peel_iters"):
+                    st[k] += s[k]
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         if passes is not None:
             passes.append(st)
 

@@ -14,6 +14,12 @@ the pre-folded kernel when every weight and absorbed value is >= 0, the
 clamp kernel (the exact path) otherwise; and it splits the cells over every
 visible card, or over a given device list, as soc_tpu splits them over its
 local devices (stochastic.py:300-353 there).
+
+The solve's spans (utils/trace.py): `a2e.stacks` (the per-size arrays
+prepared, stacked and put on a device, on a cache miss only),
+`a2e.upload` (the absorbed array's copy to the device), `a2e.kernel`
+(the launch up to the host copy of its result) and `a2e.host` (the NumPy
+work around them).
 """
 
 import os
@@ -21,6 +27,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import trace
 from .solver_file import densify_weights
 
 from . import a2e_kernel
@@ -142,15 +149,18 @@ def get_fused_stacks(solver, device, nstoch=999, plain=None, clamp=False):
     cache = _cache(solver)
     key = ("stacks", n_stoch, str(device), plain, clamp)
     if key not in cache:
-        sizes = range(n_stoch)
-        flat = [prepare_size_arrays(solver, i) for i in sizes]
-        w_flat = np.stack([p[0] for p in flat]) if plain or clamp else None
-        w_fold = None if clamp else np.stack(
-            [prepare_size_arrays_fused(solver, i)[0] for i in sizes])
-        cache[key] = a2e_kernel.stacks_from_numpy(
-            w_flat if plain else None, w_fold,
-            np.stack([p[1] for p in flat]), np.stack([p[2] for p in flat]),
-            device, w_unf=w_flat if clamp else None)
+        with trace.span("a2e.stacks"):
+            sizes = range(n_stoch)
+            flat = [prepare_size_arrays(solver, i) for i in sizes]
+            w_flat = np.stack([p[0] for p in flat]) if plain or clamp \
+                else None
+            w_fold = None if clamp else np.stack(
+                [prepare_size_arrays_fused(solver, i)[0] for i in sizes])
+            cache[key] = a2e_kernel.stacks_from_numpy(
+                w_flat if plain else None, w_fold,
+                np.stack([p[1] for p in flat]),
+                np.stack([p[2] for p in flat]),
+                device, w_unf=w_flat if clamp else None)
     return cache[key]
 
 
@@ -160,9 +170,11 @@ def fused_weights_nonneg(solver, nstoch=999):
     non-negative absorbed values)."""
     n_stoch = min(nstoch, solver.nsize)
     cache = _cache(solver)
-    for i in range(n_stoch):
-        if ("fused_nonneg", i) not in cache:
-            prepare_size_arrays_fused(solver, i)
+    missing = [i for i in range(n_stoch) if ("fused_nonneg", i) not in cache]
+    if missing:
+        with trace.span("a2e.stacks"):
+            for i in missing:
+                prepare_size_arrays_fused(solver, i)
     return all(cache[("fused_nonneg", i)] for i in range(n_stoch))
 
 
@@ -208,32 +220,40 @@ def solve_emission(solver, absorbed, device, nstoch=999, clip_last=True,
     """
     device = torch.device(device)
     cells, nfreq = absorbed.shape
-    absorbed = np.asarray(absorbed, np.float32).copy()
-    if clip_last and nfreq >= 2:
-        # guard against spurious weight on the topmost channel (A2E.py:184)
-        absorbed[:, -1] = np.clip(absorbed[:, -1], 0.0,
-                                  0.2 * absorbed[:, -2])
-    emitted = np.zeros((cells, nfreq), np.float32)
-    pemitted = np.zeros((cells, nfreq), np.float32) if aalg is not None \
-        else None
+    with trace.span("a2e.host"):
+        absorbed = np.asarray(absorbed, np.float32).copy()
+        if clip_last and nfreq >= 2:
+            # guard against spurious weight on the topmost channel
+            # (A2E.py:184)
+            absorbed[:, -1] = np.clip(absorbed[:, -1], 0.0,
+                                      0.2 * absorbed[:, -2])
+        emitted = np.zeros((cells, nfreq), np.float32)
+        pemitted = np.zeros((cells, nfreq), np.float32) \
+            if aalg is not None else None
     n_stoch = min(nstoch, solver.nsize)
     if n_stoch > 0:
-        clamp = not (fused_weights_nonneg(solver, n_stoch)
-                     and absorbed.min() >= 0.0)
+        with trace.span("a2e.host"):
+            clamp = not (fused_weights_nonneg(solver, n_stoch)
+                         and absorbed.min() >= 0.0)
         align = None
         if aalg is not None:
             align = torch.as_tensor(np.stack(
                 [alignment_weights(solver, i, np.asarray(aalg))
                  for i in range(n_stoch)]), device=device)
-        ab = torch.as_tensor(absorbed, device=device)
+        with trace.span("a2e.upload"):
+            ab = torch.as_tensor(absorbed, device=device)
         shards = a2e_devices(device, devices)
         stacks = {d: get_fused_stacks(solver, d, n_stoch, clamp=clamp)
                   for d in set(shards)}
-        tot, ptot = a2e_kernel.solve_all_sizes_sharded(stacks, ab, align,
-                                                        shards, clamp)
-        emitted += tot.cpu().numpy()
-        if pemitted is not None:
-            pemitted += ptot.cpu().numpy()
+        with trace.span("a2e.kernel", shards=len(shards)):
+            tot, ptot = a2e_kernel.solve_all_sizes_sharded(
+                stacks, ab, align, shards, clamp)
+            tot = tot.cpu().numpy()
+            ptot = None if pemitted is None else ptot.cpu().numpy()
+        with trace.span("a2e.host"):
+            emitted += tot
+            if pemitted is not None:
+                pemitted += ptot
     for isize in range(n_stoch, solver.nsize):
         emit_size = solve_equilibrium_size(solver, isize, absorbed)
         emitted += emit_size

@@ -814,7 +814,8 @@ class PoolRun:
         self.block = None
         if CUDA_GRAPHS and device.type == "cuda":
             from ..utils.graphs import GraphedBlock
-            self.block = GraphedBlock(self._block_fn(), device)
+            self.block = GraphedBlock(self._block_fn(), device,
+                                       kind="pool")
         self.bodies = 0
 
     def more(self):

@@ -1,2 +1,3 @@
-"""Host utilities: mid-run checkpoint/resume (``checkpoint``) and a block
-of kernels replayed as one CUDA graph (``graphs``)."""
+"""Host utilities: mid-run checkpoint/resume (``checkpoint``), a block
+of kernels replayed as one CUDA graph (``graphs``) and the program's
+tracer of spans and counters (``trace``)."""

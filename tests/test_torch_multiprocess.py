@@ -218,7 +218,7 @@ def test_checkpoint_of_one_process_is_refused_by_two(tmp_path,
 def test_devices_6_over_two_processes_of_four(tmp_path):
     """`devices 6` over 2 x 4 CPU shards: process 0 holds four shards,
     process 1 two; the results equal one process's `devices 6` run. Under
-    --profile each process writes a trace of its own."""
+    --profile each process writes a trace and spans of its own."""
     dirs = {k: tmp_path / k for k in ("one", "r0", "r1")}
     ini = {k: write_model(str(d), 8, kind="eqdust", nfreq=4, bgpac=3072,
                           extra="devices 6\n") for k, d in dirs.items()}
@@ -231,8 +231,8 @@ def test_devices_6_over_two_processes_of_four(tmp_path):
     for k, r in enumerate(ranks):
         assert r["owners"] == [0, 0, 0, 0, 1, 1]
         assert r["runs"][0]["digests"] == ref["runs"][0]["digests"]
-        assert os.listdir(dirs["r%d" % k] / "prof") \
-            == ["trace_rt.rank%d.json" % k]
+        assert sorted(os.listdir(dirs["r%d" % k] / "prof")) \
+            == ["spans_rt.rank%d.json" % k, "trace_rt.rank%d.json" % k]
 
 
 def test_pipeline_over_two_processes_equals_one_process(tmp_path,
