@@ -382,8 +382,22 @@ Phases (any failure exits non-zero before the final line):
      large model, 4,096 streamed rows, a 32^3 xl model, 8,192 packets):
      every key of each section present, every rate finite and positive,
      every `sane` true, a2e_all_sizes launched (bench_launches)
+ 22. the transport's march block as one kernel (csrc/march.cu
+     `march_block`, transport/march_kernel.run_block) against the eager
+     block (StepKit.service + StepKit.march), one block each from the same
+     pool snapshot at the main path's shape (a 64^3 root grid, 44
+     channels, 2^21 lanes, csc 2500 bins, after one eager body: frozen,
+     dead and live lanes), plain, with the per-frequency tally, with ALI
+     and with a col0 tally block: ind, pending, scatterings and counter
+     agree on 99.9% of the lanes or more, the float state there within
+     1e-6 relative, the served lanes' new directions (the kernel's
+     Threefry words) within 1e-6 on 99.9% of them, tabs, intf, xab and
+     absd within 1e-5 (the atomics add in another order); then with the
+     tally both blocks timed from one snapshot (CUDA events, 5 graph
+     replays and 3 issued calls each) beside the kernel's bound
 The kernels line gives each kernel's launches on its path (phase 4 for the
-A2E kernel, and under octree_* its launches, time, plain time and bound
+A2E kernel and for march_block, whose launches are the main path's pool's,
+one a refill body; under octree_* the A2E kernel's launches, time, plain time and bound
 on phase 11's octree, under sources_* on phase 12 (b)'s, under pol_* on
 phase 14 (a)'s with the align weights; 6 for the clamp kernel, 7 for the probes, 9 for the
 sharded A2E, whose other numbers phase 8 takes over the same six shards,
@@ -395,7 +409,8 @@ mp_launches each process's in phase 19 (a); under bench_launches phase
 a2e_clamp_global, at NE 1856 and under nf1088_* at NFREQ 1088; under
 config5_* phase 16 (a)'s launches, the kernel's time on the first dust's
 share, its bound, and on 16,384 leaves (config5_check_cells) the kernel's
-and the plain twin's times and the largest difference),
+and the plain twin's times and the largest difference; march_block's
+time, plain time (the eager block's graph replay) and bound from phase 22),
 its time, its plain version's, its library call's where one exists, and
 its bound: the larger of the bytes it must move over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s (an H100 SXM's published peaks). The
@@ -599,7 +614,7 @@ print("RESULT " + json.dumps(dict(
     foreign=sorted(k for k in sys.modules
                    if k.split(".")[0] in ("jax", "soc_tpu")))), flush=True)
 """
-SOURCES = ("a2e", "probe_gather", "probe_scatter", "probe_onehot")
+SOURCES = ("a2e", "march", "probe_gather", "probe_scatter", "probe_onehot")
 PROBE_KERNELS = {       # kernel -> (source, the Pallas call sites it replaces)
     "probe_gather": ("soc_tpu_torch/csrc/probe_gather.cu",
                      "scripts/probe_gather.py:111,:130,:148,:167,:186; "
@@ -810,6 +825,8 @@ def pipeline_phase(dev, work, args, report):
     from soc_tpu_torch.example_model import write_model
     from soc_tpu_torch.solve import a2e_kernel
     from soc_tpu_torch.pipeline import driver
+    from soc_tpu_torch.transport import march_kernel
+    from soc_tpu_torch.utils import trace
     n, lanes = N, driver.DEFAULT_LANES
     if args.bgpackets < FULL_BGPACKETS:
         print("phase 4: bgpackets cut from %d to %d"
@@ -817,14 +834,28 @@ def pipeline_phase(dev, work, args, report):
     ini = write_model(work, n, kind="gset", nfreq=44, nsize=24, npix=64,
                       bgpac=args.bgpackets, map_dx=n / 64.0)
     results = {}
-    a2e_kernel.launches = 0
+    a2e_kernel.launches = march_kernel.launches = 0
     t0 = time.time()
-    rc = cli.main(["pipeline", ini, "--device", str(dev)], results)
-    torch.cuda.synchronize()
+    trace.start()
+    try:
+        rc = cli.main(["pipeline", ini, "--device", str(dev)], results)
+        torch.cuda.synchronize()
+    finally:
+        counters = trace.stop()["counters"]
     wall = time.time() - t0
     launches = a2e_kernel.launches
     if rc != 0:
         fail("pipeline verb returned %d" % rc)
+    # one march_block a refill body, whether issued or a graph's replay
+    marches = march_kernel.launches
+    fused = counters.get("transport.blocks_fused", 0)
+    eager = counters.get("transport.blocks_eager", 0)
+    print("phase 4: march_block launches %d; refill bodies %d fused, %d "
+          "eager" % (marches, fused, eager), flush=True)
+    if marches != fused or fused < 1 or eager:
+        fail("phase 4: %d march_block launches for %d fused and %d eager "
+             "bodies" % (marches, fused, eager))
+    report["march_block"] = dict(launches=marches)
     res_rt, res_map = results["absorption"], results["map"]
     report["a2e_all_sizes"]["launches"] = launches
     if launches < 1:
@@ -4054,6 +4085,221 @@ def bench_phase(dev, work, report):
     print("phase 21: %.2f s [%s]" % (time.time() - t0, card), flush=True)
 
 
+MARCH_CASES = {"plain": dict(per_freq=False), "tally": dict(per_freq=True),
+               "ali": dict(per_freq=True, ali=True),
+               "col0": dict(per_freq=True, col0=20, ncol=8)}
+
+
+def _march_model(dev):
+    """Phase 22's root grid (N^3, uneven density) and 44 channels of
+    cross sections (a cell's optical depth 3 in the UV down to 1e-4 in
+    the FIR), weights and HG phase functions on 2500 bins."""
+    import torch
+    from soc_tpu_torch.grid import grid_from_arrays
+    from soc_tpu_torch.io.dust import hg_scattering_function
+    rs = np.random.default_rng(1)
+    nfreq = 44
+    grid = grid_from_arrays(N, N, N, [N ** 3],
+                            [rs.uniform(0.5, 1.5, N ** 3)], dev)
+    _, csc = hg_scattering_function(np.linspace(0.0, 0.6, nfreq), 2500)
+
+    def f32(v):
+        return torch.tensor(np.asarray(v, np.float32), device=dev)
+    tau_cell = np.logspace(np.log10(3.0), -4, nfreq)
+    return grid, dict(kabs=f32(0.6 * tau_cell), ksca=f32(0.4 * tau_cell),
+                      tw=f32(np.ones(nfreq)), csc=f32(csc))
+
+
+def _march_pool(dev, grid, phys, case, lanes, per, graphs):
+    """A PoolRun of phase 22's ``case`` (MARCH_CASES) on ``lanes`` lanes
+    of ``per`` background packets a channel, its pool after one eager
+    body (with ALI, half the lanes then sit in their emitting cell).
+    ``graphs``: the pool keeps its GraphedBlock."""
+    import torch
+    from soc_tpu_torch.transport import propagate
+    from soc_tpu_torch.transport.sources import GENERATORS
+    nfreq = int(phys["kabs"].numel())
+    ncol = case.get("ncol", nfreq)
+    kit = propagate.StepKit(grid, phys, 4051234567, case["per_freq"],
+                            with_ali=case.get("ali", False), ncol=ncol,
+                            col0=case.get("col0", 0))
+    if not kit.fused:
+        fail("phase 22: the root-grid kit does not fuse on %s" % dev)
+    st = propagate.new_pool(
+        lanes, grid, torch.zeros(grid.cells, device=dev),
+        torch.zeros((grid.cells, ncol), device=dev),
+        torch.zeros(grid.cells, device=dev) if kit.with_ali else None)
+    run = propagate.PoolRun(kit, st, GENERATORS["bg"],
+                            dict(photons=torch.ones(nfreq, device=dev),
+                                 per_freq=per, hi_base=0), nfreq * per)
+    if not graphs:
+        run.block = None
+    kit.fused = False
+    run.body()
+    kit.fused = True
+    if kit.with_ali:
+        half = torch.arange(lanes, device=dev) % 2 == 0
+        st.b.e_cell = torch.where(half, st.b.ind.clamp_min(0), -1)
+    return run
+
+
+def _march_compare(tag, run, dev):
+    """One block fused and one eager from run's pool as it stands; fails
+    beyond test_fused_block_matches_eager_block's tolerances, else returns
+    the largest absolute difference of tabs."""
+    import torch
+    from soc_tpu_torch.transport import propagate
+    kit, st = run.kit, run.st
+    lanes = st.b.lanes
+    ind = st.b.ind
+    served = st.pending & (ind >= 0)
+    if not (bool((ind < 0).any()) and bool(served.any())
+            and bool(((ind >= 0) & ~st.pending).any())):
+        fail("phase 22: %s: the snapshot lacks dead, frozen or live lanes"
+             % tag)
+    snap = {k: v.clone() for k, v in propagate._pool_tensors(st).items()}
+    out = {}
+    for fused in (True, False):
+        kit.fused = fused
+        work = propagate.PoolState(**{f: getattr(st, f) for f in (
+            "b", "pending", "free_path", "tau", "esc_pending",
+            "spare_cell")}, tabs=None, intf=None, absd=None)
+        propagate._set_pool_tensors(
+            work, {k: v.clone() for k, v in snap.items()})
+        work.tabs = torch.zeros_like(st.tabs)
+        work.intf = torch.zeros_like(st.intf)
+        work.xab = None if st.xab is None else torch.zeros_like(st.xab)
+        run._marches(work, () if fused else kit.lane_const_of(work.b))
+        out[fused] = work
+    kit.fused = True
+    torch.cuda.synchronize()
+    got, want = out[True], out[False]
+    agree = torch.ones(lanes, dtype=torch.bool, device=dev)
+    for f in ("ind", "scatterings", "counter"):
+        agree &= getattr(got.b, f) == getattr(want.b, f)
+    agree &= got.pending == want.pending
+    same = agree.clone()
+    worst_lane = 0.0
+    for a, b in ((got.b.pos, want.b.pos), (got.b.dir, want.b.dir),
+                 (got.b.photons, want.b.photons),
+                 (got.free_path, want.free_path), (got.tau, want.tau),
+                 (got.esc_pending, want.esc_pending)):
+        eq = a == b
+        same &= eq if eq.ndim == 1 else eq.all(-1)
+        rel = ((a - b).abs() / b.abs().clamp_min(1e-30))[agree]
+        worst_lane = max(worst_lane, float(rel.max()) if rel.numel() else 0)
+    turned = torch.isclose(got.b.dir[served], want.b.dir[served],
+                           rtol=1e-6, atol=0).all(-1)
+    counted = all(torch.equal(o.b.counter[served],
+                              snap["b.counter"][served] + 1)
+                  for o in (got, want))
+    pairs = [("tabs", got.tabs, want.tabs), ("absd", got.absd, want.absd)]
+    if kit.per_freq_tally:
+        pairs.append(("intf", got.intf, want.intf))
+    if kit.with_ali:
+        pairs.append(("xab", got.xab, want.xab))
+    worst_tally, tallies_ok = {}, True
+    for name, a, b in pairs:
+        if name != "absd" and not float(b.sum()) > 0:
+            fail("phase 22: %s: the eager block deposited nothing in %s"
+                 % (tag, name))
+        worst_tally[name] = float(((a - b).abs()
+                                   / b.abs().clamp_min(1e-30)).max())
+        tallies_ok &= bool(torch.allclose(a, b, rtol=1e-5, atol=1e-30))
+    share, bits = float(agree.float().mean()), float(same.float().mean())
+    share_turned = float(turned.float().mean())
+    abs_err = float((got.tabs - want.tabs).abs().max())
+    ok = (share >= 0.999 and worst_lane <= 1e-6 and share_turned >= 0.999
+          and counted and tallies_ok)
+    print("phase 22: %s: lanes agreeing %.6f of %d (bit for bit %.6f), "
+          "largest relative difference of their float state %.3e; served "
+          "lanes %d, one step counted each: %s, directions alike %.6f; "
+          "tallies' largest relative difference %s: %s"
+          % (tag, share, lanes, bits, worst_lane, int(served.sum()),
+             counted, share_turned,
+             ", ".join("%s %.3e" % kv for kv in worst_tally.items()),
+             "ok" if ok else "FAILED"), flush=True)
+    if not ok:
+        fail("phase 22: %s: the fused block departs from the eager block"
+             % tag)
+    return abs_err
+
+
+def _march_times(run, fused):
+    """Milliseconds of run's march block from one snapshot of its pool
+    (CUDA events): 5 replays of the pool's graph (its input copies
+    included), then 3 calls issued eagerly; the kit ``fused`` or not."""
+    import torch
+    from soc_tpu_torch.transport import propagate
+    run.kit.fused = fused
+    run.body()                     # the graph's capture, then a replay
+    snap = {k: v.clone() for k, v in propagate._pool_tensors(run.st).items()}
+    lane_c = () if fused else run.kit.lane_const_of(run.st.b)
+    times = {}
+    for form, reps in (("graph", 5), ("issued", 3)):
+        times[form] = []
+        for _ in range(reps):
+            propagate._set_pool_tensors(
+                run.st, {k: v.clone() for k, v in snap.items()})
+            a, b = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            torch.cuda.synchronize()
+            a.record()
+            if form == "graph":
+                run._replay(lane_c)
+            else:
+                run._marches(run.st, lane_c)
+            b.record()
+            torch.cuda.synchronize()
+            times[form].append(a.elapsed_time(b))
+    run.kit.fused = True
+    return times
+
+
+def march_phase(dev, report):
+    """Phase 22 (the module docstring)."""
+    from soc_tpu_torch.pipeline import driver
+    t0 = time.time()
+    lanes = driver.DEFAULT_LANES
+    grid, phys = _march_model(dev)
+    nfreq = int(phys["kabs"].numel())
+    abs_err = 0.0
+    for name, case in MARCH_CASES.items():
+        # every channel in the first body's lanes
+        run = _march_pool(dev, grid, phys, case, lanes, lanes // nfreq,
+                          graphs=False)
+        abs_err = max(abs_err, _march_compare(name, run, dev))
+        del run
+    times = {}
+    for fused in (True, False):
+        # the main path's background budget (driver.simulate_background:
+        # 8 * area * batch a channel): the first channels fill the pool
+        area = int(grid.area)
+        per = 8 * area * max(1, round(FULL_BGPACKETS / (8.0 * area)))
+        run = _march_pool(dev, grid, phys, MARCH_CASES["tally"], lanes, per,
+                          graphs=True)
+        times[fused] = _march_times(run, fused)
+        del run
+    # a lane's state read once (97 bytes) and what the block changes
+    # written once (65); the tallies' atomics are not counted
+    b_ms, b_by = bound(0, (97 + 65) * lanes)
+    ms = float(np.median(times[True]["graph"]))
+    plain_ms = float(np.median(times[False]["graph"]))
+    print("phase 22: one block at %d^3, %d channels, %d lanes, with the "
+          "tally: march_block %.3f ms a graph replay %s, issued %s; the "
+          "eager block %.3f ms a graph replay %s, issued %s; bound %.3f ms "
+          "(%s); phase %.2f s [%s]"
+          % (N, int(phys["kabs"].numel()), lanes, ms,
+             ["%.3f" % t for t in times[True]["graph"]],
+             ["%.3f" % t for t in times[True]["issued"]], plain_ms,
+             ["%.3f" % t for t in times[False]["graph"]],
+             ["%.3f" % t for t in times[False]["issued"]], b_ms, b_by,
+             time.time() - t0, report["card"]), flush=True)
+    report.setdefault("march_block", {}).update(
+        ms=ms, plain_ms=plain_ms, max_abs_err=abs_err, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bgpackets", type=int, default=FULL_BGPACKETS)
@@ -4133,6 +4379,7 @@ def main():
         sca_processes_phase(dev, work, report)
         t11 = time.time()
         bench_phase(dev, work, report)
+        march_phase(dev, report)
         print("phase 10: %.2f s; phase 11: %.2f s; phase 12: %.2f s; phase "
               "13: %.2f s (%s); phase 14: %.2f s (%s); phase 15: %.2f s "
               "(%s); phase 16: %.2f s (%s); phase 17: %.2f s (%s); phase "
@@ -4183,9 +4430,12 @@ def main():
         a2e_clamp_global=(
             "soc_tpu_torch/csrc/a2e.cu",
             "soc_tpu/solve/stochastic.py:100 (exact path, XLA; beyond the "
-            "shared form's ceiling)"))
+            "shared form's ceiling)"),
+        march_block=("soc_tpu_torch/csrc/march.cu",
+                     "none: soc_tpu/transport/propagate.py transport_run's "
+                     "service and march steps (JAX, XLA-fused)"))
     order = ["a2e_all_sizes", "a2e_clamp", *PROBE_KERNELS, "a2e_sharded",
-             "a2e_all_sizes_global", "a2e_clamp_global"]
+             "a2e_all_sizes_global", "a2e_clamp_global", "march_block"]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     extra = ("shards", "ckpt_launches", "domain_launches", "mp_launches",

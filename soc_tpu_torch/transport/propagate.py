@@ -5,15 +5,16 @@ self-absorption tally, in-flight packet splitting, per-cell cross sections
 ROI crossing tally and the step and direction weighting).
 
 A fixed pool of packet lanes is stepped in PyTorch (on a card the march
-block of a refill body replays as one CUDA graph: PoolRun). Each *march*
-step advances every live lane by one event (a cell-boundary crossing or the
-arrival at a scattering point); lanes whose free path ends freeze there
-(``pending``) and a *service* step draws the new direction and free path
-for all of them at once. Every REFILL_PERIOD steps, lanes that died are
-refilled with fresh packets from the remaining budget through an exclusive
-prefix sum over dead lanes. A packet's random numbers are keyed by
-(stream, counter), so neither the service delay nor the lane count changes
-any packet's path.
+block of a refill body replays as one CUDA graph: PoolRun; on a root grid
+that block is one CUDA kernel, csrc/march.cu: StepKit.fuses_on). Each
+*march* step advances every live lane by one event (a cell-boundary
+crossing or the arrival at a scattering point); lanes whose free path
+ends freeze there (``pending``) and a *service* step draws the new
+direction and free path for all of them at once. Every REFILL_PERIOD
+steps, lanes that died are refilled with fresh packets from the remaining
+budget through an exclusive prefix sum over dead lanes. A packet's random
+numbers are keyed by (stream, counter), so neither the service delay nor
+the lane count changes any packet's path.
 
 The loop condition of soc_tpu's ``lax.while_loop`` is a host check here,
 made every CHECK_EVERY refill bodies: extra bodies on an empty pool do
@@ -92,6 +93,8 @@ from ..constants import (ADHOC, DEPS, MAX_SCATTERINGS, PEPS, PHOTON_LIMIT,
 from ..ops import traverse
 from ..render.healpix import ang2pix_ring
 from .. import rng as socrng
+from ..utils import trace
+from . import march_kernel
 from .roi import roi_element_index
 
 ESC_SPREAD = 1024   # escape-tally slots per frequency (see transport_run)
@@ -339,7 +342,10 @@ class StepKit:
     domain: None, or for one Z slab of `domains N` dict(rank, n_slabs,
     nz_local, gidx): the slab's index and count, its root Z planes (the
     grid's nz) and its [CELLS] local -> global cell map (-1 padding).
-    The weighting keys of physics ('sw_a', 'sw_b', 'dw_a') are floats."""
+    The weighting keys of physics ('sw_a', 'sw_b', 'dw_a') are floats.
+
+    ``fused``: whether a march block runs as the one CUDA kernel of
+    march_kernel.run_block (fuses_on), decided once here."""
 
     def __init__(self, grid, physics, seed, per_freq_tally, with_ali=False,
                  split_max=0, ncomp=1, ncol=None, col0=0, mirror_mask=0,
@@ -397,6 +403,22 @@ class StepKit:
             self.roi_npix = 12 * int(roi["nside"]) ** 2
             self.roi_size = (rnx * rny + rnx * rnz + rny * rnz) \
                 * self.roi_npix * self.nfreq
+        self.fused = self.fuses_on(device)
+
+    def fuses_on(self, device):
+        """Whether a march block of this configuration runs as one CUDA
+        kernel (csrc/march.cu, march_kernel.run_block) on ``device``: a
+        CUDA device, a root grid (no level to descend, so no split),
+        neither per-cell cross sections (WITH_ABU), MSF, STEP_WEIGHT nor
+        DIR_WEIGHT, no mirrored face, no ROI save, no Z slab, and a tally
+        of one component (not saveint 2). ALI and the per-frequency tally,
+        a block of its channels too, are in the kernel. Every other
+        configuration runs the eager block."""
+        return (torch.device(device).type == "cuda" and self.grid.levels == 1
+                and self.ncomp == 1 and self.opt is None and not self.msf
+                and self.sw_a is None and self.dw_a is None
+                and self.mirror_mask == 0 and self.roi is None
+                and self.domain is None)
 
     def lane_const_of(self, b):
         p = self.physics
@@ -788,7 +810,11 @@ class PoolRun:
     block issues some hundred kernels a march step from one host thread,
     which the card finishes faster than the host issues them. The replay
     runs the same kernels: the state is copied into the graph's inputs,
-    and the pool takes its outputs; the tallies are the same tensors."""
+    and the pool takes its outputs; the tallies are the same tensors.
+    Where the kit is ``fused`` the block is the one kernel of
+    march_kernel.run_block, and the graph holds that kernel. Each body
+    counts its block (`transport.blocks_fused` or `transport.blocks_eager`,
+    utils/trace.py)."""
 
     def __init__(self, kit, st, gen, params, total, births=False,
                  inner=REFILL_PERIOD):
@@ -843,7 +869,10 @@ class PoolRun:
             self.next_id = self.next_id + _refill(
                 kit, st, self.gen, self.params, self.next_id, self.total,
                 self.births)
-        lane_c = kit.lane_const_of(st.b)
+        # the kernel reads the per-frequency constants itself
+        lane_c = () if kit.fused else kit.lane_const_of(st.b)
+        trace.count("transport.blocks_fused" if kit.fused
+                    else "transport.blocks_eager")
         self.bodies += 1
         if self.block is not None:
             self._replay(lane_c)
@@ -854,6 +883,9 @@ class PoolRun:
         # soc_tpu's blocks: a service, then min(inner, REFILL_PERIOD) march
         # steps, inner // that many times
         period = min(self.inner, REFILL_PERIOD)
+        if self.kit.fused:
+            march_kernel.run_block(self.kit, st, self.inner // period, period)
+            return
         for _ in range(self.inner // period):
             self.kit.service(st)
             for _ in range(period):
@@ -880,6 +912,8 @@ class PoolRun:
         if self.bodies == 1:
             self.names = list(pool)
         out = self.block(*(pool[k] for k in self.names), *lane_c)
+        if self.kit.fused and self.block.graph is not None:
+            march_kernel.count_replay()
         _set_pool_tensors(self.st, dict(zip(self.names, out)))
 
     def finish(self):

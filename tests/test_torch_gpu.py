@@ -3,8 +3,9 @@ against their plain twin, the wrapper's checks, the sharded A2E solve
 against one launch, the probes' four kernels against their plain
 versions, the slice on the card against the slice on the CPU, and the
 `devices N` path over cuda:0 three times against the one-device run,
-the scattered-light runs on the card against the CPU's, and two processes
-on cuda:0 (parallel/dist.py) against one process.
+the scattered-light runs on the card against the CPU's, two processes
+on cuda:0 (parallel/dist.py) against one process, and the transport's
+fused march block (csrc/march.cu) against the eager block.
 Every test here carries the ``gpu`` marker and skips where there is no
 CUDA device. This file imports no jax, so it runs on a
 machine without it; tests/conftest.py does import jax, hence on the card:
@@ -1521,3 +1522,203 @@ def test_sca_devices_two_processes_on_one_card(cuda, tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-4,
                                atol=1e-6 * np.abs(want).max())
     assert sorted(os.listdir(dirs[1])) == before
+
+
+# --------------------------------------------- the fused march block
+
+def _root_physics(dev, nfreq, seed=7):
+    """A 16^3 root grid of uneven density and nfreq channels of cross
+    sections, weights and HG phase functions."""
+    from soc_tpu_torch.grid import grid_from_arrays
+    from soc_tpu_torch.io.dust import hg_scattering_function
+    rs = np.random.default_rng(seed)
+    n = 16
+    grid = grid_from_arrays(n, n, n, [n ** 3],
+                            [rs.uniform(0.2, 2.0, n ** 3)], dev)
+    _, csc = hg_scattering_function(np.linspace(0.1, 0.6, nfreq), 256)
+
+    def f32(v):
+        return torch.tensor(np.asarray(v, np.float32), device=dev)
+    phys = dict(kabs=f32(rs.uniform(0.02, 0.3, nfreq)),
+                ksca=f32(rs.uniform(0.05, 0.5, nfreq)),
+                tw=f32(rs.uniform(0.5, 2.0, nfreq)), csc=f32(csc))
+    return grid, phys
+
+
+FUSED_CASES = {"plain": dict(per_freq=False), "tally": dict(per_freq=True),
+               "ali": dict(per_freq=True, ali=True),
+               "col0": dict(per_freq=True, col0=2, ncol=4)}
+
+
+@pytest.mark.parametrize("name", list(FUSED_CASES))
+def test_fused_block_matches_eager_block(cuda, monkeypatch, name):
+    """One march block as the kernel (march_kernel.run_block) and as the
+    eager block, from one root-grid pool of 2^16 lanes after one eager
+    body (frozen, dead and live lanes; with ALI half the lanes sit in
+    their emitting cell): ind, pending, scatterings and counter agree on
+    99.9% of the lanes or more, the float state there to 1e-6 relative,
+    tabs, intf, xab and absd to 1e-5 (the atomics add in another
+    order). The lanes the block's service served (frozen at a scattering
+    point in the snapshot) count one more step each, and their new
+    directions, drawn from the kernel's Threefry words, agree to 1e-6 on
+    99.9% of them or more (a wrong word would turn nearly all)."""
+    from soc_tpu_torch.transport import propagate
+    from soc_tpu_torch.transport.sources import GENERATORS
+    case = FUSED_CASES[name]
+    monkeypatch.setattr(propagate, "CUDA_GRAPHS", False)
+    nfreq, lanes = 8, 1 << 16
+    grid, phys = _root_physics(cuda, nfreq)
+    ncol = case.get("ncol", nfreq)
+    kit = propagate.StepKit(grid, phys, 11, case["per_freq"],
+                            with_ali=case.get("ali", False), ncol=ncol,
+                            col0=case.get("col0", 0))
+    assert kit.fused
+
+    def tallies():
+        return (torch.zeros(grid.cells, device=cuda),
+                torch.zeros((grid.cells, ncol), device=cuda),
+                torch.zeros(grid.cells, device=cuda) if kit.with_ali
+                else None)
+    tabs, intf, xab = tallies()
+    st = propagate.new_pool(lanes, grid, tabs, intf, xab)
+    params = dict(photons=torch.ones(nfreq, device=cuda),
+                  per_freq=lanes // nfreq, hi_base=0)
+    run = propagate.PoolRun(kit, st, GENERATORS["bg"], params,
+                            nfreq * (lanes // nfreq) * 4)
+    kit.fused = False
+    run.body()
+    if kit.with_ali:
+        half = torch.arange(lanes, device=cuda) % 2 == 0
+        st.b.e_cell = torch.where(half, st.b.ind.clamp_min(0), -1)
+    ind = st.b.ind
+    assert bool((ind < 0).any()) and bool((st.pending & (ind >= 0)).any())
+    assert bool(((ind >= 0) & ~st.pending).any())
+    snap = {k: v.clone() for k, v in propagate._pool_tensors(st).items()}
+    out = {}
+    for fused in (True, False):
+        kit.fused = fused
+        work = propagate.PoolState(**{f: getattr(st, f) for f in (
+            "b", "pending", "free_path", "tau", "esc_pending", "spare_cell")},
+            tabs=None, intf=None, absd=None)
+        propagate._set_pool_tensors(
+            work, {k: v.clone() for k, v in snap.items()})
+        t, i, x = tallies()
+        work.tabs, work.intf, work.xab = t, i.view(-1), x
+        run._marches(work, () if fused else kit.lane_const_of(work.b))
+        out[fused] = work
+    got, want = out[True], out[False]
+    agree = torch.ones(lanes, dtype=torch.bool, device=cuda)
+    for f in ("ind", "scatterings", "counter"):
+        agree &= getattr(got.b, f) == getattr(want.b, f)
+    agree &= got.pending == want.pending
+    assert float(agree.float().mean()) >= 0.999
+    served = snap["pending"] & (snap["b.ind"] >= 0)
+    assert bool(served.any())
+    for out_b in (got.b, want.b):
+        assert torch.equal(out_b.counter[served], snap["b.counter"][served] + 1)
+    turned = torch.isclose(got.b.dir[served], want.b.dir[served], rtol=1e-6,
+                           atol=0).all(-1)
+    assert float(turned.float().mean()) >= 0.999
+    for a, b in ((got.b.pos, want.b.pos), (got.b.dir, want.b.dir),
+                 (got.b.photons, want.b.photons),
+                 (got.free_path, want.free_path), (got.tau, want.tau),
+                 (got.esc_pending, want.esc_pending)):
+        torch.testing.assert_close(a[agree], b[agree], rtol=1e-6, atol=0)
+    assert float(want.tabs.sum()) > 0
+    pairs = [(got.tabs, want.tabs), (got.absd, want.absd)]
+    if kit.per_freq_tally:
+        assert float(want.intf.sum()) > 0
+        pairs.append((got.intf, want.intf))
+    if kit.with_ali:
+        assert float(want.xab.sum()) > 0
+        pairs.append((got.xab, want.xab))
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-30)
+
+
+def test_fused_transport_run_matches_eager(cuda, monkeypatch):
+    """A whole transport_run (ALI, the per-frequency tally) with the
+    march block as the kernel, inside the pool's captured GraphedBlock
+    (the kernel run eagerly at the first body, recorded at the second and
+    replayed from then on), against the eager pool: the tallies, the
+    escaped weight per channel and absd within 2e-3; every body counts
+    `transport.blocks_fused`, and the eager pool's every body
+    `transport.blocks_eager`; march_kernel.launches counts one launch
+    that ran a body (the capture's recording none), the eager pool's
+    none."""
+    from soc_tpu_torch.transport import march_kernel, propagate
+    from soc_tpu_torch.utils import graphs, trace
+    replays = []
+    real = graphs.GraphedBlock.__call__
+
+    def counted(self, *args):
+        replays.append(self.graph is not None)
+        return real(self, *args)
+    monkeypatch.setattr(graphs.GraphedBlock, "__call__", counted)
+    nfreq = 8
+    grid, phys = _root_physics(cuda, nfreq)
+    params = dict(photons=torch.ones(nfreq, device=cuda), per_freq=1 << 15,
+                  hi_base=0)
+    res = {}
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(propagate.StepKit, "fuses_on",
+                                lambda self, device: False)
+        before, replays[:] = march_kernel.launches, []
+        trace.start()
+        try:
+            out = propagate.transport_run(
+                grid, phys, params, nfreq << 15,
+                torch.zeros(grid.cells, device=cuda),
+                torch.zeros((grid.cells, nfreq), device=cuda), 21,
+                nlanes=1 << 14, per_freq_tally=True, with_ali=True)
+            torch.cuda.synchronize()
+        finally:
+            counters = trace.stop()["counters"]
+        bodies = len(replays)
+        assert bodies > 4 and replays[:2] == [False, False] \
+            and all(replays[2:])
+        key = "transport.blocks_%s" % ("fused" if fused else "eager")
+        assert counters == {key: bodies}
+        assert march_kernel.launches - before == (bodies if fused else 0)
+        res[fused] = [o.double().cpu() for o in out]
+    (tabs, intf, esc, absd, xab), (etabs, eintf, eesc, eabsd, exab) = \
+        res[True], res[False]
+    for a, b in ((tabs, etabs), (intf.sum(0), eintf.sum(0)), (esc, eesc),
+                 (absd, eabsd), (xab, exab), (tabs.sum(), etabs.sum())):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
+                                   atol=1e-9 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("kind", ["octree", "mirror"])
+def test_fallback_pools_run_eager_on_card(cuda, kind):
+    """Configurations the kernel does not cover run the eager block on
+    the card: an octree and a mirrored root grid count only
+    `transport.blocks_eager` and launch no march kernel."""
+    from soc_tpu_torch.example_model import octree_cloud
+    from soc_tpu_torch.grid import grid_from_arrays
+    from soc_tpu_torch.transport import march_kernel, propagate
+    from soc_tpu_torch.utils import trace
+    nfreq = 4
+    grid, phys = _root_physics(cuda, nfreq)
+    mirror = 0
+    if kind == "octree":
+        lcells, values = octree_cloud(16, 4, 8)
+        grid = grid_from_arrays(16, 16, 16, lcells, values, cuda)
+    else:
+        mirror = 1 | 8
+    before = march_kernel.launches
+    trace.start()
+    try:
+        out = propagate.transport_run(
+            grid, phys, dict(photons=torch.ones(nfreq, device=cuda),
+                             per_freq=1 << 12, hi_base=0),
+            nfreq << 12, torch.zeros(grid.cells, device=cuda),
+            torch.zeros((1, 1), device=cuda), 3, nlanes=1 << 12,
+            mirror_mask=mirror)
+        torch.cuda.synchronize()
+    finally:
+        counters = trace.stop()["counters"]
+    assert set(counters) == {"transport.blocks_eager"}
+    assert march_kernel.launches == before
+    assert float(out[0].sum()) > 0
