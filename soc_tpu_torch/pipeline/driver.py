@@ -424,7 +424,7 @@ def _source_pass(grid, medium, kind, phase, params, counts, sel, tabs, intf,
     ``restored`` when a unit came from the checkpoint."""
     timing = {}
     with trace.span("transport.pass", into=timing, key="seconds",
-                    source=phase) as sp:
+                    source=phase, levels=grid.levels) as sp:
         tabs, intf, stats = _source_pass_run(
             grid, medium, kind, phase, params, counts, sel, tabs, intf, seed,
             lanes, per_freq_tally, physics_extra, split_max, mirror_mask,
@@ -649,7 +649,9 @@ def simulate_point_sources(grid, medium, cfg, lps, tabs, intf, seed,
     params = dict(ps_pos=torch.as_tensor(np.asarray(cfg.ps_pos, np.float32),
                                          device=device),
                   photons=torch.as_tensor(ps_photons, device=device))
-    for k, v in point_source_tables(grid, cfg).items():
+    with trace.span("sources.ps_tables", method=cfg.ps_method):
+        tables = point_source_tables(grid, cfg)
+    for k, v in tables.items():
         params[k] = v if k == "halfspace" else torch.as_tensor(
             v, device=device)
     tabs, intf, st = _source_pass(
@@ -962,7 +964,7 @@ def simulate_cell_emission(grid, medium, cfg, emitted, tabs, intf, seed,
     """
     timing = {}
     with trace.span("transport.pass", into=timing, key="seconds",
-                    source="cell") as sp:
+                    source="cell", levels=grid.levels) as sp:
         out = _cell_emission_run(grid, medium, cfg, emitted, tabs, intf,
                                  seed, lanes, per_freq_tally, iteration,
                                  physics_extra, pmesh, ckpt)
@@ -1697,73 +1699,67 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
                 xab = np.array(ckpt.saved("it_xab"))
             res.cell_passes.extend(_restored_passes(cfg, ckpt, it0, mesh))
     for iteration in range(it0, max(1, cfg.iterations)):
-        beta = 1.0
-        k = ((iteration + wr_fir) / float(wr_tot)) if wr > 1 \
-            else (iteration / float(max(1, cfg.iterations)))
-        if cfg.clpac > 0 and emitted is not None:
-            # delta_sim: this iteration simulates only the change in
-            # emission (decided before oemitted is reassigned below)
-            delta_sim = bool(wr) and oemitted is not None
-            if delta_sim:
-                oemitted = oemitted * np.float32(k)
-                otabs = otabs * np.float32(k)
-                sim_emit = emitted - oemitted
-            else:
-                sim_emit = emitted
-            tabs_it = torch.zeros(grid.cells, dtype=torch.float32,
-                                  device=device)
-            tabs_it, intf, _, xab, stats = simulate_cell_emission(
-                grid, medium, cfg, sim_emit, tabs_it, intf, seed, lanes,
-                per_freq_tally, iteration=iteration,
-                physics_extra=physics_extra, pmesh=pmesh,
-                ckpt=ckpt)
-            res.cell_passes.append(stats)
-            if delta_sim:
-                tabs_it = tabs_it + otabs
-            if wr:
-                otabs = tabs_it
-                oemitted = emitted
-            emit_total = tabs_it + ctabs
-            if cfg.with_ali and xab is not None:
-                # escape probability beta = (XEM - XAB) / XEM per cell; under
-                # WITH_REFERENCE the pass covered only the delta field, so
-                # the full-field XAB takes the same k-ramped carry as OTABS
-                xem = emitted.cpu().numpy().astype(np.float64) @ tw
-                if oxab is not None and delta_sim:
-                    oxab = oxab * np.float32(k)
-                    xab = xab + oxab
+        with trace.span("driver.iteration", iteration=iteration):
+            beta = 1.0
+            k = ((iteration + wr_fir) / float(wr_tot)) if wr > 1 \
+                else (iteration / float(max(1, cfg.iterations)))
+            if cfg.clpac > 0 and emitted is not None:
+                # delta_sim: this iteration simulates only the change in
+                # emission (decided before oemitted is reassigned below)
+                delta_sim = bool(wr) and oemitted is not None
+                if delta_sim:
+                    oemitted = oemitted * np.float32(k)
+                    otabs = otabs * np.float32(k)
+                    sim_emit = emitted - oemitted
+                else:
+                    sim_emit = emitted
+                tabs_it = torch.zeros(grid.cells, dtype=torch.float32,
+                                      device=device)
+                tabs_it, intf, _, xab, stats = simulate_cell_emission(
+                    grid, medium, cfg, sim_emit, tabs_it, intf, seed, lanes,
+                    per_freq_tally, iteration=iteration,
+                    physics_extra=physics_extra, pmesh=pmesh,
+                    ckpt=ckpt)
+                res.cell_passes.append(stats)
+                if delta_sim:
+                    tabs_it = tabs_it + otabs
                 if wr:
-                    oxab = xab
-                beta_np = np.clip((xem - xab) / np.maximum(xem, 1e-30),
-                                  1e-2, 1.0)
-                beta_np[xem <= 0] = 1.0
-                beta = torch.as_tensor(beta_np.astype(np.float32),
-                                       device=device)
-        t_prev = temperature
-        temperature, emitted = _solve_and_emit(
-            grid, table, emit_total, gl_cm, freq, abs_gl, cfg, mesh, beta)
-        if cfg.has_key("alibeta") and cfg.with_ali and t_prev is not None \
-                and torch.is_tensor(beta):
-            # the beta(T, tau) refinement with the previous iteration's
-            # temperature (the reference ships it disabled; opt-in here)
-            from ..solve.ali import refine_beta
-            beta2 = refine_beta(beta.cpu().numpy(),
-                                temperature.cpu().numpy(), freq,
-                                medium.abs_gl.cpu().numpy(),
-                                grid.dens.cpu().numpy(),
-                                t_old=t_prev.cpu().numpy())
+                    otabs = tabs_it
+                    oemitted = emitted
+                emit_total = tabs_it + ctabs
+                if cfg.with_ali and xab is not None:
+                    xab, beta = _ali_beta(emitted, tw, xab,
+                                          oxab if delta_sim else None, k,
+                                          device)
+                    if wr:
+                        oxab = xab
+            t_prev = temperature
             temperature, emitted = _solve_and_emit(
                 grid, table, emit_total, gl_cm, freq, abs_gl, cfg, mesh,
-                torch.as_tensor(beta2, device=device))
-        if ckpt is not None and cfg.clpac > 0:
-            # the iteration's state: everything the next one reads
-            ckpt.record("iter%d" % iteration, None,
-                        intf=_intf_snapshot(intf, mesh),
-                        it_emitted=emitted, it_temperature=temperature,
-                        it_emit_total=emit_total, it_oemitted=oemitted,
-                        it_otabs=otabs, it_oxab=oxab, it_xab=xab)
-        if cfg.clpac <= 0:
-            break   # nothing changes between iterations without CLPAC
+                beta)
+            if cfg.has_key("alibeta") and cfg.with_ali \
+                    and t_prev is not None and torch.is_tensor(beta):
+                # the beta(T, tau) refinement with the previous iteration's
+                # temperature (the reference ships it disabled; opt-in here)
+                from ..solve.ali import refine_beta
+                with trace.span("ali.update", step="alibeta"):
+                    beta2 = refine_beta(beta.cpu().numpy(),
+                                        temperature.cpu().numpy(), freq,
+                                        medium.abs_gl.cpu().numpy(),
+                                        grid.dens.cpu().numpy(),
+                                        t_old=t_prev.cpu().numpy())
+                temperature, emitted = _solve_and_emit(
+                    grid, table, emit_total, gl_cm, freq, abs_gl, cfg, mesh,
+                    torch.as_tensor(beta2, device=device))
+            if ckpt is not None and cfg.clpac > 0:
+                # the iteration's state: everything the next one reads
+                ckpt.record("iter%d" % iteration, None,
+                            intf=_intf_snapshot(intf, mesh),
+                            it_emitted=emitted, it_temperature=temperature,
+                            it_emit_total=emit_total, it_oemitted=oemitted,
+                            it_otabs=otabs, it_oxab=oxab, it_xab=xab)
+            if cfg.clpac <= 0:
+                break   # nothing changes between iterations without CLPAC
     if write_files and wr > 1 and oemitted is not None:
         oemitted.cpu().numpy().astype(np.float32).tofile("OEMITTED.save")
         otabs.cpu().numpy().astype(np.float32).tofile("OTABS.save")
@@ -1772,6 +1768,22 @@ def _iterations(cfg, grid, medium, optics, table, ctabs, intf, seed, lanes,
         (emitted.cpu().numpy().astype(np.float64) @ tw).astype(
             np.float32).tofile("OXEM.save")
     return temperature, emitted, intf
+
+
+def _ali_beta(emitted, tw, xab, oxab, k, device):
+    """ALI's escape probability beta = clip((XEM - XAB) / XEM, 1e-2, 1)
+    per cell (1 where XEM is 0), XEM the cell's emitted energy, in float64
+    on the host (the span `ali.update`). Under WITH_REFERENCE the pass
+    covered only the delta field, so the full-field XAB takes the same
+    k-ramped carry of ``oxab`` as OTABS (None where the pass simulated the
+    whole field). Returns (xab, beta on the device)."""
+    with trace.span("ali.update"):
+        xem = emitted.cpu().numpy().astype(np.float64) @ tw
+        if oxab is not None:
+            xab = xab + oxab * np.float32(k)
+        beta = np.clip((xem - xab) / np.maximum(xem, 1e-30), 1e-2, 1.0)
+        beta[xem <= 0] = 1.0
+        return xab, torch.as_tensor(beta.astype(np.float32), device=device)
 
 
 def _restored_passes(cfg, ckpt, it0, pmesh):

@@ -359,6 +359,15 @@ def gen_point_source(grid, ids_local, seed, params):
         r = torch.sqrt(vec[:, 0] * vec[:, 0] + vec[:, 1] * vec[:, 1]
                        + vec[:, 2] * vec[:, 2])
         new_dir = vec / torch.clamp_min(r, 1e-10)[:, None]
+        # a component of exactly 0 (the face point level with a source on
+        # a cell boundary: about one packet in 10^7 for a source on the
+        # grid's axis) would step by 0 / 0 = NaN in boundary_step; it
+        # takes the isotropic draws' DEPS, every other packet its own
+        # direction bit for bit
+        flat = new_dir == 0.0
+        new_dir = torch.where(flat.any(-1, keepdim=True),
+                              _unit(torch.where(flat, DEPS, new_dir)),
+                              new_dir)
         cos_t = torch.abs(torch.gather(new_dir, 1, axis[:, None]))[:, 0]
         s_side = _axis_pick(axis, ny * nz, nx * nz, nx * ny).to(
             torch.float32)

@@ -28,11 +28,12 @@ WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "_torch_trace_worker.py")
 
 RT_SPANS = {"driver.run", "driver.input", "driver.sources",
-            "transport.pass", "driver.solve", "driver.outputs",
-            "driver.readback", "io.write", "maps.render"}
-PIPELINE_SPANS = RT_SPANS | {"pipeline.run", "a2e.prep", "a2e.stage",
-                             "a2e.stacks", "a2e.upload", "a2e.kernel",
-                             "a2e.host"}
+            "transport.pass", "driver.solve", "driver.iteration",
+            "driver.outputs", "driver.readback", "io.write", "maps.render"}
+# the pipeline's driver runs stop before phase 2's iterations
+PIPELINE_SPANS = (RT_SPANS - {"driver.iteration"}) | {
+    "pipeline.run", "a2e.prep", "a2e.stage", "a2e.stacks", "a2e.upload",
+    "a2e.kernel", "a2e.host"}
 DRIVER_KEYS = {"driver.input": "input", "driver.sources": "constant_sources",
                "driver.solve": "solve", "driver.outputs": "outputs",
                "maps.render": "maps"}
